@@ -1,0 +1,669 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Phases, each printed on its own line; any failure exits non-zero:
+
+1. card and build: the card's name and power limit, the time to build
+   the three CUDA kernels from ``src/repro_torch/csrc``, and their
+   ``-Xptxas -v`` register and spill lines (the enclave kernel must not
+   spill: a spill would put plaintext in device memory);
+2. each kernel against its plain torch version on the card, bit for bit,
+   at the shapes of every path below (DelayedFlights' 1024-record
+   chunks and the 8-stage job's 4096-word chunks) plus a ragged row
+   count, per-row (mixed-epoch) keys and separate outbound
+   nonces/counters; each timed beside its plain version and its bound:
+   device time per call from a replayed CUDA graph (``ms``,
+   ``plain_ms``) and the eager call's time, which the host's enqueue
+   sets for kernels this small (``eager_ms``);
+3. DelayedFlights (paper §5.2) in enclave mode over the full 28 M-record
+   stream in 64 KB chunks (1024 records), one worker per stage, windows
+   of 8 chunks: identity -> delay_filter_u32(15) -> carrier_delay_stats.
+   The stream is resident on the card: its one host->device copy is
+   set-up, timed apart (``source_h2d_s``) and outside records/s.
+   The result must equal a numpy computation over the same records; then
+   a short run of the same job (256 chunks) under torch.profiler gives
+   the device's busy share and the kernels that take its time;
+4. the three modes (plain, encrypted, enclave) agree at 1 M records;
+5. rekey_every_n=3 plus a mid-stream revocation, 2 workers: encrypted
+   and enclave equal the static-key run;
+6. the 8-stage scale_f32 job (2048 chunks of 4096 f32 words) in encrypted
+   and enclave mode: the terminal sum is bit-equal across modes and to
+   numpy's float32 chain.
+
+Every pipeline run of phases 3-6 sets the kernels' launch counts to 0
+just before it and reads them just after: it fails unless exactly the
+kernels of its mode's path were launched (all three in enclave mode,
+ChaCha20 and CW-MAC in encrypted mode, none in plain mode).
+
+Then one JSON line with every kernel's numbers, and as the last line
+``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
+when no CUDA device is available.
+
+Run from the repository root:  python3 chip_smoke.py
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
+# 3.35 TB/s; 32-bit integer ops on the CUDA cores at 132 SMs x 64 INT32
+# lanes x 1.98 GHz boost = 16.7 T ops/s (the data sheet lists no int32
+# rate; the kernels do integer work only).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+# int32 operations per unit of work, counted from the algorithms
+CHACHA_OPS_PER_ROW = 10 * 8 * 12 + 16 + 16   # rounds, feed-forward, XOR
+ENCLAVE_OPS_PER_ROW = 2 * CHACHA_OPS_PER_ROW  # decrypt + re-encrypt
+CWMAC_OPS_PER_WORD = 16                       # 2 limbs x (add, mul, fold)
+
+#: the kernels each mode's path launches (plain mode seals nothing)
+KERNELS_BY_MODE = {
+    "plain": (),
+    "encrypted": ("ss_chacha20_xor_rows", "ss_cwmac_partials"),
+    "enclave": ("ss_chacha20_xor_rows", "ss_cwmac_partials",
+                "ss_enclave_map_rows"),
+}
+
+RECORDS = 28_000_000        # the paper's DelayedFlights dataset
+CHUNK_RECORDS = 1024        # 64 KB chunks: the paper's Fig. 4 knee
+WINDOW = 8
+
+
+def phase(tag: str, **kv) -> None:
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _events_ms(torch, run, calls: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def eager_ms(torch, fn, iters: int) -> float:
+    """Mean ms per eager call of ``fn()`` (warm), by CUDA events: for a
+    small kernel this is the host's enqueue time, not the device's."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return _events_ms(torch, lambda: [fn() for _ in range(iters)], iters)
+
+
+def device_ms(torch, fn, iters: int, reps: int = 5) -> float:
+    """Mean device ms per call of ``fn()``: ``iters`` calls captured in
+    one CUDA graph and replayed, so host launch overhead drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _events_ms(torch, lambda: [graph.replay() for _ in range(reps)],
+                    reps * iters)
+    del graph
+    return ms
+
+
+def max_abs_err(a, b) -> int:
+    from repro_torch.u32 import lift
+    return int((lift(a) - lift(b)).abs().max().item()) if a.numel() else 0
+
+
+def require_equal(what: str, a, b) -> None:
+    err = max_abs_err(a, b)
+    if a.shape != b.shape or err != 0:
+        raise AssertionError(f"{what}: kernel differs from its plain "
+                             f"version (max_abs_err={err})")
+
+
+def u32(rng, shape):
+    return rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+
+
+# ------------------------------------------------------------------ phases
+
+
+def phase_card_and_build(torch):
+    from repro_torch.kernels import build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build.library()
+    dt = time.perf_counter() - t0
+    phase("build", seconds=round(dt, 3),
+          built=build.build_seconds is not None, nvcc_flags=" ".join(
+              build.NVCC_FLAGS))
+    for k in build.ptxas_kernels(build.ptxas_report()):
+        phase("ptxas", kernel=k["name"], registers=k["registers"],
+              spill_stores=k["spill_stores"], spill_loads=k["spill_loads"])
+        print("   " + " | ".join(k["lines"]), flush=True)
+        if "enclave_rows_kernel" in k["name"] and k["spill_stores"] != 0:
+            raise AssertionError(f"{k['name']} spills registers: plaintext "
+                                 f"would reach device memory")
+
+
+def phase_kernels(torch, dev):
+    from repro_torch.crypto import cwmac
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
+    from repro_torch.kernels.cwmac import ops as cwmac_ops
+    from repro_torch.kernels.cwmac.ref import mac_partials_batch_ref
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    from repro_torch.kernels.enclave_map.ref import enclave_apply_rows_ref
+    from repro_torch.u32 import from_numpy, repeat_rows
+
+    rng = np.random.default_rng(0)
+    B = WINDOW
+    n_blocks = CHUNK_RECORDS                 # 16 words per record
+    n_words = n_blocks * 16
+    T = lambda a: from_numpy(a, dev)         # noqa: E731
+    rows_out = []
+
+    # ---- ChaCha20 rows: one seal_many of a window (8 x (1 + 1024) rows)
+    R = B * (n_blocks + 1)
+    key = T(u32(rng, 8))
+    nonces = repeat_rows(T(u32(rng, (B, 3))), n_blocks + 1)
+    ctrs = torch.arange(n_blocks + 1, dtype=torch.int32,
+                        device=dev).repeat(B)
+    data = T(u32(rng, (R, 16)))
+    got = chacha_ops.xor_rows(key, nonces, ctrs, data)
+    want = chacha20_xor_rows_ref(key, nonces, ctrs, data)
+    require_equal("chacha20 shared key", got, want)
+    err = max_abs_err(got, want)
+    Rr = 1037                                # ragged, per-row keys
+    args = (T(u32(rng, (Rr, 8))), T(u32(rng, (Rr, 3))), T(u32(rng, Rr)),
+            T(u32(rng, (Rr, 16))))
+    require_equal("chacha20 ragged per-row keys",
+                  chacha_ops.xor_rows(*args), chacha20_xor_rows_ref(*args))
+    run = lambda: chacha_ops.xor_rows(key, nonces, ctrs, data)  # noqa
+    ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
+    plain = device_ms(torch, lambda: chacha20_xor_rows_ref(
+        key, nonces, ctrs, data), 2, reps=3)
+    b, by = bound(R * (64 + 64 + 12 + 4) + 32, R * CHACHA_OPS_PER_ROW)
+    rows_out.append(dict(
+        name="chacha20_xor_rows", route="cuda",
+        source="src/repro_torch/csrc/chacha20.cu",
+        replaces="src/repro/kernels/chacha20/chacha20.py:37",
+        symbol="ss_chacha20_xor_rows", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        eager_ms=eager, shape=f"R={R} rows x 16 words, shared key"))
+    phase("kernel", name="chacha20_xor_rows", rows=R, bit_equal=True,
+          ragged_rows=Rr, ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
+          bound_by=by)
+
+    # per-row (mixed-epoch) keys at the same shape, and the mac-key
+    # derivation's launch: B zero rows at counter 0 under per-row keys
+    row_keys = repeat_rows(T(u32(rng, (B, 8))), n_blocks + 1)
+    require_equal("chacha20 per-row keys", chacha_ops.xor_rows(
+        row_keys, nonces, ctrs, data), chacha20_xor_rows_ref(
+        row_keys, nonces, ctrs, data))
+    args = (T(u32(rng, (B, 8))), T(u32(rng, (B, 3))),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.zeros((B, 16), dtype=torch.int32, device=dev))
+    require_equal("chacha20 mac-key rows", chacha_ops.xor_rows(*args),
+                  chacha20_xor_rows_ref(*args))
+
+    # ---- CW-MAC: mac2 of a window, 2 keys x 8 rows x 16384 words
+    words = T(u32(rng, (B, n_words)))
+    mk = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, (B, 4)),
+                         dtype=torch.int32, device=dev)
+    r1, s1, r2, s2 = (mk[:, i] for i in range(4))
+    require_equal("cwmac mac2 tags", cwmac_ops.mac2_batch(
+        words, r1, s1, r2, s2), cwmac.mac2_batch(words, r1, s1, r2, s2))
+    rr = torch.cat([r1, r2])
+    got = cwmac_ops.mac_partials_batch(words, rr)
+    want = mac_partials_batch_ref(words, rr, cwmac_ops.TILE_WORDS)
+    require_equal("cwmac partials", got, want)
+    err = max_abs_err(got, want)
+    wr = T(u32(rng, (3, 5003)))              # ragged: a partial last tile
+    kr = mk[:3]
+    require_equal("cwmac ragged", cwmac_ops.mac2_batch(
+        wr, kr[:, 0], kr[:, 1], kr[:, 2], kr[:, 3]), cwmac.mac2_batch(
+        wr, kr[:, 0], kr[:, 1], kr[:, 2], kr[:, 3]))
+    # the kernel alone, then the whole mac2 wrapper (kernel + torch fold)
+    run = lambda: cwmac_ops.mac_partials_batch(words, rr)  # noqa: E731
+    ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
+    plain = device_ms(torch, lambda: mac_partials_batch_ref(
+        words, rr, cwmac_ops.TILE_WORDS), 2, reps=3)
+    mac2 = lambda: cwmac_ops.mac2_batch(words, r1, s1, r2, s2)  # noqa: E731
+    mac2_ms, mac2_eager = device_ms(torch, mac2, 50), eager_ms(torch, mac2,
+                                                                200)
+    mac2_plain = device_ms(torch, lambda: cwmac.mac2_batch(
+        words, r1, s1, r2, s2), 2, reps=3)
+    T_tiles = got.shape[1]
+    b, by = bound(B * n_words * 4 + 2 * B * 4 + 2 * B * T_tiles * 4,
+                  2 * B * n_words * CWMAC_OPS_PER_WORD)
+    rows_out.append(dict(
+        name="cwmac_partials", route="cuda",
+        source="src/repro_torch/csrc/cwmac.cu",
+        replaces="src/repro/kernels/cwmac/cwmac.py:59",
+        symbol="ss_cwmac_partials", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        eager_ms=eager, mac2_ms=mac2_ms, mac2_eager_ms=mac2_eager,
+        mac2_plain_ms=mac2_plain,
+        shape=f"2 keys x {B} rows x {n_words} words -> (16, {T_tiles}) "
+              f"partials; mac2_* = the wrapper with its fold"))
+    phase("kernel", name="cwmac_partials", rows=2 * B, words=n_words,
+          bit_equal=True, ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
+          bound_by=by, mac2_ms=mac2_ms, mac2_eager_ms=mac2_eager,
+          mac2_plain_ms=mac2_plain)
+
+    # ---- enclave map: one enclave hop of a window (8 x 1024 rows)
+    R = B * n_blocks
+    kin, kout = T(u32(rng, 8)), T(u32(rng, 8))
+    nonces = repeat_rows(T(u32(rng, (B, 3))), n_blocks)
+    ctrs = torch.arange(1, n_blocks + 1, dtype=torch.int32,
+                        device=dev).repeat(B)
+    special = np.array([0x7FC00000, 0x7F800001, 0xFFC00001, 0x80000000, 0,
+                        1, 0x00400000, 0x80000001, 0x1FFFFFFF, 0x20000000,
+                        0x7F7FFFFF, 0xFF800000, 0x7F800000, 0x00800000,
+                        0x80000010, 0xFFFFFFFF], np.uint32)
+    pt = u32(rng, (R, 16))
+    pt[:, 1] = rng.integers(0, 64, R)        # delay word near the threshold
+    pt[: len(special)] = special
+    data = T(pt)
+    for op, c in [("identity", 0.0), ("scale_f32", 0.1), ("relu_f32", 0.0),
+                  ("square_f32", 0.0), ("threshold_mask", -0.5),
+                  ("delay_filter_u32", 15.0)]:
+        got = em_ops.enclave_map_rows(kin, kout, nonces, ctrs, data, op=op,
+                                      const=c)
+        want = enclave_apply_rows_ref(kin, kout, nonces, ctrs, data, op=op,
+                                      const=c)
+        require_equal(f"enclave_map {op}", got, want)
+    Rr = 777                                 # ragged, mixed epochs, reseal
+    args = (T(u32(rng, (Rr, 8))), T(u32(rng, (Rr, 8))),
+            T(u32(rng, (Rr, 3))), T(u32(rng, Rr)), T(u32(rng, (Rr, 16))))
+    kw = dict(op="scale_f32", const=-2.5, nonces_out=T(u32(rng, (Rr, 3))),
+              counters_out=T(u32(rng, Rr)))
+    require_equal("enclave_map ragged per-row keys + reseal coords",
+                  em_ops.enclave_map_rows(*args, **kw),
+                  enclave_apply_rows_ref(*args, **kw))
+    kw = dict(op="delay_filter_u32", const=15.0)
+    got = em_ops.enclave_map_rows(kin, kout, nonces, ctrs, data, **kw)
+    err = max_abs_err(got, enclave_apply_rows_ref(kin, kout, nonces, ctrs,
+                                                  data, **kw))
+    run = lambda: em_ops.enclave_map_rows(kin, kout, nonces, ctrs,  # noqa
+                                          data, **kw)
+    ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
+    plain = device_ms(torch, lambda: enclave_apply_rows_ref(
+        kin, kout, nonces, ctrs, data, **kw), 2, reps=3)
+    b, by = bound(R * (64 + 64 + 2 * (12 + 4)) + 64,
+                  R * ENCLAVE_OPS_PER_ROW)
+    rows_out.append(dict(
+        name="enclave_map_rows", route="cuda",
+        source="src/repro_torch/csrc/enclave_map.cu",
+        replaces="src/repro/kernels/enclave_map/enclave_map.py:84",
+        symbol="ss_enclave_map_rows", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        eager_ms=eager, shape=f"R={R} rows x 16 words, delay_filter_u32"))
+    phase("kernel", name="enclave_map_rows", rows=R, ops=6, bit_equal=True,
+          ragged_rows=Rr, ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
+          bound_by=by)
+    # per-row (mixed-epoch) keys at the same shape, as phase 5 gives them
+    kw = dict(op="delay_filter_u32", const=15.0)
+    args = (repeat_rows(T(u32(rng, (B, 8))), n_blocks),
+            repeat_rows(T(u32(rng, (B, 8))), n_blocks), nonces, ctrs, data)
+    require_equal("enclave_map per-row keys",
+                  em_ops.enclave_map_rows(*args, **kw),
+                  enclave_apply_rows_ref(*args, **kw))
+    phase_kernels_stage8_shapes(torch, dev, rng)
+    return rows_out
+
+
+def phase_kernels_stage8_shapes(torch, dev, rng, chunk_words=4096):
+    """Each kernel against its plain version at the shapes phase 6's
+    8-stage scale_f32 job gives it: a window of 8 chunks of 4096 words
+    (256 blocks), shared and per-row keys, separate outbound coords."""
+    from repro_torch.crypto import cwmac
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
+    from repro_torch.kernels.cwmac import ops as cwmac_ops
+    from repro_torch.kernels.cwmac.ref import mac_partials_batch_ref
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    from repro_torch.kernels.enclave_map.ref import enclave_apply_rows_ref
+    from repro_torch.u32 import from_numpy, repeat_rows
+    T = lambda a: from_numpy(a, dev)         # noqa: E731
+    B, n_blocks = WINDOW, chunk_words // 16
+    checked = []
+
+    # seal_many/open_many of a window: B x (1 + 256) = 2056 rows
+    R = B * (n_blocks + 1)
+    nonces = repeat_rows(T(u32(rng, (B, 3))), n_blocks + 1)
+    ctrs = torch.arange(n_blocks + 1, dtype=torch.int32,
+                        device=dev).repeat(B)
+    data = T(u32(rng, (R, 16)))
+    for keys in (T(u32(rng, 8)),
+                 repeat_rows(T(u32(rng, (B, 8))), n_blocks + 1)):
+        require_equal(f"chacha20 R={R}", chacha_ops.xor_rows(
+            keys, nonces, ctrs, data), chacha20_xor_rows_ref(
+            keys, nonces, ctrs, data))
+    checked.append(f"chacha20:{R}x16")
+
+    # mac2 of a window: 2 keys x 8 rows x 4096 words (two whole tiles)
+    words = T(u32(rng, (B, chunk_words)))
+    mk = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, (B, 4)),
+                         dtype=torch.int32, device=dev)
+    r1, s1, r2, s2 = (mk[:, i] for i in range(4))
+    rr = torch.cat([r1, r2])
+    require_equal(f"cwmac partials {2 * B}x{chunk_words}",
+                  cwmac_ops.mac_partials_batch(words, rr),
+                  mac_partials_batch_ref(words, rr, cwmac_ops.TILE_WORDS))
+    require_equal(f"cwmac mac2 {2 * B}x{chunk_words}", cwmac_ops.mac2_batch(
+        words, r1, s1, r2, s2), cwmac.mac2_batch(words, r1, s1, r2, s2))
+    checked.append(f"cwmac:{2 * B}x{chunk_words}")
+
+    # the enclave hop: B x 256 = 2048 rows of scale_f32
+    R = B * n_blocks
+    data = T(u32(rng, (R, 16)))
+    nonces = repeat_rows(T(u32(rng, (B, 3))), n_blocks)
+    ctrs = torch.arange(1, n_blocks + 1, dtype=torch.int32,
+                        device=dev).repeat(B)
+    for kin, kout, kw in [
+            (T(u32(rng, 8)), T(u32(rng, 8)), {}),
+            (repeat_rows(T(u32(rng, (B, 8))), n_blocks),
+             repeat_rows(T(u32(rng, (B, 8))), n_blocks),
+             dict(nonces_out=repeat_rows(T(u32(rng, (B, 3))), n_blocks),
+                  counters_out=T(u32(rng, R))))]:
+        for c in (1.0, 1.0625, 1.4375):
+            require_equal(f"enclave_map scale_f32({c}) R={R}",
+                          em_ops.enclave_map_rows(kin, kout, nonces, ctrs,
+                                                  data, op="scale_f32",
+                                                  const=c, **kw),
+                          enclave_apply_rows_ref(kin, kout, nonces, ctrs,
+                                                 data, op="scale_f32",
+                                                 const=c, **kw))
+    checked.append(f"enclave_map:{R}x16")
+    phase("kernel_shapes", job="stage8", bit_equal=True,
+          checked=",".join(checked))
+
+
+def _flights_pipeline(mode, workers, dev, *, directory=None):
+    from repro_torch.configs.base import SecureStreamConfig
+    from repro_torch.core.pipeline import Pipeline, Stage
+    from repro_torch.dsl.reducers import resolve_reducer
+    fn, init = resolve_reducer("carrier_delay_stats", device=dev)
+    return Pipeline([
+        Stage("sgx_mapper", op="identity", workers=workers),
+        Stage("sgx_filter", op="delay_filter_u32", const=15,
+              workers=workers),
+        Stage("reducer", op="custom", reduce_fn=fn, reduce_init=init),
+    ], SecureStreamConfig(mode=mode), window_chunks=WINDOW,
+        directory=directory, device=dev)
+
+
+def _numpy_flights(recs: np.ndarray):
+    keep = recs[:, 1] > 15
+    return (np.bincount(recs[keep, 0], minlength=20).astype(np.float64),
+            np.bincount(recs[keep, 0], weights=recs[keep, 1]
+                        .astype(np.float64), minlength=20))
+
+
+def _chunks(recs_dev, n_chunks, revoke=None):
+    for i in range(n_chunks):
+        if revoke is not None and i == revoke[0]:
+            revoke[1]()
+        yield recs_dev[i * CHUNK_RECORDS:(i + 1) * CHUNK_RECORDS]
+
+
+def _check_flights(what, out, ref):
+    count, total = (out["count"].cpu().numpy(), out["sum"].cpu().numpy())
+    if not (np.array_equal(count, ref[0]) and np.array_equal(total, ref[1])):
+        raise AssertionError(f"{what}: result differs from numpy")
+
+
+def counted_run(torch, what, mode, run):
+    """``run()`` with every kernel's launch count set to 0 just before it
+    and read just after; fails unless exactly the kernels of ``mode``'s
+    path were launched (plain mode launches none).  -> (result of
+    ``run()``, {kernel symbol: launches})."""
+    from repro_torch.kernels import build
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    phase("launches", run=what, mode=mode, **launches)
+    want = set(KERNELS_BY_MODE[mode])
+    ran = {k for k, v in launches.items() if v}
+    if not want <= set(launches) or ran != want:
+        raise AssertionError(
+            f"{what}: {mode} mode should launch exactly {sorted(want)}, "
+            f"launched {sorted(ran)}")
+    return out, launches
+
+
+def phase_delayed_flights(torch, dev, n_records):
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.u32 import from_numpy
+    t0 = time.perf_counter()
+    n_chunks = n_records // CHUNK_RECORDS
+    recs = flight_records(n_records, seed=1)[:n_chunks * CHUNK_RECORDS]
+    ref = _numpy_flights(recs)
+    t1 = time.perf_counter()
+    recs_dev = from_numpy(recs, dev)         # the stream, on the card
+    torch.cuda.synchronize()
+    setup, h2d = time.perf_counter() - t0, time.perf_counter() - t1
+    p = _flights_pipeline("enclave", 1, dev)
+    (out, wall), launches = counted_run(
+        torch, "delayed_flights", "enclave",
+        _timed(torch, p, _chunks(recs_dev, n_chunks)))
+    _check_flights("DelayedFlights enclave", out, ref)
+    n = n_chunks * CHUNK_RECORDS
+    phase("delayed_flights", mode="enclave", records=n, chunks=n_chunks,
+          chunk_bytes=CHUNK_RECORDS * 64, window_chunks=WINDOW,
+          setup_s=round(setup, 3), source_h2d_s=round(h2d, 4),
+          wall_s=round(wall, 3),
+          records_per_s=round(n / wall, 1),
+          mb_per_s=round(n * 64 / 1e6 / wall, 2), exact=True,
+          delayed=int(ref[0].sum()))
+    rep = p.report()
+    for name, r in rep.items():
+        print(f"   report {name}: {json.dumps(r)}", flush=True)
+    return launches
+
+
+def phase_profile(torch, dev, n_records):
+    """Where the time of the enclave-mode job goes: a short steady run
+    under torch.profiler — device busy share (kernel time over wall) and
+    the kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.u32 import from_numpy
+    n_chunks = n_records // CHUNK_RECORDS
+    recs_dev = from_numpy(flight_records(n_chunks * CHUNK_RECORDS, seed=2),
+                          dev)
+    _flights_pipeline("enclave", 1, dev).run(_chunks(recs_dev, WINDOW * 2))
+    p = _flights_pipeline("enclave", 1, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p.run(_chunks(recs_dev, n_chunks))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows) / 1e6          # microseconds -> s
+    if not rows:
+        phase("profile", device_busy="not measured (no device time in "
+              "the trace)", wall_s=round(wall, 3))
+        return
+    rows.sort(key=lambda r: -r[1])
+    phase("profile", records=n_chunks * CHUNK_RECORDS,
+          windows=n_chunks // WINDOW, wall_s=round(wall, 4),
+          device_busy_s=round(busy, 4),
+          device_busy_share=round(busy / wall, 4),
+          wall_per_window_ms=round(wall / (n_chunks / WINDOW) * 1e3, 3))
+    for key, t, count in rows[:12]:
+        print(f"   device {t / 1e3:10.3f} ms  {count:7d} calls  {key[:90]}",
+              flush=True)
+
+
+def _timed(torch, p, source, **kw):
+    """``p.run(source, **kw)`` to its end on the card -> (out, seconds)."""
+    def go():
+        t0 = time.perf_counter()
+        out = p.run(source, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    return go
+
+
+def phase_modes(torch, dev, n_records):
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.u32 import from_numpy
+    n_chunks = n_records // CHUNK_RECORDS
+    recs = flight_records(n_records, seed=1)[:n_chunks * CHUNK_RECORDS]
+    ref = _numpy_flights(recs)
+    recs_dev = from_numpy(recs, dev)
+    secs = {}
+    for mode in ("plain", "encrypted", "enclave"):
+        p = _flights_pipeline(mode, 1, dev)
+        (out, dt), _ = counted_run(torch, "modes", mode, _timed(
+            torch, p, _chunks(recs_dev, n_chunks)))
+        secs[mode] = round(dt, 3)
+        _check_flights(f"DelayedFlights {mode}", out, ref)
+    phase("modes", records=n_chunks * CHUNK_RECORDS, identical=True,
+          **{f"{m}_s": s for m, s in secs.items()})
+
+
+def phase_rekey(torch, dev, n_records):
+    from repro_torch.core.pipeline import Pipeline
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.u32 import from_numpy
+    n_chunks = n_records // CHUNK_RECORDS
+    recs = flight_records(n_records, seed=1)[:n_chunks * CHUNK_RECORDS]
+    ref = _numpy_flights(recs)
+    recs_dev = from_numpy(recs, dev)
+    for mode in ("encrypted", "enclave"):
+        (static, _), _ = counted_run(
+            torch, "static_keys", mode, _timed(
+                torch, _flights_pipeline(mode, 2, dev),
+                _chunks(recs_dev, n_chunks)))
+        p = _flights_pipeline(mode, 2, dev)
+        revoke = (n_chunks // 2, lambda: p.directory.revoke(
+            Pipeline.worker_id("sgx_mapper", 1)))
+        (out, _), _ = counted_run(
+            torch, "rekey_revocation", mode, _timed(
+                torch, p, _chunks(recs_dev, n_chunks, revoke),
+                rekey_every_n=3))
+        _check_flights(f"{mode} static keys", static, ref)
+        _check_flights(f"{mode} rekey+revocation", out, ref)
+        audit = p.directory.audit.summary()
+        if audit.get("rekey", 0) < 2 or audit.get("revocation") != 1:
+            raise AssertionError(f"{mode}: expected rekeys and one "
+                                 f"revocation, audit says {audit}")
+        phase("rekey_revocation", mode=mode, chunks=n_chunks,
+              rekeys=audit["rekey"], revocations=audit["revocation"],
+              evictions=audit.get("eviction", 0), equal_static=True)
+
+
+def phase_stage8(torch, dev, n_chunks, chunk_words=4096):
+    from repro_torch.attest.directory import KeyDirectory
+    from repro_torch.configs.base import SecureStreamConfig
+    from repro_torch.core.pipeline import Pipeline, Stage
+    from repro_torch.dsl.reducers import resolve_reducer
+    consts = [1.0 + 0.0625 * i for i in range(8)]
+    x = np.random.default_rng(7).standard_normal(
+        (n_chunks, chunk_words)).astype(np.float32)
+    y = x
+    for c in consts:
+        y = y * np.float32(c)
+    want = np.cumsum(y, axis=0, dtype=np.float32)[-1]   # sequential fold
+    x_dev = torch.as_tensor(x, device=dev)
+    outs = {}
+    for mode in ("encrypted", "enclave"):
+        fn, init = resolve_reducer("sum")
+        stages = [Stage(f"s{i}", op="scale_f32", const=c,
+                        workers=2 if i == 2 else 1)
+                  for i, c in enumerate(consts)]
+        stages.append(Stage("sum", op="custom", reduce_fn=fn,
+                            reduce_init=init))
+        p = Pipeline(stages, SecureStreamConfig(mode=mode),
+                     directory=KeyDirectory(seed=0, epoch_history=64),
+                     window_chunks=WINDOW, device=dev)
+        (out, dt), _ = counted_run(torch, "stage8", mode, _timed(
+            torch, p, (x_dev[i] for i in range(n_chunks))))
+        outs[mode] = out.cpu().numpy()
+        if outs[mode].view(np.uint32).tobytes() != want.view(
+                np.uint32).tobytes():
+            raise AssertionError(f"8-stage {mode}: sum differs from numpy")
+        phase("stage8", mode=mode, chunks=n_chunks, chunk_words=chunk_words,
+              wall_s=round(dt, 3),
+              mb_per_s=round(n_chunks * chunk_words * 4 / 1e6 / dt, 2),
+              bit_equal_numpy=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--records", type=int, default=RECORDS,
+                    help="DelayedFlights records of phase 3")
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
+                    help="comma-separated phases to run")
+    args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script measures the port on a GPU only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+    phase("start", torch=torch.__version__, cuda=torch.version.cuda,
+          python=sys.version.split()[0],
+          device=torch.cuda.get_device_name(0))
+    phase_card_and_build(torch)
+    kernels = phase_kernels(torch, dev) if 2 in phases else []
+    if 3 in phases:
+        launches = phase_delayed_flights(torch, dev, args.records)
+        for k in kernels:
+            k["launches"] = launches[k.pop("symbol")]
+        phase_profile(torch, dev, 256 * CHUNK_RECORDS)
+    if 4 in phases:
+        phase_modes(torch, dev, 1 << 20)
+    if 5 in phases:
+        phase_rekey(torch, dev, 64 * CHUNK_RECORDS)
+    if 6 in phases:
+        phase_stage8(torch, dev, 2048)
+    phase("done", seconds=round(time.perf_counter() - t_start, 3))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

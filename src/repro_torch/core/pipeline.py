@@ -1,0 +1,686 @@
+"""Pipeline: named stages -> an executable secure dataflow.
+
+Port of the window engine of ``repro/core/pipeline.py``.  A pipeline is a
+list of named stages (the paper's Listing 1), each with an operator, a
+worker count and a placement; stages between the attested ingress and
+the trusted sink run under the configured security mode.
+
+Execution is streaming and **window-vectorized**: the unit of device
+work is a window of ``window_chunks`` chunks per worker.  Ingress seals
+whole windows with the batched AEAD (window N+1 is sealed before window
+N is handed downstream, so its kernels queue behind the downstream
+work), with nonce-counter blocks reserved per window from the directory.
+Each stage dispatches every worker's share of a window as ONE batched
+open -> operator -> seal chain, and MAC verdicts are **deferred**: they
+stay on the device and reach the host once per window (one device->host
+copy, :func:`_sync_window`), where failed rows are dropped and counted.
+
+Per-edge session keys come from a :class:`KeyDirectory`: every stage
+worker is measured, enrolled and admitted only if its quote verifies,
+and edge keys are established by the attested handshake.
+``run(rekey_every_n=...)`` rotates every edge key mid-stream; a window
+straddling a flip opens every row under its ingress epoch, and
+``KeyDirectory.revoke`` evicts a worker live.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item rather than being served by something else): the ``window_chunks=1``
+per-chunk oracle engine, and fault tolerance (``retry=``/``chaos=``).
+Span tracing and the live monitor are not ported either; the engine
+takes no ``tracer=``/``monitor=``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, \
+    Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.attest.directory import (EdgeHandle, KeyDirectory,
+                                          KeyDirectoryError)
+from repro_torch.attest.measure import IO_ENDPOINT, measure_stage
+from repro_torch.configs.base import SecureStreamConfig
+from repro_torch.core.enclave import (EnclaveExecutor, SealedWindow,
+                                      egress_window, plain_window,
+                                      seal_tensors_window, uniform_runs)
+from repro_torch.obs.metrics import REGISTRY as _METRICS
+from repro_torch.u32 import from_numpy, host_to_device
+
+_ORACLE_ITEM = "ROADMAP Queue 1 item 10 (the window_chunks=1 oracle engine)"
+_FT_ITEM = "ROADMAP Queue 1 item 12 (fault tolerance)"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``"cuda"`` unless the caller
+    names another.  Without a card, ``None`` or ``"cuda"`` is an error:
+    nothing moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain torch "
+            "versions of the kernels on the CPU")
+    return dev
+
+
+@dataclass
+class Stage:
+    """One named pipeline stage — the paper's Listing-1 unit.
+
+    ``op`` names a statically registered operator
+    (``repro_torch.kernels.enclave_map.enclave_map.OPS`` — the only code
+    attestable under ``mode="enclave"``) or ``"custom"`` when
+    ``fn``/``reduce_fn`` carries a Python callable (plain/encrypted
+    modes only).  ``workers`` is the stage's fan-out pool size; ``sgx``
+    is the paper's ``constraint:type==sgx`` placement flag (non-sgx
+    stages run on the encrypted path when the pipeline mode is
+    ``enclave``).  A stage with ``reduce_fn`` is terminal: it folds
+    decrypted chunks at the trusted sink edge, seeded with
+    ``reduce_init``."""
+    name: str
+    op: str                              # static registry op name, or "custom"
+    const: float = 0.0
+    fn: Optional[Callable] = None        # custom fn (plain/encrypted only)
+    workers: int = 1
+    sgx: bool = True                     # paper: constraint:type==sgx
+    reduce_fn: Optional[Callable] = None # terminal reduce (runs at egress)
+    reduce_init: Any = None
+
+
+@dataclass
+class StageMetrics:
+    """Per-stage counters behind ``Pipeline.report()`` (paper Fig. 6-8):
+    surviving chunks, payload bytes, execution seconds (measured at
+    window granularity through the window's host sync), MAC failures,
+    per-worker chunk counts, windows and wrapper-level dispatches."""
+    chunks: int = 0
+    bytes: int = 0
+    seconds: float = 0.0
+    mac_failures: int = 0
+    per_worker: List[int] = field(default_factory=list)
+    windows: int = 0
+    dispatches: int = 0
+
+    @property
+    def dispatches_per_window(self) -> Optional[float]:
+        if self.windows == 0:
+            return None
+        return self.dispatches / self.windows
+
+    @property
+    def throughput_mbps(self) -> Optional[float]:
+        """Payload MB/s over the measured seconds (None: nothing measured)."""
+        if self.seconds <= 0.0:
+            return None
+        return (self.bytes / 1e6) / self.seconds
+
+    @property
+    def mac_failure_rate(self) -> Optional[float]:
+        seen = self.chunks + self.mac_failures
+        if seen == 0:
+            return None
+        return self.mac_failures / seen
+
+
+# One host rendezvous per window (the deferred verdicts' single
+# device->host copy, which also waits for the window's kernels).
+_HOST_SYNCS = _METRICS.counter("pipeline.host_syncs")
+_DISPATCHES = _METRICS.counter("device.dispatches")
+
+
+def host_sync_count() -> int:
+    """Device->host rendezvous performed by the streaming engine (one
+    per window)."""
+    return int(_HOST_SYNCS.value)
+
+
+def reset_host_sync_count() -> None:
+    _HOST_SYNCS.reset()
+
+
+def _shape_runs(xs: List[torch.Tensor]):
+    """Consecutive same-(shape, dtype) runs of a tensor list — each run
+    frames as one batched window (ragged tails get their own)."""
+    return uniform_runs(xs, lambda x: (tuple(x.shape), x.dtype))
+
+
+def _sync_window(outputs: List[torch.Tensor],
+                 vec_specs: List[Tuple[Optional[torch.Tensor], int]],
+                 device: torch.device) -> np.ndarray:
+    """THE one host sync of a window: every deferred MAC verdict in a
+    single device->host copy, which is queued behind (and so waits for)
+    every kernel of the window.  ``vec_specs`` is [(device verdict
+    vector or None, n)]; None (plain mode) counts as all-pass."""
+    _HOST_SYNCS.inc()
+    if all(ok is None for ok, _ in vec_specs):
+        if outputs and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return np.ones(sum(n for _, n in vec_specs), bool)
+    parts = [torch.ones((n,), dtype=torch.bool, device=device)
+             if ok is None else ok for ok, n in vec_specs]
+    vec = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return vec.cpu().numpy()
+
+
+class Pipeline:
+    """An executable secure dataflow: ordered :class:`Stage` list +
+    per-edge attested session keys, streamed by the window engine on
+    ``device`` (``"cuda"`` by default; ``"cpu"`` runs the plain torch
+    versions of the kernels)."""
+
+    def __init__(self, stages: Sequence[Stage],
+                 secure: SecureStreamConfig = SecureStreamConfig(),
+                 seed: int = 0,
+                 directory: Optional[KeyDirectory] = None,
+                 window_chunks: int = 8,
+                 device=None,
+                 retry=None,
+                 chaos=None):
+        if retry is not None or chaos is not None:
+            raise NotImplementedError(
+                f"retry=/chaos= are not ported yet: {_FT_ITEM}")
+        self.device = resolve_device(device)
+        self.stages = list(stages)
+        self.secure = secure
+        self.seed = seed
+        # dispatch/window accounting for the ingress and egress hops
+        # (stage hops live in StageMetrics)
+        self._ingress_windows_n = 0
+        self._ingress_dispatches = 0
+        self._egress_windows_n = 0
+        self._egress_dispatches = 0
+        # worker ids whose eviction has already been audit-logged
+        self._evicted_logged: set = set()
+        # chunks per worker per window: each worker's queue of a window is
+        # ONE batched device dispatch
+        self.window_chunks = max(1, int(window_chunks))
+        self.directory = directory if directory is not None \
+            else KeyDirectory(seed=seed)
+        self._setup_attestation()
+        # edge i connects stage i-1 -> i (+ source and sink); plain mode
+        # never touches a key, so it skips the edge handshakes
+        self.keys: List[Optional[EdgeHandle]] = [
+            self.directory.handle(f"edge{i}")
+            for i in range(len(self.stages) + 1)
+        ] if secure.mode != "plain" else [None] * (len(self.stages) + 1)
+        self.metrics: Dict[str, StageMetrics] = {
+            s.name: StageMetrics() for s in self.stages}
+
+    # -------------------------------------------------------- attestation
+
+    @staticmethod
+    def worker_id(stage_name: str, w: int) -> str:
+        """Directory identity of worker ``w`` of a stage — the id
+        ``KeyDirectory.revoke`` takes to evict it live."""
+        return f"{stage_name}/w{w}"
+
+    def _setup_attestation(self) -> None:
+        """Measure + enroll every endpoint and worker, verify quotes, and
+        establish per-edge session keys via the attested handshake.
+        Revoked worker ids stay quarantined; existing edge sessions are
+        reused so a rescale does not re-key the stream."""
+        d = self.directory
+        S = len(self.stages)
+        endpoints = ["io/source"] + [f"stage/{s.name}" for s in self.stages] \
+            + ["io/sink"]
+        d.enroll("io/source", IO_ENDPOINT, allow=True)
+        d.enroll("io/sink", IO_ENDPOINT, allow=True)
+        for st in self.stages:
+            m = measure_stage(op=st.op, const=st.const, fn=st.fn, sgx=st.sgx)
+            d.policy.allow(m)
+            d.enroll(f"stage/{st.name}", m)
+            for w in range(max(1, st.workers)):
+                wid = self.worker_id(st.name, w)
+                if d.policy.is_revoked(wid):
+                    continue                     # stays evicted
+                d.enroll(wid, m)
+                d.admit(wid)                     # raises unless quote verifies
+        if self.secure.mode == "plain":
+            return                               # no keys -> no handshakes
+        for i in range(S + 1):
+            if not d.has_session(f"edge{i}"):
+                d.establish(f"edge{i}", endpoints[i], endpoints[i + 1],
+                            stage_id=i)
+
+    def _live_workers(self, st: Stage) -> List[int]:
+        """Worker indices still dispatchable (revocation is the only bit
+        that can flip mid-stream: a set lookup per window)."""
+        live = []
+        for w in range(max(1, st.workers)):
+            wid = self.worker_id(st.name, w)
+            if self.directory.policy.is_revoked(wid):
+                if wid not in self._evicted_logged:
+                    self._evicted_logged.add(wid)
+                    self.directory.audit.record("eviction", worker=wid,
+                                                stage=st.name)
+                continue
+            live.append(w)
+        if not live:
+            raise KeyDirectoryError(
+                f"every worker of stage {st.name!r} is revoked or "
+                f"inadmissible — nothing can process the edge")
+        return live
+
+    # ------------------------------------------------------------------ run
+
+    def _worker_pool(self, i: int, st: Stage) -> List[EnclaveExecutor]:
+        """One executor per worker of stage i, all sharing the edge keys."""
+        mode = self.secure.mode
+        st_mode = mode if st.sgx else ("plain" if mode == "plain"
+                                       else "encrypted")
+        return [EnclaveExecutor(st_mode, self.keys[i], self.keys[i + 1])
+                for _ in range(max(1, st.workers))]
+
+    def _stage_stream(self, upstream: Iterator[SealedWindow], st: Stage,
+                      pool: List[EnclaveExecutor],
+                      window_chunks: int) -> Iterator[SealedWindow]:
+        """Fan a window stream across the stage's workers.
+
+        Each round accumulates ``len(live) * window_chunks`` rows,
+        round-robins them over the live workers by rolling global row
+        index (row g goes to worker g mod W), and runs each worker's
+        share as ONE batched dispatch (a device gather splits the
+        window; a single live worker gets the window untouched).  The
+        round syncs to host ONCE; failed rows are dropped and counted,
+        and survivors flow on in stream order.  Revocation is re-checked
+        per round, so a revoked worker stops receiving rows at the next
+        dispatch."""
+        m = self.metrics[st.name]
+        if len(m.per_worker) < len(pool):
+            m.per_worker.extend([0] * (len(pool) - len(m.per_worker)))
+        audit = self.directory.audit
+        lat = _METRICS.histogram(f"pipeline.stage.{st.name}.window_seconds")
+        depth = _METRICS.gauge(f"pipeline.stage.{st.name}.queue_rows")
+        phase = 0                    # rolling global row index for rr
+        while True:
+            live = self._live_workers(st)
+            target = len(live) * window_chunks
+            parts: List[SealedWindow] = []
+            got = 0
+            while got < target:
+                win = next(upstream, None)
+                if win is None:
+                    break
+                parts.append(win)
+                got += len(win)
+            if not parts:
+                return
+            depth.set(got)
+            # pulling the window may itself have revoked workers upstream
+            live = self._live_workers(st)
+            L = len(live)
+            d0 = _DISPATCHES.value
+            t0 = time.perf_counter()
+            dispatches = []          # (part idx, worker, row idxs, out, ok)
+            for pi, win in enumerate(parts):
+                B = len(win)
+                assign = [(phase + j) % L for j in range(B)]
+                phase += B
+                for k in range(L):
+                    idxs = [j for j in range(B) if assign[j] == k]
+                    if not idxs:
+                        continue
+                    sub = win if len(idxs) == B else win.select(idxs)
+                    w = live[k]
+                    if st.fn is not None:
+                        out, ok = pool[w].run_window(st.fn, sub)
+                    else:
+                        out, ok = pool[w].run_static_window(
+                            st.op, st.const, sub)
+                    dispatches.append((pi, w, idxs, out, ok))
+            verdicts = _sync_window(
+                [d[3].words for d in dispatches],
+                [(d[4], len(d[3])) for d in dispatches], self.device)
+            dt = time.perf_counter() - t0
+            m.seconds += dt
+            lat.observe(dt)
+            m.windows += 1
+            m.dispatches += _DISPATCHES.value - d0
+            off = 0
+            marks: List[np.ndarray] = []
+            for pi, w, idxs, out, _ in dispatches:
+                v = verdicts[off: off + len(idxs)]
+                off += len(idxs)
+                marks.append(v)
+                for jj, alive in enumerate(v):
+                    if alive:
+                        m.chunks += 1
+                        m.per_worker[w] += 1
+                        m.bytes += int(parts[pi].n_words) * 4
+                    else:
+                        m.mac_failures += 1
+                        pool[w].errors += 1
+                        audit.record("mac_failure", stage=st.name,
+                                     worker=self.worker_id(st.name, w),
+                                     row=out.counters[jj],
+                                     epoch=out.epochs[jj])
+            yield from list(self._merge_outputs(parts, dispatches, marks))
+
+    @staticmethod
+    def _merge_outputs(parts, dispatches, marks):
+        """Reassemble each input window's surviving rows in stream order.
+        The all-survived single-dispatch case (steady state) passes the
+        worker's output through untouched; otherwise one concatenate +
+        one gather rebuilds the window."""
+        for pi in range(len(parts)):
+            ds = [(d, mk) for d, mk in zip(dispatches, marks) if d[0] == pi]
+            if not ds:
+                continue
+            if len(ds) == 1 and len(ds[0][0][2]) == len(parts[pi]) \
+                    and bool(ds[0][1].all()):
+                yield ds[0][0][3]
+                continue
+            outs = [d[3] for d, _ in ds]
+            cat_w = outs[0].words if len(outs) == 1 \
+                else torch.cat([o.words for o in outs])
+            cat_t = outs[0].tags
+            if cat_t is not None and len(outs) > 1:
+                cat_t = torch.cat([o.tags for o in outs])
+            entries = []             # (orig row, concat pos, counter, epoch)
+            pos = 0
+            for (_, _, idxs, out, _), mk in ds:
+                entries.extend((j, pos + jj, out.counters[jj],
+                                out.epochs[jj])
+                               for jj, j in enumerate(idxs) if mk[jj])
+                pos += len(idxs)
+            if not entries:
+                continue
+            entries.sort()
+            idx = host_to_device(np.asarray([e[1] for e in entries],
+                                            np.int64), cat_w.device)
+            yield SealedWindow(
+                words=cat_w[idx],
+                tags=None if cat_t is None else cat_t[idx],
+                counters=[e[2] for e in entries],
+                epochs=[e[3] for e in entries],
+                meta=outs[0].meta, n_words=outs[0].n_words)
+
+    def _as_source_tensor(self, x) -> torch.Tensor:
+        """A source chunk on the pipeline's device: numpy arrays enter
+        here (uint32 records viewed as int32 words, others as they are);
+        tensors must already be on the device."""
+        if isinstance(x, np.ndarray):
+            if x.dtype in (np.uint32, np.int32):
+                return from_numpy(x, self.device)
+            return torch.as_tensor(x).to(self.device)
+        if x.device != self.device:
+            raise ValueError(f"source tensor on {x.device}, pipeline on "
+                             f"{self.device}")
+        return x
+
+    def _ingress_stream(self, source: Iterable, mode: str,
+                        rekey_every_n: Optional[int],
+                        window: int) -> Iterator[SealedWindow]:
+        """Seal source tensors window-at-a-time with a prefetch
+        double-buffer: window N+1's batched seal is dispatched BEFORE
+        window N is handed downstream.  Each window reserves its
+        nonce-counter blocks from the directory's managed per-edge
+        counter, so a second ``run()`` continues the count instead of
+        resealing under already-used (key, nonce) pairs;
+        ``rekey_every_n`` keeps its per-chunk cadence (see
+        :meth:`_seal_ingress_window`)."""
+        it = iter(source)
+        n_plain = 0
+        buffered = _METRICS.gauge("pipeline.ingress.buffered_rows")
+        prev: Optional[List[SealedWindow]] = None
+        while True:
+            xs = [self._as_source_tensor(x)
+                  for x in itertools.islice(it, window)]
+            if not xs:
+                break
+            d0 = _DISPATCHES.value
+            if mode == "plain":
+                cur = [plain_window(range(n_plain + j,
+                                          n_plain + j + len(sub)), sub)
+                       for j, sub in _shape_runs(xs)]
+                n_plain += len(xs)
+            else:
+                cur = self._seal_ingress_window(xs, rekey_every_n)
+            buffered.set(len(xs))
+            self._ingress_windows_n += 1
+            self._ingress_dispatches += _DISPATCHES.value - d0
+            if prev is not None:
+                yield from prev
+            prev = cur
+        if prev is not None:
+            yield from prev
+        buffered.set(0)
+
+    def _seal_ingress_window(self, xs: List[torch.Tensor],
+                             rekey: Optional[int]) -> List[SealedWindow]:
+        """One sealed ingress window: (epoch, shape)-grouped batched seals
+        over directory-reserved counter blocks, with ``advance_epoch``
+        firing between groups exactly where a per-chunk engine would."""
+        h0 = self.keys[0]
+        wins: List[SealedWindow] = []
+        i = 0
+        while i < len(xs):
+            sess = self.directory.session(h0.edge)
+            if rekey and sess.chunks >= rekey:
+                self.directory.advance_epoch()
+                sess = self.directory.session(h0.edge)
+            room = len(xs) - i if not rekey else max(1, rekey - sess.chunks)
+            group = xs[i:i + room]
+            for _, sub in _shape_runs(group):
+                base, epoch = h0.reserve_window(len(sub))
+                wins.append(seal_tensors_window(
+                    h0, range(base, base + len(sub)), sub, epoch=epoch))
+            i += len(group)
+        return wins
+
+    def _clamp_window_for_rekey(self, wc: int, rekey_every_n: int) -> int:
+        """Largest safe window factor for this rekey cadence: the
+        directory's ``epoch_history`` must cover the deepest in-flight
+        lag (one window per stage, two ingress windows, one egress
+        window).  Rejected up front if even a per-chunk engine could
+        drain past history."""
+        S = sum(max(1, s.workers) for s in self.stages)
+        w0 = max(1, self.stages[0].workers) if self.stages else 1
+        wl = max(1, self.stages[-1].workers) if self.stages else 1
+        hist = self.directory.epoch_history
+
+        seed_in_flight = S + 1              # a per-chunk engine's depth
+        seed_lag = -(-seed_in_flight // rekey_every_n) + 1
+        if seed_lag > hist:
+            raise ValueError(
+                f"rekey_every_n={rekey_every_n} can rotate "
+                f"{seed_lag} epochs while up to {seed_in_flight} chunks "
+                f"are in flight, but KeyDirectory(epoch_history="
+                f"{hist}) would prune keys "
+                f"still needed to drain — raise epoch_history or "
+                f"rekey_every_n")
+
+        def lag(w: int) -> int:
+            in_flight = (S + 2 * w0 + wl) * w + 1
+            return -(-in_flight // rekey_every_n) + 1
+
+        while wc > 1 and lag(wc) > hist:
+            wc -= 1
+        return wc
+
+    def run(self, source: Iterable, on_result: Optional[Callable] = None,
+            rekey_every_n: Optional[int] = None,
+            window_chunks: Optional[int] = None,
+            retry=None, chaos=None) -> Any:
+        """Stream source chunks (tensors on the pipeline's device, or
+        numpy arrays) through all stages; returns the terminal reduce
+        value (if the last stage reduces) or the last chunk.
+
+        ``rekey_every_n``: rotate every edge session key after each N
+        source chunks, mid-stream; chunks open under the epoch they were
+        ingressed in, and the window factor is clamped so the
+        directory's ``epoch_history`` covers the deepest in-flight lag.
+        ``window_chunks`` overrides the pipeline's window factor for this
+        run.  ``retry``/``chaos`` and a window factor of 1 are not
+        ported yet and raise ``NotImplementedError``."""
+        if retry is not None or chaos is not None:
+            raise NotImplementedError(
+                f"retry=/chaos= are not ported yet: {_FT_ITEM}")
+        mode = self.secure.mode
+        wc = self.window_chunks if window_chunks is None \
+            else max(1, int(window_chunks))
+        if rekey_every_n and mode != "plain":
+            wc = self._clamp_window_for_rekey(wc, rekey_every_n)
+        if wc == 1:
+            raise NotImplementedError(
+                f"the window factor resolved to 1 (the per-chunk oracle "
+                f"engine), which is not ported yet: {_ORACLE_ITEM}; if "
+                f"rekey_every_n clamped it, raise the KeyDirectory's "
+                f"epoch_history")
+        w0 = max(1, self.stages[0].workers) if self.stages else 1
+        stream: Iterator[SealedWindow] = self._ingress_stream(
+            source, mode, rekey_every_n, w0 * wc)
+
+        # compose map/filter stages up to the terminal reduce (if any)
+        reduce_idx = next((i for i, s in enumerate(self.stages)
+                           if s.reduce_fn is not None), None)
+        end = len(self.stages) if reduce_idx is None else reduce_idx
+        for i in range(end):
+            st = self.stages[i]
+            stream = self._stage_stream(stream, st, self._worker_pool(i, st),
+                                        wc)
+        sink_w = max(1, self.stages[end - 1].workers) if end else 1
+        egress_rows = sink_w * wc
+        audit = self.directory.audit
+        egress_lat = _METRICS.histogram("pipeline.egress.window_seconds")
+
+        if reduce_idx is not None:
+            # terminal reduce: decrypt at the sink edge (trusted
+            # subscriber) a window at a time and fold in stream order
+            st = self.stages[reduce_idx]
+            m = self.metrics[st.name]
+            reduce_state: Any = None
+            reduce_started = False
+            for groups, verdicts, dt in self._egress_windows(
+                    stream, mode, self.keys[reduce_idx], egress_rows):
+                egress_lat.observe(dt)
+                t0 = time.perf_counter()
+                off = 0
+                for win, vals in groups:
+                    for j in range(len(win)):
+                        if not verdicts[off + j]:
+                            m.mac_failures += 1
+                            audit.record("mac_failure", stage=st.name,
+                                         worker="io/sink",
+                                         row=win.counters[j],
+                                         epoch=win.epochs[j])
+                            continue
+                        if not reduce_started:
+                            reduce_state = st.reduce_init
+                            reduce_started = True
+                        reduce_state = st.reduce_fn(reduce_state, vals[j])
+                        m.chunks += 1
+                        m.bytes += int(win.n_words) * 4
+                    off += len(win)
+                m.seconds += dt + (time.perf_counter() - t0)
+            return reduce_state if reduce_started else None
+
+        final = None
+        for groups, verdicts, dt in self._egress_windows(
+                stream, mode, self.keys[len(self.stages)], egress_rows):
+            egress_lat.observe(dt)
+            off = 0
+            for win, vals in groups:
+                for j in range(len(win)):
+                    final = vals[j]
+                    if not verdicts[off + j]:
+                        audit.record("mac_failure", stage="egress",
+                                     worker="io/sink",
+                                     row=win.counters[j],
+                                     epoch=win.epochs[j])
+                    elif on_result is not None:
+                        on_result(vals[j])
+                off += len(win)
+        return final
+
+    def _egress_windows(self, stream: Iterator[SealedWindow], mode: str,
+                        key, window: int):
+        """Open the terminal stream a window at a time (one ``open_many``
+        per framing-uniform window, ONE host sync per window).  Yields
+        ([(window, opened tensor batch)], verdicts, seconds)."""
+        parts: List[SealedWindow] = []
+        got = 0
+        for win in stream:
+            parts.append(win)
+            got += len(win)
+            if got >= window:
+                yield self._open_egress(parts, mode, key)
+                parts, got = [], 0
+        if parts:
+            yield self._open_egress(parts, mode, key)
+
+    def _open_egress(self, parts: List[SealedWindow], mode: str, key):
+        d0 = _DISPATCHES.value
+        t0 = time.perf_counter()
+        groups = []
+        specs = []
+        for win in parts:
+            vals, ok = egress_window(mode, key, win)
+            groups.append((win, vals))
+            specs.append((ok, len(win)))
+        verdicts = _sync_window([v for _, v in groups], specs, self.device)
+        dt = time.perf_counter() - t0
+        self._egress_windows_n += 1
+        self._egress_dispatches += _DISPATCHES.value - d0
+        return groups, verdicts, dt
+
+    # ------------------------------------------------------------- elastic
+
+    def scale_stage(self, name: str, workers: int) -> "Pipeline":
+        """Elastic scaling: change a stage's worker count (paper §5.5).
+        The KeyDirectory (sessions, epoch, revocations), the seed, the
+        device and the accumulated metrics carry forward, so the stream
+        is not re-keyed and reports stay continuous."""
+        stages = [
+            Stage(**{**s.__dict__, "workers": workers}) if s.name == name
+            else s for s in self.stages
+        ]
+        p = Pipeline(stages, self.secure, seed=self.seed,
+                     directory=self.directory,
+                     window_chunks=self.window_chunks, device=self.device)
+        p._evicted_logged = self._evicted_logged
+        p._ingress_windows_n = self._ingress_windows_n
+        p._ingress_dispatches = self._ingress_dispatches
+        p._egress_windows_n = self._egress_windows_n
+        p._egress_dispatches = self._egress_dispatches
+        for sname, m in self.metrics.items():
+            pw = list(m.per_worker)
+            if sname == name and len(pw) < workers:
+                pw.extend([0] * (workers - len(pw)))
+            p.metrics[sname] = dataclasses.replace(m, per_worker=pw)
+        return p
+
+    def report(self) -> Dict[str, Dict[str, Any]]:
+        """Per-stage metrics dict (chunks, bytes, seconds, MB/s, MAC
+        failures, per-worker counts, windows, dispatches), the audit
+        summary, and the ingress/egress dispatch accounting."""
+        out: Dict[str, Dict[str, Any]] = {
+            name: {"chunks": m.chunks, "bytes": m.bytes,
+                   "seconds": round(m.seconds, 4),
+                   "throughput_mbps": None if m.throughput_mbps is None
+                   else round(m.throughput_mbps, 2),
+                   "mac_failures": m.mac_failures,
+                   "mac_failure_rate": None if m.mac_failure_rate is None
+                   else round(m.mac_failure_rate, 4),
+                   "per_worker": list(m.per_worker),
+                   "windows": m.windows,
+                   "dispatches": m.dispatches,
+                   "dispatches_per_window":
+                   None if m.dispatches_per_window is None
+                   else round(m.dispatches_per_window, 4)}
+            for name, m in self.metrics.items()
+        }
+        out["audit"] = self.directory.audit.summary()
+        out["dispatch"] = {
+            "total": self._ingress_dispatches + self._egress_dispatches
+            + sum(m.dispatches for m in self.metrics.values()),
+            "ingress": {"windows": self._ingress_windows_n,
+                        "dispatches": self._ingress_dispatches},
+            "egress": {"windows": self._egress_windows_n,
+                       "dispatches": self._egress_dispatches},
+        }
+        return out

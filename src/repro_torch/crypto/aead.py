@@ -1,0 +1,256 @@
+"""Batched AEAD over u32 word rows: ChaCha20-CTR + CW-MAC (encrypt-then-MAC).
+
+Port of the batched path of ``repro/crypto/aead.py``.  As in
+ChaCha20-Poly1305, the MAC keys (r1, s1, r2, s2) of an item come from
+its keystream block 0 (counter 0) and the payload is encrypted from
+counter 1; :func:`seal_many` / :func:`open_many` cover a whole (B,
+n_words) batch with ONE row-parallel cipher pass over counters 0..N of
+every item plus ONE dual-key MAC pass.
+
+Backends:
+
+* ``"kernel"`` (default) — the hand-written CUDA kernels
+  (:mod:`repro_torch.kernels.chacha20.ops`,
+  :mod:`repro_torch.kernels.cwmac.ops`).  For CPU tensors those wrappers
+  run their plain versions, so the default works on both devices.
+* ``"torch"`` — the plain torch crypto (:mod:`.chacha20`, :mod:`.cwmac`)
+  directly.  On CUDA tensors this is only ever used when a caller names
+  it (the kernel-vs-plain comparisons).
+
+Words are int32-carried (:mod:`repro_torch.u32`).  There is no compile
+cache (PyTorch runs eagerly), so the reference's ``fastpath_stats`` has
+no counterpart.  Each call counts one ``device.dispatches`` (plus its
+``device.dispatches.aead.*`` site), where the reference counts its one
+compiled-program launch.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.crypto import chacha20, cwmac
+from repro_torch.obs.metrics import REGISTRY as _METRICS
+from repro_torch.u32 import repeat_rows
+
+P31 = 0x7FFFFFFF
+BACKENDS = ("kernel", "torch")
+
+_DISPATCHES = _METRICS.counter("device.dispatches")
+_DISP_SEAL = _METRICS.counter("device.dispatches.aead.seal_many")
+_DISP_OPEN = _METRICS.counter("device.dispatches.aead.open_many")
+_DISP_MACKEYS = _METRICS.counter("device.dispatches.aead.mac_keys_many")
+_DISP_MAC2 = _METRICS.counter("device.dispatches.aead.mac2_many")
+
+
+def _clamp(w: torch.Tensor) -> torch.Tensor:
+    """MAC key words: low 31 bits, clamped below p (reference ``_clamp``)."""
+    return torch.clamp_max(w & P31, P31 - 1)
+
+
+def _resolve_backend(backend: Optional[str]) -> str:
+    backend = backend or "kernel"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown AEAD backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+    return backend
+
+
+def _batch_rows(key, nonces, payload):
+    """Flatten a (B, n) batch into per-block rows covering counters 0..N.
+
+    Row (b, 0) carries zeros (its XOR output is raw keystream block 0,
+    the MAC-key block); rows (b, 1..N) carry the payload blocks, so the
+    whole batch is ONE row-parallel cipher invocation."""
+    B, n = payload.shape
+    n_blocks = (n + 15) // 16
+    R = n_blocks + 1
+    rows = F.pad(payload, (16, n_blocks * 16 - n)).reshape(B * R, 16)
+    counters = torch.arange(R, dtype=torch.int32,
+                            device=payload.device).repeat(B)
+    row_nonces = repeat_rows(nonces, R)
+    row_keys = key if key.dim() == 1 else repeat_rows(key, R)
+    return row_keys, row_nonces, rows, counters
+
+
+def _xor_rows(keys, nonces, counters, rows, backend):
+    if backend == "kernel":
+        from repro_torch.kernels.chacha20 import ops as chacha_ops
+        return chacha_ops.xor_rows(keys, nonces, counters, rows)
+    return rows ^ chacha20.chacha20_block_rows(keys, nonces, counters)
+
+
+def _cipher_pass(key, nonces, payload, backend):
+    """-> (mac_keys (B, 4) clamped, payload ^ keystream (B, n))."""
+    B, n = payload.shape
+    row_keys, row_nonces, rows, counters = _batch_rows(key, nonces, payload)
+    out = _xor_rows(row_keys, row_nonces, counters, rows, backend)
+    out = out.reshape(B, -1, 16)
+    mk = _clamp(out[:, 0, :4])
+    return mk, out[:, 1:, :].reshape(B, -1)[:, :n].contiguous()
+
+
+def _mac2_batch(words, mk, backend):
+    if backend == "kernel":
+        from repro_torch.kernels.cwmac import ops as cwmac_ops
+        return cwmac_ops.mac2_batch(words, mk[:, 0], mk[:, 1],
+                                    mk[:, 2], mk[:, 3])
+    return cwmac.mac2_batch(words, mk[:, 0], mk[:, 1], mk[:, 2], mk[:, 3])
+
+
+def _check_batch(key, nonces, words, what):
+    if words.dim() != 2:
+        raise ValueError(f"{what} expects (B, n_words), "
+                         f"got {tuple(words.shape)}")
+    for name, t in (("words", words), ("nonces", nonces), ("key", key)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{what} expects int32-carried u32 {name} "
+                             f"(view uint32 data as int32 first), "
+                             f"got {t.dtype}")
+        if t.device != words.device:
+            raise ValueError(f"{what}: {name} on {t.device}, words on "
+                             f"{words.device}")
+    if tuple(nonces.shape) != (words.shape[0], 3):
+        raise ValueError(f"{what} expects nonces (B, 3) matching B="
+                         f"{words.shape[0]}, got {tuple(nonces.shape)}")
+    if tuple(key.shape) not in ((8,), (words.shape[0], 8)):
+        raise ValueError(f"{what} expects key (8,) or (B, 8), "
+                         f"got {tuple(key.shape)}")
+
+
+def seal_many(key: torch.Tensor, nonces: torch.Tensor, words: torch.Tensor,
+              *, backend: Optional[str] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched AEAD seal of a (B, n_words) batch.
+
+    ``key``: (8,) shared or (B, 8) per-item; ``nonces``: (B, 3);
+    ``words``: (B, n_words); all int32-carried.  Returns (ct (B,
+    n_words), tags (B, 2)), item-wise identical to the reference's
+    ``seal``."""
+    backend = _resolve_backend(backend)
+    _check_batch(key, nonces, words, "seal_many")
+    _DISPATCHES.inc()
+    _DISP_SEAL.inc()
+    mk, ct = _cipher_pass(key.contiguous(), nonces.contiguous(),
+                          words, backend)
+    return ct, _mac2_batch(ct, mk, backend)
+
+
+def open_many(key: torch.Tensor, nonces: torch.Tensor, cts: torch.Tensor,
+              tags: torch.Tensor, *, backend: Optional[str] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched AEAD open: -> (pt (B, n_words), ok (B,) bool verdicts).
+    Verdicts stay on the device (no host sync)."""
+    backend = _resolve_backend(backend)
+    _check_batch(key, nonces, cts, "open_many")
+    if tuple(tags.shape) != (cts.shape[0], 2):
+        raise ValueError(f"open_many expects tags (B, 2), "
+                         f"got {tuple(tags.shape)}")
+    _DISPATCHES.inc()
+    _DISP_OPEN.inc()
+    mk, pt = _cipher_pass(key.contiguous(), nonces.contiguous(),
+                          cts.contiguous(), backend)
+    expect = _mac2_batch(cts.contiguous(), mk, backend)
+    return pt, (expect == tags).all(dim=-1)
+
+
+def derive_mac_keys_many(key: torch.Tensor, nonces: torch.Tensor, *,
+                         backend: Optional[str] = None) -> torch.Tensor:
+    """Batched MAC-key derivation: (B, 4) clamped (r1, s1, r2, s2) rows
+    from keystream block 0 of each item.
+
+    ``key``: (8,) shared or (B, 8) per-item; ``nonces``: (B, 3).  The
+    kernel backend runs the ChaCha20 rows kernel on B zero rows at
+    counter 0 (the reference runs its jnp block function here)."""
+    backend = _resolve_backend(backend)
+    if nonces.dim() != 2 or nonces.shape[1] != 3:
+        raise ValueError(f"derive_mac_keys_many expects nonces (B, 3), "
+                         f"got {tuple(nonces.shape)}")
+    _DISPATCHES.inc()
+    _DISP_MACKEYS.inc()
+    B = nonces.shape[0]
+    zeros = torch.zeros((B, 16), dtype=torch.int32, device=nonces.device)
+    ctr0 = torch.zeros((B,), dtype=torch.int32, device=nonces.device)
+    blk = _xor_rows(key.contiguous(), nonces.contiguous(), ctr0, zeros,
+                    backend)
+    return _clamp(blk[:, :4])
+
+
+def mac2_many(words: torch.Tensor, mac_keys: torch.Tensor, *,
+              backend: Optional[str] = None) -> torch.Tensor:
+    """Batched dual CW-MAC: (B, n_words) words under (B, 4) mac-key rows
+    -> (B, 2) tags."""
+    backend = _resolve_backend(backend)
+    if words.dim() != 2 or tuple(mac_keys.shape) != (words.shape[0], 4):
+        raise ValueError(f"mac2_many expects words (B, n) and mac_keys "
+                         f"(B, 4); got {tuple(words.shape)} / "
+                         f"{tuple(mac_keys.shape)}")
+    _DISPATCHES.inc()
+    _DISP_MAC2.inc()
+    return _mac2_batch(words.contiguous(), mac_keys, backend)
+
+
+# ---------------------------------------------------------------------------
+# dtype framing helpers (tensors <-> u32 words)
+# ---------------------------------------------------------------------------
+
+# meta names are the reference's (numpy) dtype names; torch.int32 is the
+# port's u32 word carrier, so it frames as "uint32" (and "int32" from the
+# reference decodes to the same int32 tensor)
+_DTYPES = {"uint32": torch.int32, "int32": torch.int32,
+           "float32": torch.float32, "float16": torch.float16,
+           "bfloat16": torch.bfloat16, "float64": torch.float64,
+           "int64": torch.int64, "int16": torch.int16, "int8": torch.int8,
+           "uint8": torch.uint8, "bool": torch.bool}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    if dtype == torch.int32:
+        return "uint32"
+    return str(dtype).replace("torch.", "")
+
+
+def tensor_to_words_batch(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple]:
+    """(B, *item) tensor batch -> ((B, n_words) int32-carried words, meta).
+
+    Row b carries exactly the little-endian u32 words of ``x[b]``'s
+    bytes, zero-padded to 4 bytes; meta is (item shape, dtype name, pad
+    bytes), the reference's framing."""
+    B = x.shape[0]
+    item_shape = tuple(x.shape[1:])
+    name = _dtype_name(x.dtype)
+    if name == "uint32":
+        return x.reshape(B, -1), (item_shape, "uint32", 0)
+    raw = x.contiguous().reshape(B, -1).view(torch.uint8)
+    pad = (-raw.shape[1]) % 4
+    raw = F.pad(raw, (0, pad))
+    return raw.view(torch.int32), (item_shape, name, pad)
+
+
+def words_to_tensor_batch(words: torch.Tensor, meta: Tuple) -> torch.Tensor:
+    """Inverse of :func:`tensor_to_words_batch`: (B, n_words) -> (B, *item)."""
+    item_shape, dtype, pad = meta
+    B = words.shape[0]
+    tdt = _DTYPES[dtype]
+    if tdt == torch.int32:
+        return words.reshape((B,) + tuple(item_shape))
+    raw = words.contiguous().view(torch.uint8).reshape(B, -1)
+    if pad:
+        raw = raw[:, :-pad]
+    return raw.contiguous().view(tdt).reshape((B,) + tuple(item_shape))
+
+
+def tensor_to_words(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple]:
+    """Any tensor -> flat (n_words,) words + (shape, dtype, pad) meta."""
+    words, (_, name, pad) = tensor_to_words_batch(x.reshape(1, -1))
+    return words.reshape(-1), (tuple(x.shape), name, pad)
+
+
+def words_to_tensor(words: torch.Tensor, meta: Tuple) -> torch.Tensor:
+    """Inverse of :func:`tensor_to_words`."""
+    shape, dtype, pad = meta
+    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    flat = words_to_tensor_batch(words.reshape(1, -1), ((n,), dtype, pad))
+    return flat.reshape(shape)

@@ -1,0 +1,68 @@
+"""Public ops: batched CW-MAC tags via the partials kernel + a torch fold.
+
+Replaces the reference's ``repro/kernels/cwmac/ops.py::mac_batch`` /
+``mac2_batch`` (Pallas ``_mac_tile_batch_kernel``).  The kernel
+(``repro_torch/csrc/cwmac.cu``) writes one partial per (row, tile of
+:data:`TILE_WORDS` words), each already scaled by its tile's absolute
+power of r, so the host fold is a plain sum: ``tag = (sum_t P_t + s) mod
+p`` in int64 on the device (the reference folds its unscaled partials by
+Horner).  The tag is the value of one polynomial, so tile size,
+padding and reduction order leave its bits unchanged.  A CPU tensor runs
+the plain version (:mod:`.ref`); a CUDA tensor launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.crypto.cwmac import P31
+from repro_torch.kernels import build
+from repro_torch.kernels.cwmac.ref import mac_partials_batch_ref
+
+#: words per (row, tile) block: 4096 limbs, the reference's default tile
+TILE_WORDS = 2048
+
+KERNEL = build.Kernel("ss_cwmac_partials", [
+    build.VOIDP, build.LONG, build.LONG, build.VOIDP, build.LONG,
+    build.INT, build.VOIDP, build.INT, build.VOIDP])
+
+
+def mac_partials_batch(words: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """(rows, T) scaled partials of (B, n) words under (rows,) keys; row q
+    reads words row ``q % B`` (mac2 passes both keys as 2B rows)."""
+    dev = words.device
+    build.check_words("words", words, [(None, None)], dev)
+    B, n = words.shape
+    build.check_words("r", r, [(None,)], dev)
+    rows = r.shape[0]
+    if B == 0 or rows % B:
+        raise ValueError(f"r has {rows} rows, not a multiple of B={B}")
+    if dev.type == "cpu":
+        return mac_partials_batch_ref(words, r, TILE_WORDS)
+    build.require_cuda(words)
+    T = -(-n // TILE_WORDS)
+    out = torch.empty((rows, T), dtype=torch.int32, device=dev)
+    if rows and T:
+        KERNEL(words.data_ptr(), B, n, r.data_ptr(), rows, TILE_WORDS,
+               out.data_ptr(), T, build.stream_of(words))
+    return out
+
+
+def _fold(partials: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return ((partials.to(torch.int64).sum(1) + s.to(torch.int64)) % P31) \
+        .to(torch.int32)
+
+
+def mac_batch(words: torch.Tensor, r: torch.Tensor,
+              s: torch.Tensor) -> torch.Tensor:
+    """Row-wise MAC: (B, n) words under (B,) keys -> (B,) tags."""
+    return _fold(mac_partials_batch(words, r.contiguous()), s)
+
+
+def mac2_batch(words: torch.Tensor, r1: torch.Tensor, s1: torch.Tensor,
+               r2: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """Row-wise dual-key MAC -> (B, 2) tags; both keys ride one launch."""
+    B = words.shape[0]
+    tags = _fold(mac_partials_batch(words, torch.cat([r1, r2])),
+                 torch.cat([s1, s2]))
+    return torch.stack([tags[:B], tags[B:]], dim=-1)

@@ -1,0 +1,73 @@
+"""Public op: the fused enclave step over per-row cipher parameters.
+
+Replaces the reference's ``repro/kernels/enclave_map/ops.py::
+enclave_map_rows`` (Pallas ``_enclave_rows_kernel``).  A CPU tensor runs
+the plain version (:mod:`.ref`, plaintext visible); a CUDA tensor
+launches ``ss_enclave_map_rows`` (``repro_torch/csrc/enclave_map.cu``),
+whose plaintext lives only in registers, or raises.  Like the
+reference's wrapper it counts one ``device.dispatches`` per call; the
+kernel's own launches are counted on :data:`KERNEL`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.enclave_map.enclave_map import (  # noqa: F401
+    OP_IDS, OPS, const_bits, const_int)
+from repro_torch.kernels.enclave_map.ref import enclave_apply_rows_ref
+from repro_torch.obs.metrics import REGISTRY as _METRICS
+
+_DISPATCHES = _METRICS.counter("device.dispatches")
+_DISP_MAP = _METRICS.counter("device.dispatches.enclave_map")
+
+KERNEL = build.Kernel("ss_enclave_map_rows", [
+    build.INT, build.VOIDP, build.INT, build.VOIDP, build.INT,
+    build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP,
+    build.VOIDP, build.LONG, build.U32, build.INT, build.VOIDP])
+
+
+def enclave_map_rows(keys_in, keys_out, nonces, counters, rows, *, op,
+                     const=0.0, nonces_out=None, counters_out=None):
+    """Per-row fused decrypt -> ``OPS[op]`` -> encrypt over (R, 16) rows.
+
+    keys_in/keys_out: (8,) shared or (R, 8) per-row (mixed-epoch windows
+    carry per-row keys); nonces: (R, 3); counters: (R,).
+    ``nonces_out``/``counters_out`` re-encrypt under separate outbound
+    coordinates (a re-executed share must not re-spend the inbound ones
+    on the outbound key).  The grid covers R rounded up to a block and
+    the kernel masks the tail, so R need not be a multiple of anything.
+    """
+    if op not in OP_IDS:
+        raise ValueError(f"unknown enclave op {op!r}; registered: "
+                         f"{sorted(OP_IDS)}")
+    _DISPATCHES.inc()
+    _DISP_MAP.inc()
+    if nonces_out is None:
+        nonces_out = nonces
+    if counters_out is None:
+        counters_out = counters
+    R = rows.shape[0] if rows.dim() == 2 else -1
+    dev = rows.device
+    build.check_words("rows", rows, [(None, 16)], dev, align16=True)
+    for what, t in (("keys_in", keys_in), ("keys_out", keys_out)):
+        build.check_words(what, t, [(8,), (R, 8)], dev)
+    for what, t in (("nonces", nonces), ("nonces_out", nonces_out)):
+        build.check_words(what, t, [(R, 3)], dev)
+    for what, t in (("counters", counters), ("counters_out", counters_out)):
+        build.check_words(what, t, [(R,)], dev)
+    if dev.type == "cpu":
+        return enclave_apply_rows_ref(
+            keys_in, keys_out, nonces, counters, rows, op=op, const=const,
+            nonces_out=nonces_out, counters_out=counters_out)
+    build.require_cuda(rows)
+    ci = const_int(const) if op == "delay_filter_u32" else 0
+    out = torch.empty_like(rows)
+    if R:
+        KERNEL(OP_IDS[op], keys_in.data_ptr(),
+               8 if keys_in.dim() == 2 else 0, keys_out.data_ptr(),
+               8 if keys_out.dim() == 2 else 0, nonces.data_ptr(),
+               counters.data_ptr(), nonces_out.data_ptr(),
+               counters_out.data_ptr(), rows.data_ptr(), out.data_ptr(), R,
+               const_bits(const) & 0xFFFFFFFF, ci, build.stream_of(rows))
+    return out

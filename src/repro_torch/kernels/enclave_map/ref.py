@@ -1,0 +1,22 @@
+"""Plain torch version of the enclave map rows kernel: decrypt, op,
+re-encrypt — with plaintext as a visible intermediate (exactly the
+'encrypted' mode of the paper's Fig. 6, vs. the kernel's 'enclave')."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.crypto.chacha20 import chacha20_block_rows
+from repro_torch.kernels.enclave_map.enclave_map import OPS
+
+
+def enclave_apply_rows_ref(keys_in, keys_out, nonces, counters, data_rows,
+                           *, op="identity", const=0.0, nonces_out=None,
+                           counters_out=None) -> torch.Tensor:
+    """Per-row (key, nonce, counter) decrypt -> op -> re-encrypt under
+    ``keys_out`` at (``nonces_out``, ``counters_out``) when given, else
+    at the inbound coordinates."""
+    pt = data_rows ^ chacha20_block_rows(keys_in, nonces, counters)
+    y = OPS[op](pt, const)
+    return y ^ chacha20_block_rows(
+        keys_out, nonces if nonces_out is None else nonces_out,
+        counters if counters_out is None else counters_out)

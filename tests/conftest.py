@@ -6,6 +6,11 @@ import pytest
 from repro.dist.meshctx import local_mesh_context
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none")
+
+
 @pytest.fixture(scope="session")
 def ctx():
     return local_mesh_context()
