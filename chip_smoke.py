@@ -4,40 +4,59 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, the time to build
-   the three CUDA kernels from ``src/repro_torch/csrc``, and their
-   ``-Xptxas -v`` register and spill lines (the enclave kernel must not
-   spill: a spill would put plaintext in device memory);
-2. each kernel against its plain torch version on the card, bit for bit,
-   at the shapes of every path below (DelayedFlights' 1024-record
-   chunks and the 8-stage job's 4096-word chunks) plus a ragged row
-   count, per-row (mixed-epoch) keys and separate outbound
-   nonces/counters; each timed beside its plain version and its bound:
-   device time per call from a replayed CUDA graph (``ms``,
-   ``plain_ms``) and the eager call's time, which the host's enqueue
-   sets for kernels this small (``eager_ms``);
-3. DelayedFlights (paper §5.2) in enclave mode over the full 28 M-record
-   stream in 64 KB chunks (1024 records), one worker per stage, windows
-   of 8 chunks: identity -> delay_filter_u32(15) -> carrier_delay_stats.
-   The stream is resident on the card: its one host->device copy is
-   set-up, timed apart (``source_h2d_s``) and outside records/s.
-   The result must equal a numpy computation over the same records; then
-   a short run of the same job (256 chunks) under torch.profiler gives
-   the device's busy share and the kernels that take its time;
-4. the three modes (plain, encrypted, enclave) agree at 1 M records;
+   the six CUDA kernels from ``src/repro_torch/csrc``, and their
+   ``-Xptxas -v`` register and spill lines (no enclave kernel may
+   spill: a spill would put plaintext in device memory), and each
+   kernel's SASS instruction mix by pipe (``cuobjdump -sass``);
+2. each kernel against its plain torch version on the card, bit for bit:
+   kernels 1-3 (the window engine's) at the shapes of every window path
+   below (DelayedFlights' 1024-record chunks and the 8-stage job's
+   4096-word chunks) plus a ragged row count, per-row (mixed-epoch) keys
+   and separate outbound nonces/counters; kernels 4-6 (the per-chunk
+   engine's) at one 64 KB chunk (1025 cipher blocks, 16384 words x 2
+   keys, 1024 enclave blocks), with a counter that wraps past 2^32, the
+   six enclave ops on adversarial words and ragged block counts.  Each
+   is timed beside its plain version and its bound: device time per
+   call from a replayed CUDA graph (``ms``, ``plain_ms``) and the eager
+   call's time, which the host's enqueue sets for kernels this small
+   (``eager_ms``);
+3. DelayedFlights (paper §5.2), built through the port's DSL (fluent
+   form, fusion off, so its stage list equals the hand-built one), in
+   enclave mode over the full 28 M-record stream in 64 KB chunks (1024
+   records), one worker per stage, windows of 8 chunks: identity ->
+   delay_filter_u32(15) -> carrier_delay_stats.  The stream is resident
+   on the card: its one host->device copy is set-up, timed apart
+   (``source_h2d_s``) and outside records/s.  The result must equal a
+   numpy computation over the same records; then a short run of the
+   same job (256 chunks) under torch.profiler gives the device's busy
+   share and the kernels that take its time;
+4. the three modes (plain, encrypted, enclave) at 1 M records, each
+   built by hand, through the DSL's fluent form (fused) and from the
+   TOML spec ``examples/flight_delay.toml``: all equal numpy;
 5. rekey_every_n=3 plus a mid-stream revocation, 2 workers: encrypted
    and enclave equal the static-key run;
 6. the 8-stage scale_f32 job (2048 chunks of 4096 f32 words) in encrypted
    and enclave mode: the terminal sum is bit-equal across modes and to
-   numpy's float32 chain.
+   numpy's float32 chain;
+7. the per-chunk oracle engine (``window_chunks=1``) on DelayedFlights:
+   the three modes at 1 M records equal phase 4's window-engine results
+   and numpy (with launches per chunk per kernel), enclave mode over
+   4,194,304 records timed, and rekey_every_n=3 plus a mid-stream
+   revocation over 64 chunks equal to the static-key run;
+8. the paper's §5.1 chunk-copy experiment: a 100 MB payload on the card
+   through the enclave kernel in chunks of 16 KB .. 1 MB, in and in-out,
+   MB/s beside the bound; then kernels 4 and 5 over one 100 MB message.
 
-Every pipeline run of phases 3-6 sets the kernels' launch counts to 0
+Every pipeline run of phases 3-7 sets the kernels' launch counts to 0
 just before it and reads them just after: it fails unless exactly the
-kernels of its mode's path were launched (all three in enclave mode,
-ChaCha20 and CW-MAC in encrypted mode, none in plain mode).
+kernels of its mode's path on its engine were launched (window engine:
+kernels 1-3 in enclave mode, 1 and 2 in encrypted mode; per-chunk
+engine: kernels 4-6 and 4-5; plain mode none).
 
-Then one JSON line with every kernel's numbers, and as the last line
-``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
-when no CUDA device is available.
+Then one JSON line with every kernel's numbers (``launches`` from the
+main run of its engine: phase 3 for kernels 1-3, phase 7's timed run for
+kernels 4-6), and as the last line ``{"ok": true, "device": {...}}``.
+Exits 2 without printing a result when no CUDA device is available.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -53,28 +72,48 @@ from pathlib import Path
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
-# 3.35 TB/s; 32-bit integer ops on the CUDA cores at 132 SMs x 64 INT32
-# lanes x 1.98 GHz boost = 16.7 T ops/s (the data sheet lists no int32
-# rate; the kernels do integer work only).
+# 3.35 TB/s; 32-bit integer ops on the CUDA cores at the issue limit,
+# 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz boost = 33.5 T ops/s (the
+# data sheet lists no int32 rate; the kernels do integer work only).  An
+# SM has 64 INT32 lanes, and nvcc sends adds, moves and shifts to its
+# FP32 lanes as IMAD, so integer work can use all 128 lanes an SM issues
+# to per clock: counting the INT32 lanes alone would understate the peak.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+#: issue slots per second of the card: 132 SMs x 4 schedulers x 1.98 GHz
+WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
 
 # int32 operations per unit of work, counted from the algorithms
 CHACHA_OPS_PER_ROW = 10 * 8 * 12 + 16 + 16   # rounds, feed-forward, XOR
 ENCLAVE_OPS_PER_ROW = 2 * CHACHA_OPS_PER_ROW  # decrypt + re-encrypt
 CWMAC_OPS_PER_WORD = 16                       # 2 limbs x (add, mul, fold)
 
-#: the kernels each mode's path launches (plain mode seals nothing)
-KERNELS_BY_MODE = {
-    "plain": (),
-    "encrypted": ("ss_chacha20_xor_rows", "ss_cwmac_partials"),
-    "enclave": ("ss_chacha20_xor_rows", "ss_cwmac_partials",
-                "ss_enclave_map_rows"),
+#: the kernels each engine's path launches in each mode (plain mode
+#: seals nothing): the window engine the per-row kernels 1-3, the
+#: per-chunk oracle engine the shared-key kernels 4-6
+KERNELS = {
+    "window": {
+        "plain": (),
+        "encrypted": ("ss_chacha20_xor_rows", "ss_cwmac_partials"),
+        "enclave": ("ss_chacha20_xor_rows", "ss_cwmac_partials",
+                    "ss_enclave_map_rows"),
+    },
+    "chunk": {
+        "plain": (),
+        "encrypted": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_partials"),
+        "enclave": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_partials",
+                    "ss_enclave_map_blocks"),
+    },
 }
 
 RECORDS = 28_000_000        # the paper's DelayedFlights dataset
 CHUNK_RECORDS = 1024        # 64 KB chunks: the paper's Fig. 4 knee
 WINDOW = 8
+MODES_RECORDS = 1 << 20     # phases 4 and 7: the modes, 1024 chunks
+ORACLE_RECORDS = 4_194_304  # the per-chunk engine's timed run (4096 chunks)
+COPY_PAYLOAD = 100 << 20    # the paper's §5.1 chunk-copy payload, bytes
+COPY_CHUNKS_KB = (16, 64, 256, 1024)
+SPEC_PATH = Path(__file__).resolve().parent / "examples" / "flight_delay.toml"
 
 
 def phase(tag: str, **kv) -> None:
@@ -86,6 +125,17 @@ def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def issue_bound_ms(mix: dict, threads: int) -> float:
+    """Least device ms for ``threads`` threads of a loop-free kernel whose
+    SASS mix is ``mix``: per warp, a scheduler issues one instruction a
+    clock, and the ALU and FMA pipes take 16 lanes a clock each (two
+    clocks per warp instruction)."""
+    issued = sum(mix[k] for k in ("alu", "fma", "uniform", "mem",
+                                  "control"))
+    clocks = max(issued, 2 * mix["alu"], 2 * mix["fma"])
+    return -(-threads // 32) * clocks / WARP_ISSUE_PER_S * 1e3
 
 
 def _events_ms(torch, run, calls: int) -> float:
@@ -146,6 +196,35 @@ def u32(rng, shape):
 # ------------------------------------------------------------------ phases
 
 
+NO_LIBRARY = ("no single PyTorch call computes this (ChaCha20, CW-MAC "
+              "over 2^31-1 and the fused enclave step have no library "
+              "counterpart)")
+
+
+def timed_row(torch, row, run, plain, nbytes, ops, **shown):
+    """Time a kernel's wrapper (``run``) beside its plain version and its
+    bound, fill ``row`` with the numbers and print its phase line."""
+    ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
+    plain_ms = device_ms(torch, plain, 2, reps=3)
+    b, by = bound(nbytes, ops)
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=None, library_note=NO_LIBRARY, eager_ms=eager)
+    phase("kernel", name=row["name"], bit_equal=True, ms=ms, eager_ms=eager,
+          plain_ms=plain_ms, bound_ms=b, bound_by=by, **shown)
+    return row
+
+
+def time_mac2(torch, row, run, plain):
+    """Add the whole mac2 wrapper's times (kernel + its torch fold) to a
+    CW-MAC kernel's ``row`` and print them."""
+    row.update(mac2_ms=device_ms(torch, run, 50),
+               mac2_eager_ms=eager_ms(torch, run, 200),
+               mac2_plain_ms=device_ms(torch, plain, 2, reps=3))
+    phase("kernel", name=f"{row['name']}_mac2_wrapper", ms=row["mac2_ms"],
+          eager_ms=row["mac2_eager_ms"], plain_ms=row["mac2_plain_ms"])
+    return row
+
+
 def phase_card_and_build(torch):
     from repro_torch.kernels import build
     smi = subprocess.run(
@@ -163,9 +242,17 @@ def phase_card_and_build(torch):
         phase("ptxas", kernel=k["name"], registers=k["registers"],
               spill_stores=k["spill_stores"], spill_loads=k["spill_loads"])
         print("   " + " | ".join(k["lines"]), flush=True)
-        if "enclave_rows_kernel" in k["name"] and k["spill_stores"] != 0:
+        if "enclave" in k["name"] and (k["spill_stores"] != 0
+                                       or k["spill_loads"] != 0):
             raise AssertionError(f"{k['name']} spills registers: plaintext "
                                  f"would reach device memory")
+    mixes = build.sass_mix(build.sass_report())
+    for m in mixes:
+        top = sorted(m["ops"].items(), key=lambda kv: -kv[1])[:8]
+        phase("sass", kernel=m["name"], alu=m["alu"], fma=m["fma"],
+              uniform=m["uniform"], mem=m["mem"], control=m["control"],
+              loops=m["loops"], top=",".join(f"{o}:{n}" for o, n in top))
+    return mixes
 
 
 def phase_kernels(torch, dev):
@@ -201,21 +288,16 @@ def phase_kernels(torch, dev):
             T(u32(rng, (Rr, 16))))
     require_equal("chacha20 ragged per-row keys",
                   chacha_ops.xor_rows(*args), chacha20_xor_rows_ref(*args))
-    run = lambda: chacha_ops.xor_rows(key, nonces, ctrs, data)  # noqa
-    ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
-    plain = device_ms(torch, lambda: chacha20_xor_rows_ref(
-        key, nonces, ctrs, data), 2, reps=3)
-    b, by = bound(R * (64 + 64 + 12 + 4) + 32, R * CHACHA_OPS_PER_ROW)
-    rows_out.append(dict(
-        name="chacha20_xor_rows", route="cuda",
-        source="src/repro_torch/csrc/chacha20.cu",
-        replaces="src/repro/kernels/chacha20/chacha20.py:37",
-        symbol="ss_chacha20_xor_rows", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        eager_ms=eager, shape=f"R={R} rows x 16 words, shared key"))
-    phase("kernel", name="chacha20_xor_rows", rows=R, bit_equal=True,
-          ragged_rows=Rr, ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
-          bound_by=by)
+    rows_out.append(timed_row(
+        torch, dict(name="chacha20_xor_rows", route="cuda",
+                    source="src/repro_torch/csrc/chacha20.cu",
+                    replaces="src/repro/kernels/chacha20/chacha20.py:37",
+                    symbol="ss_chacha20_xor_rows", max_abs_err=err,
+                    shape=f"R={R} rows x 16 words, shared key"),
+        lambda: chacha_ops.xor_rows(key, nonces, ctrs, data),
+        lambda: chacha20_xor_rows_ref(key, nonces, ctrs, data),
+        R * (64 + 64 + 12 + 4) + 32, R * CHACHA_OPS_PER_ROW,
+        rows=R, ragged_rows=Rr))
 
     # per-row (mixed-epoch) keys at the same shape, and the mac-key
     # derivation's launch: B zero rows at counter 0 under per-row keys
@@ -247,32 +329,22 @@ def phase_kernels(torch, dev):
         wr, kr[:, 0], kr[:, 1], kr[:, 2], kr[:, 3]), cwmac.mac2_batch(
         wr, kr[:, 0], kr[:, 1], kr[:, 2], kr[:, 3]))
     # the kernel alone, then the whole mac2 wrapper (kernel + torch fold)
-    run = lambda: cwmac_ops.mac_partials_batch(words, rr)  # noqa: E731
-    ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
-    plain = device_ms(torch, lambda: mac_partials_batch_ref(
-        words, rr, cwmac_ops.TILE_WORDS), 2, reps=3)
-    mac2 = lambda: cwmac_ops.mac2_batch(words, r1, s1, r2, s2)  # noqa: E731
-    mac2_ms, mac2_eager = device_ms(torch, mac2, 50), eager_ms(torch, mac2,
-                                                                200)
-    mac2_plain = device_ms(torch, lambda: cwmac.mac2_batch(
-        words, r1, s1, r2, s2), 2, reps=3)
     T_tiles = got.shape[1]
-    b, by = bound(B * n_words * 4 + 2 * B * 4 + 2 * B * T_tiles * 4,
-                  2 * B * n_words * CWMAC_OPS_PER_WORD)
-    rows_out.append(dict(
-        name="cwmac_partials", route="cuda",
-        source="src/repro_torch/csrc/cwmac.cu",
-        replaces="src/repro/kernels/cwmac/cwmac.py:59",
-        symbol="ss_cwmac_partials", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        eager_ms=eager, mac2_ms=mac2_ms, mac2_eager_ms=mac2_eager,
-        mac2_plain_ms=mac2_plain,
-        shape=f"2 keys x {B} rows x {n_words} words -> (16, {T_tiles}) "
-              f"partials; mac2_* = the wrapper with its fold"))
-    phase("kernel", name="cwmac_partials", rows=2 * B, words=n_words,
-          bit_equal=True, ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
-          bound_by=by, mac2_ms=mac2_ms, mac2_eager_ms=mac2_eager,
-          mac2_plain_ms=mac2_plain)
+    row = timed_row(
+        torch, dict(name="cwmac_partials", route="cuda",
+                    source="src/repro_torch/csrc/cwmac.cu",
+                    replaces="src/repro/kernels/cwmac/cwmac.py:59",
+                    symbol="ss_cwmac_partials", max_abs_err=err,
+                    shape=f"2 keys x {B} rows x {n_words} words -> (16, "
+                          f"{T_tiles}) partials; mac2_* = the wrapper with "
+                          f"its fold"),
+        lambda: cwmac_ops.mac_partials_batch(words, rr),
+        lambda: mac_partials_batch_ref(words, rr, cwmac_ops.TILE_WORDS),
+        B * n_words * 4 + 2 * B * 4 + 2 * B * T_tiles * 4,
+        2 * B * n_words * CWMAC_OPS_PER_WORD, rows=2 * B, words=n_words)
+    rows_out.append(time_mac2(
+        torch, row, lambda: cwmac_ops.mac2_batch(words, r1, s1, r2, s2),
+        lambda: cwmac.mac2_batch(words, r1, s1, r2, s2)))
 
     # ---- enclave map: one enclave hop of a window (8 x 1024 rows)
     R = B * n_blocks
@@ -308,23 +380,17 @@ def phase_kernels(torch, dev):
     got = em_ops.enclave_map_rows(kin, kout, nonces, ctrs, data, **kw)
     err = max_abs_err(got, enclave_apply_rows_ref(kin, kout, nonces, ctrs,
                                                   data, **kw))
-    run = lambda: em_ops.enclave_map_rows(kin, kout, nonces, ctrs,  # noqa
-                                          data, **kw)
-    ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
-    plain = device_ms(torch, lambda: enclave_apply_rows_ref(
-        kin, kout, nonces, ctrs, data, **kw), 2, reps=3)
-    b, by = bound(R * (64 + 64 + 2 * (12 + 4)) + 64,
-                  R * ENCLAVE_OPS_PER_ROW)
-    rows_out.append(dict(
-        name="enclave_map_rows", route="cuda",
-        source="src/repro_torch/csrc/enclave_map.cu",
-        replaces="src/repro/kernels/enclave_map/enclave_map.py:84",
-        symbol="ss_enclave_map_rows", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        eager_ms=eager, shape=f"R={R} rows x 16 words, delay_filter_u32"))
-    phase("kernel", name="enclave_map_rows", rows=R, ops=6, bit_equal=True,
-          ragged_rows=Rr, ms=ms, eager_ms=eager, plain_ms=plain, bound_ms=b,
-          bound_by=by)
+    rows_out.append(timed_row(
+        torch, dict(name="enclave_map_rows", route="cuda",
+                    source="src/repro_torch/csrc/enclave_map.cu",
+                    replaces="src/repro/kernels/enclave_map/"
+                             "enclave_map.py:84",
+                    symbol="ss_enclave_map_rows", max_abs_err=err,
+                    shape=f"R={R} rows x 16 words, delay_filter_u32"),
+        lambda: em_ops.enclave_map_rows(kin, kout, nonces, ctrs, data, **kw),
+        lambda: enclave_apply_rows_ref(kin, kout, nonces, ctrs, data, **kw),
+        R * (64 + 64 + 2 * (12 + 4)) + 64, R * ENCLAVE_OPS_PER_ROW,
+        rows=R, enclave_ops=6, ragged_rows=Rr))
     # per-row (mixed-epoch) keys at the same shape, as phase 5 gives them
     kw = dict(op="delay_filter_u32", const=15.0)
     args = (repeat_rows(T(u32(rng, (B, 8))), n_blocks),
@@ -403,7 +469,117 @@ def phase_kernels_stage8_shapes(torch, dev, rng, chunk_words=4096):
           checked=",".join(checked))
 
 
-def _flights_pipeline(mode, workers, dev, *, directory=None):
+def phase_kernels_oracle(torch, dev, rng):
+    """Kernels 4-6 (the per-chunk engine's) against their plain versions
+    at the shapes phase 7 gives them: one 64 KB chunk of 1024 records is
+    1025 cipher blocks (zero block + payload) for the shared-key ChaCha20
+    kernel, 16384 words x 2 keys for the single-message MAC and 1024
+    blocks for the shared-key enclave map; plus a counter that wraps, the
+    six enclave ops on adversarial words, and ragged block counts."""
+    from repro_torch.crypto import cwmac
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    from repro_torch.kernels.chacha20.ref import chacha20_xor_blocks_ref
+    from repro_torch.kernels.cwmac import ops as cwmac_ops
+    from repro_torch.kernels.cwmac.ref import mac_partials_ref
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    from repro_torch.kernels.enclave_map.ref import enclave_apply_ref
+    from repro_torch.u32 import from_numpy
+    T = lambda a: from_numpy(a, dev)         # noqa: E731
+    rows_out = []
+    n_blocks = CHUNK_RECORDS                 # one 64 KB chunk
+    wrap = 2 ** 32 - 3
+
+    # ---- ChaCha20 blocks: the scalar seal/open of one chunk, counter0 0
+    N = n_blocks + 1
+    key, nonce, data = T(u32(rng, 8)), T(u32(rng, 3)), T(u32(rng, (N, 16)))
+    for c0, n in ((0, N), (wrap, N), (5, 37), (wrap, 1)):
+        require_equal(f"chacha20 blocks N={n} counter0={c0}",
+                      chacha_ops.xor_blocks(key, nonce, c0, data[:n]),
+                      chacha20_xor_blocks_ref(key, nonce, c0, data[:n]))
+    err = max_abs_err(chacha_ops.xor_blocks(key, nonce, 0, data),
+                      chacha20_xor_blocks_ref(key, nonce, 0, data))
+    rows_out.append(timed_row(
+        torch, dict(name="chacha20_xor_blocks", route="cuda",
+                    source="src/repro_torch/csrc/chacha20.cu",
+                    replaces="src/repro/kernels/chacha20/chacha20.py:24",
+                    symbol="ss_chacha20_xor_blocks", max_abs_err=err,
+                    shape=f"N={N} blocks x 16 words, shared key, counter0=0"),
+        lambda: chacha_ops.xor_blocks(key, nonce, 0, data),
+        lambda: chacha20_xor_blocks_ref(key, nonce, 0, data),
+        N * 64 * 2 + 32 + 12, N * CHACHA_OPS_PER_ROW,
+        blocks=N, wrapped_counter0=wrap, ragged="37,1"))
+
+    # ---- CW-MAC, one message: mac2 of one chunk, 16384 words x 2 keys
+    n_words = n_blocks * 16
+    words = T(u32(rng, n_words))
+    mk = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, 4), dtype=torch.int32,
+                         device=dev)
+    r = mk[0::2].contiguous()
+    for n in (n_words, 5003, 1):
+        require_equal(f"cwmac message partials n={n}",
+                      cwmac_ops.mac_partials(words[:n], r),
+                      mac_partials_ref(words[:n], r, cwmac_ops.TILE_WORDS))
+        require_equal(f"cwmac message mac2 n={n}",
+                      cwmac_ops.mac2(words[:n], *mk),
+                      cwmac.mac2(words[:n], *mk))
+    got = cwmac_ops.mac_partials(words, r)
+    err = max_abs_err(got, mac_partials_ref(words, r, cwmac_ops.TILE_WORDS))
+    row = timed_row(
+        torch, dict(name="cwmac_mac_partials", route="cuda",
+                    source="src/repro_torch/csrc/cwmac.cu",
+                    replaces="src/repro/kernels/cwmac/cwmac.py:47",
+                    symbol="ss_cwmac_mac_partials", max_abs_err=err,
+                    shape=f"1 message x {n_words} words x 2 keys -> "
+                          f"(2, {got.shape[1]}) partials; mac2_* = the "
+                          f"wrapper with its fold"),
+        lambda: cwmac_ops.mac_partials(words, r),
+        lambda: mac_partials_ref(words, r, cwmac_ops.TILE_WORDS),
+        n_words * 4 + 2 * 4 + 2 * got.shape[1] * 4,
+        2 * n_words * CWMAC_OPS_PER_WORD, words=n_words, ragged="5003,1")
+    rows_out.append(time_mac2(torch, row,
+                              lambda: cwmac_ops.mac2(words, *mk),
+                              lambda: cwmac.mac2(words, *mk)))
+
+    # ---- enclave map blocks: the per-chunk enclave hop, 1024 blocks
+    kin, kout = T(u32(rng, 8)), T(u32(rng, 8))
+    special = np.array([0x7FC00000, 0x7F800001, 0xFFC00001, 0x80000000, 0,
+                        1, 0x00400000, 0x80000001, 0x1FFFFFFF, 0x20000000,
+                        0x7F7FFFFF, 0xFF800000, 0x7F800000, 0x00800000,
+                        0x80000010, 0xFFFFFFFF], np.uint32)
+    pt = u32(rng, (n_blocks, 16))
+    pt[:, 1] = rng.integers(0, 64, n_blocks)  # delay word near threshold
+    pt[: len(special)] = special
+    data = T(pt)
+    for op, c in [("identity", 0.0), ("scale_f32", 0.1), ("relu_f32", 0.0),
+                  ("square_f32", 0.0), ("threshold_mask", -0.5),
+                  ("delay_filter_u32", 15.0)]:
+        for c0, n in ((1, n_blocks), (wrap, n_blocks), (9, 37)):
+            require_equal(f"enclave_map blocks {op} N={n} counter0={c0}",
+                          em_ops.enclave_map(kin, kout, nonce, c0, data[:n],
+                                             op=op, const=c),
+                          enclave_apply_ref(kin, kout, nonce, c0, data[:n],
+                                            op=op, const=c))
+    kw = dict(op="delay_filter_u32", const=15.0)
+    err = max_abs_err(em_ops.enclave_map(kin, kout, nonce, 1, data, **kw),
+                      enclave_apply_ref(kin, kout, nonce, 1, data, **kw))
+    rows_out.append(timed_row(
+        torch, dict(name="enclave_map_blocks", route="cuda",
+                    source="src/repro_torch/csrc/enclave_map.cu",
+                    replaces="src/repro/kernels/enclave_map/"
+                             "enclave_map.py:164",
+                    symbol="ss_enclave_map_blocks", max_abs_err=err,
+                    shape=f"N={n_blocks} blocks x 16 words, "
+                          f"delay_filter_u32"),
+        lambda: em_ops.enclave_map(kin, kout, nonce, 1, data, **kw),
+        lambda: enclave_apply_ref(kin, kout, nonce, 1, data, **kw),
+        n_blocks * 64 * 2 + 64 + 12, n_blocks * ENCLAVE_OPS_PER_ROW,
+        blocks=n_blocks, enclave_ops=6, wrapped_counter0=wrap, ragged=37))
+    return rows_out
+
+
+def _flights_pipeline(mode, workers, dev, *, directory=None,
+                      window=WINDOW):
+    """DelayedFlights built by hand (the pre-DSL form)."""
     from repro_torch.configs.base import SecureStreamConfig
     from repro_torch.core.pipeline import Pipeline, Stage
     from repro_torch.dsl.reducers import resolve_reducer
@@ -413,8 +589,25 @@ def _flights_pipeline(mode, workers, dev, *, directory=None):
         Stage("sgx_filter", op="delay_filter_u32", const=15,
               workers=workers),
         Stage("reducer", op="custom", reduce_fn=fn, reduce_init=init),
-    ], SecureStreamConfig(mode=mode), window_chunks=WINDOW,
+    ], SecureStreamConfig(mode=mode), window_chunks=window,
         directory=directory, device=dev)
+
+
+def _flights_fluent(dev, workers=1):
+    """DelayedFlights through the port's DSL, fluent form, as
+    ``examples/flight_delay_pipeline.py`` builds it."""
+    from repro_torch.dsl import stream
+    return (stream()
+            .map("identity", name="sgx_mapper", workers=workers, sgx=True)
+            .filter("delay_filter_u32", const=15, name="sgx_filter",
+                    workers=workers, sgx=True)
+            .reduce("carrier_delay_stats", name="reducer")
+            .window(WINDOW).device(dev))
+
+
+def _signature(stages):
+    return [(s.name, s.op, s.const, s.workers, s.sgx, s.fn is None,
+             s.reduce_fn is None) for s in stages]
 
 
 def _numpy_flights(recs: np.ndarray):
@@ -437,24 +630,24 @@ def _check_flights(what, out, ref):
         raise AssertionError(f"{what}: result differs from numpy")
 
 
-def counted_run(torch, what, mode, run):
+def counted_run(torch, what, mode, run, engine="window"):
     """``run()`` with every kernel's launch count set to 0 just before it
     and read just after; fails unless exactly the kernels of ``mode``'s
-    path were launched (plain mode launches none).  -> (result of
-    ``run()``, {kernel symbol: launches})."""
+    path on ``engine`` were launched (plain mode launches none).  ->
+    (result of ``run()``, {kernel symbol: launches})."""
     from repro_torch.kernels import build
     torch.cuda.synchronize()
     build.reset_launch_counts()
     out = run()
     torch.cuda.synchronize()
     launches = build.launch_counts()
-    phase("launches", run=what, mode=mode, **launches)
-    want = set(KERNELS_BY_MODE[mode])
+    phase("launches", run=what, engine=engine, mode=mode, **launches)
+    want = set(KERNELS[engine][mode])
     ran = {k for k, v in launches.items() if v}
     if not want <= set(launches) or ran != want:
         raise AssertionError(
-            f"{what}: {mode} mode should launch exactly {sorted(want)}, "
-            f"launched {sorted(ran)}")
+            f"{what}: {mode} mode on the {engine} engine should launch "
+            f"exactly {sorted(want)}, launched {sorted(ran)}")
     return out, launches
 
 
@@ -469,13 +662,22 @@ def phase_delayed_flights(torch, dev, n_records):
     recs_dev = from_numpy(recs, dev)         # the stream, on the card
     torch.cuda.synchronize()
     setup, h2d = time.perf_counter() - t0, time.perf_counter() - t1
-    p = _flights_pipeline("enclave", 1, dev)
+    # built through the DSL; fusion off, so the compiled stage list is
+    # the hand-built 3-stage job (fused, the identity mapper would be
+    # absorbed and the job would lose a hop: phase 4 runs that form)
+    p = _flights_fluent(dev).fuse(False).build("enclave")
+    if _signature(p.stages) != _signature(
+            _flights_pipeline("enclave", 1, dev).stages):
+        raise AssertionError("the DSL's stage list differs from the "
+                             "hand-built DelayedFlights pipeline")
     (out, wall), launches = counted_run(
         torch, "delayed_flights", "enclave",
         _timed(torch, p, _chunks(recs_dev, n_chunks)))
     _check_flights("DelayedFlights enclave", out, ref)
     n = n_chunks * CHUNK_RECORDS
-    phase("delayed_flights", mode="enclave", records=n, chunks=n_chunks,
+    phase("delayed_flights", built="dsl fluent, fuse(False)",
+          stages_equal_hand_built=True, mode="enclave", records=n,
+          chunks=n_chunks,
           chunk_bytes=CHUNK_RECORDS * 64, window_chunks=WINDOW,
           setup_s=round(setup, 3), source_h2d_s=round(h2d, 4),
           wall_s=round(wall, 3),
@@ -536,21 +738,39 @@ def _timed(torch, p, source, **kw):
 
 
 def phase_modes(torch, dev, n_records):
+    """The three modes at 1 M records, each built three ways: by hand,
+    through the DSL's fluent form (fusion on: the identity mapper is
+    absorbed) and from the TOML spec ``examples/flight_delay.toml`` (2
+    workers per stage).  Every result equals numpy.  -> {mode: result
+    of the hand-built window-engine run}."""
     from repro_torch.data.synthetic import flight_records
+    from repro_torch.dsl import load_spec
     from repro_torch.u32 import from_numpy
     n_chunks = n_records // CHUNK_RECORDS
     recs = flight_records(n_records, seed=1)[:n_chunks * CHUNK_RECORDS]
     ref = _numpy_flights(recs)
     recs_dev = from_numpy(recs, dev)
-    secs = {}
+    secs, results = {}, {}
     for mode in ("plain", "encrypted", "enclave"):
-        p = _flights_pipeline(mode, 1, dev)
-        (out, dt), _ = counted_run(torch, "modes", mode, _timed(
-            torch, p, _chunks(recs_dev, n_chunks)))
-        secs[mode] = round(dt, 3)
-        _check_flights(f"DelayedFlights {mode}", out, ref)
+        forms = {"hand": _flights_pipeline(mode, 1, dev),
+                 "fluent": _flights_fluent(dev).build(mode),
+                 "toml": load_spec(str(SPEC_PATH)).device(dev)
+                 .build(mode)}
+        for form, p in forms.items():
+            (out, dt), _ = counted_run(torch, f"modes_{form}", mode, _timed(
+                torch, p, _chunks(recs_dev, n_chunks)))
+            secs[f"{mode}_{form}"] = round(dt, 3)
+            _check_flights(f"DelayedFlights {mode} ({form})", out, ref)
+            if form == "hand":
+                results[mode] = out
+        rep = forms["fluent"].report()
+        if rep["sgx_filter"].get("fused_from") != ["sgx_mapper"]:
+            raise AssertionError(f"fluent form: the identity mapper was "
+                                 f"not absorbed: {rep.get('fusion')}")
     phase("modes", records=n_chunks * CHUNK_RECORDS, identical=True,
+          forms="hand,fluent,toml",
           **{f"{m}_s": s for m, s in secs.items()})
+    return results
 
 
 def phase_rekey(torch, dev, n_records):
@@ -620,11 +840,204 @@ def phase_stage8(torch, dev, n_chunks, chunk_words=4096):
               bit_equal_numpy=True)
 
 
+def phase_oracle(torch, dev, window_results):
+    """The per-chunk oracle engine (``window_chunks=1``) on DelayedFlights
+    at full width: 64 KB chunks of 1024 records.  The three modes at 1 M
+    records equal the window engine's results (phase 4) and numpy; then
+    enclave mode over ORACLE_RECORDS, timed; then rekey_every_n=3 with a
+    mid-stream revocation over 64 chunks, equal to the static-key run.
+    Every run's launch gate: kernels 4-6 in enclave mode, 4 and 5 in
+    encrypted mode, none in plain.  -> launches of the timed run."""
+    from repro_torch.core.pipeline import Pipeline
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.u32 import from_numpy
+    n_chunks = MODES_RECORDS // CHUNK_RECORDS
+    recs = flight_records(MODES_RECORDS, seed=1)[:n_chunks * CHUNK_RECORDS]
+    recs_dev = from_numpy(recs, dev)            # phase 4's stream
+    ref = _numpy_flights(recs)
+    secs = {}
+    for mode in ("plain", "encrypted", "enclave"):
+        p = _flights_pipeline(mode, 1, dev, window=1)
+        (out, dt), launches = counted_run(
+            torch, "oracle_modes", mode,
+            _timed(torch, p, _chunks(recs_dev, n_chunks)), engine="chunk")
+        secs[f"{mode}_s"] = round(dt, 3)
+        _check_flights(f"oracle {mode}", out, ref)
+        if window_results is not None:
+            want = window_results[mode]
+            if not (torch.equal(out["count"], want["count"])
+                    and torch.equal(out["sum"], want["sum"])):
+                raise AssertionError(f"oracle {mode}: differs from the "
+                                     f"window engine's result")
+        phase("oracle_launches_per_chunk", mode=mode, **{
+            k: v / n_chunks for k, v in launches.items() if v})
+    phase("oracle_modes", records=n_chunks * CHUNK_RECORDS,
+          equal_window_engine=window_results is not None, equal_numpy=True,
+          **secs)
+
+    n_chunks = ORACLE_RECORDS // CHUNK_RECORDS
+    recs = flight_records(n_chunks * CHUNK_RECORDS, seed=1)
+    recs_dev = from_numpy(recs, dev)
+    p = _flights_pipeline("enclave", 1, dev, window=1)
+    (out, wall), launches = counted_run(
+        torch, "oracle_enclave", "enclave",
+        _timed(torch, p, _chunks(recs_dev, n_chunks)), engine="chunk")
+    _check_flights("oracle enclave", out, _numpy_flights(recs))
+    n = n_chunks * CHUNK_RECORDS
+    phase("oracle_enclave", records=n, chunks=n_chunks, wall_s=round(wall, 3),
+          records_per_s=round(n / wall, 1),
+          mb_per_s=round(n * 64 / 1e6 / wall, 2), exact=True,
+          ms_per_chunk=round(wall / n_chunks * 1e3, 4))
+    rep = p.report()
+    for name in ("sgx_mapper", "sgx_filter", "reducer"):
+        print(f"   report {name}: {json.dumps(rep[name])}", flush=True)
+
+    n_chunks = 64
+    ref = _numpy_flights(recs[:n_chunks * CHUNK_RECORDS])
+    for mode in ("encrypted", "enclave"):
+        (static, _), _ = counted_run(
+            torch, "oracle_static_keys", mode, _timed(
+                torch, _flights_pipeline(mode, 2, dev, window=1),
+                _chunks(recs_dev, n_chunks)), engine="chunk")
+        p = _flights_pipeline(mode, 2, dev, window=1)
+        revoke = (n_chunks // 2, lambda: p.directory.revoke(
+            Pipeline.worker_id("sgx_mapper", 1)))
+        (out, _), _ = counted_run(
+            torch, "oracle_rekey_revocation", mode, _timed(
+                torch, p, _chunks(recs_dev, n_chunks, revoke),
+                rekey_every_n=3), engine="chunk")
+        _check_flights(f"oracle {mode} static keys", static, ref)
+        _check_flights(f"oracle {mode} rekey+revocation", out, ref)
+        audit = p.directory.audit.summary()
+        if audit.get("rekey", 0) < 2 or audit.get("revocation") != 1:
+            raise AssertionError(f"oracle {mode}: expected rekeys and one "
+                                 f"revocation, audit says {audit}")
+        phase("oracle_rekey_revocation", mode=mode, chunks=n_chunks,
+              rekeys=audit["rekey"], revocations=audit["revocation"],
+              evictions=audit.get("eviction", 0), equal_static=True)
+    return launches
+
+
+def _wall_ms(torch, fn, iters=3):
+    """Mean ms of ``fn()`` to its end on the card, host launches
+    included (one warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_chunk_copy(torch, dev, mixes):
+    """The paper's §5.1 chunk-copy experiment (Fig. 4): a 100 MB payload
+    resident on the card crosses the enclave kernel (kernel 6, identity
+    op) in chunks of 16 KB .. 1 MB, one way (in) and there and back
+    (in-out, which must restore the payload), as
+    ``benchmarks/bench_chunk_copy.py`` does; then kernels 4 and 5 over
+    one 100 MB message each.  Every time is beside its bound; kernel 4's
+    also beside the issue bound of its SASS mix (``mixes``, phase 1).
+    -> {kernel symbol: extra numbers for the kernels line}."""
+    from repro_torch.crypto import cwmac
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    from repro_torch.kernels.chacha20.ref import chacha20_xor_blocks_ref
+    from repro_torch.kernels.cwmac import ops as cwmac_ops
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    from repro_torch.kernels.enclave_map.ref import enclave_apply_ref
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=g)
+    total = COPY_PAYLOAD // 64
+    data = words(total, 16)
+    k1, k2, nonce = words(8), words(8), words(3)
+    mb = COPY_PAYLOAD / 1e6
+    sizes = {}
+    for kb in COPY_CHUNKS_KB:
+        rpc = kb * 1024 // 64
+        n_chunks = total // rpc
+
+        def push(round_trip, rpc=rpc, n_chunks=n_chunks):
+            outs = []
+            for c in range(n_chunks):
+                blk = data[c * rpc:(c + 1) * rpc]
+                out = em_ops.enclave_map(k1, k2, nonce, 1 + c * rpc, blk,
+                                         op="identity")
+                if round_trip:
+                    out = em_ops.enclave_map(k2, k1, nonce, 1 + c * rpc,
+                                             out, op="identity")
+                outs.append(out)
+            return outs
+        outs = push(True)
+        if not torch.equal(torch.cat(outs), data):
+            raise AssertionError(f"chunk copy {kb} KB: in-out did not "
+                                 f"restore the payload")
+        last = data[(n_chunks - 1) * rpc:]
+        require_equal(f"chunk copy {kb} KB, last chunk",
+                      push(False)[-1], enclave_apply_ref(
+                          k1, k2, nonce, 1 + (n_chunks - 1) * rpc, last,
+                          op="identity"))
+        del outs
+        t_in = _wall_ms(torch, lambda: push(False))
+        t_io = _wall_ms(torch, lambda: push(True))
+        # per chunk: both keys and the nonce, read once
+        b_in, by = bound(total * 128 + n_chunks * 76,
+                         total * ENCLAVE_OPS_PER_ROW)
+        b_io, _ = bound(2 * (total * 128 + n_chunks * 76),
+                        2 * total * ENCLAVE_OPS_PER_ROW)
+        sizes[f"{kb}KB"] = dict(
+            chunks=n_chunks, in_ms=t_in, inout_ms=t_io,
+            in_mb_per_s=mb / (t_in / 1e3), inout_mb_per_s=mb / (t_io / 1e3),
+            in_bound_ms=b_in, inout_bound_ms=b_io, bound_by=by,
+            inout_overhead=t_io / t_in - 1)
+        phase("chunk_copy", chunk_kb=kb, **sizes[f"{kb}KB"])
+
+    # kernels 4 and 5 over one 100 MB message each
+    run = lambda: chacha_ops.xor_blocks(k1, nonce, 1, data)  # noqa: E731
+    out = run()
+    for off in (0, total // 2, total - 16384):
+        require_equal(f"chacha20 blocks 100 MB @ {off}", out[off:off + 16384],
+                      chacha20_xor_blocks_ref(k1, nonce, 1 + off,
+                                              data[off:off + 16384]))
+    # device time from a replayed graph: eager calls would also time the
+    # allocator's fresh 100 MB outputs
+    ms = device_ms(torch, run, 5, reps=3)
+    b, by = bound(total * 128 + 44, total * CHACHA_OPS_PER_ROW)
+    mix = next(m for m in mixes if "chacha20_xor_blocks" in m["name"])
+    if mix["loops"]:
+        raise AssertionError("chacha20_xor_blocks_kernel has a loop: its "
+                             "static SASS count is not its dynamic one")
+    issue = issue_bound_ms(mix, total)
+    k4 = dict(ms_100mb=ms, bound_ms_100mb=b, bound_by_100mb=by,
+              issue_bound_ms_100mb=issue)
+    phase("kernel_100mb", name="chacha20_xor_blocks", ms=ms, bound_ms=b,
+          bound_by=by, issue_bound_ms=issue, sass_alu=mix["alu"],
+          sass_fma=mix["fma"], bit_equal_slices=3)
+    flat = data.reshape(-1)
+    mk = words(4) & 0x3FFFFFFF
+    r = mk[0::2].contiguous()
+    if not torch.equal(cwmac_ops.mac2(flat, *mk), cwmac.mac2(flat, *mk)):
+        raise AssertionError("cwmac 100 MB: tag differs from the plain "
+                             "version")
+    T = -(-flat.numel() // cwmac_ops.TILE_WORDS)
+    ms = device_ms(torch, lambda: cwmac_ops.mac_partials(flat, r), 5,
+                   reps=3)
+    b, by = bound(flat.numel() * 4 + 8 + 2 * T * 4,
+                  2 * flat.numel() * CWMAC_OPS_PER_WORD)
+    k5 = dict(ms_100mb=ms, bound_ms_100mb=b, bound_by_100mb=by)
+    phase("kernel_100mb", name="cwmac_mac_partials", ms=ms, bound_ms=b,
+          bound_by=by, tag_equal=True)
+    return {"ss_chacha20_xor_blocks": k4, "ss_cwmac_mac_partials": k5,
+            "ss_enclave_map_blocks": {"chunk_copy_100mb": sizes}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -644,19 +1057,34 @@ def main() -> int:
     phase("start", torch=torch.__version__, cuda=torch.version.cuda,
           python=sys.version.split()[0],
           device=torch.cuda.get_device_name(0))
-    phase_card_and_build(torch)
-    kernels = phase_kernels(torch, dev) if 2 in phases else []
+    mixes = phase_card_and_build(torch)
+    kernels = []
+    if 2 in phases:
+        kernels = phase_kernels(torch, dev)
+        kernels += phase_kernels_oracle(torch, dev,
+                                        np.random.default_rng(1))
+    # launches on each engine's main path: the window engine's DelayedFlights
+    # run (phase 3) for kernels 1-3, the oracle engine's timed enclave run
+    # (phase 7) for kernels 4-6
+    launches = {}
     if 3 in phases:
-        launches = phase_delayed_flights(torch, dev, args.records)
-        for k in kernels:
-            k["launches"] = launches[k.pop("symbol")]
+        launches["window"] = phase_delayed_flights(torch, dev, args.records)
         phase_profile(torch, dev, 256 * CHUNK_RECORDS)
-    if 4 in phases:
-        phase_modes(torch, dev, 1 << 20)
+    window_results = phase_modes(torch, dev, MODES_RECORDS) \
+        if 4 in phases else None
     if 5 in phases:
         phase_rekey(torch, dev, 64 * CHUNK_RECORDS)
     if 6 in phases:
         phase_stage8(torch, dev, 2048)
+    if 7 in phases:
+        launches["chunk"] = phase_oracle(torch, dev, window_results)
+    extra = phase_chunk_copy(torch, dev, mixes) if 8 in phases else {}
+    for k in kernels:
+        sym = k.pop("symbol")
+        engine = next(e for e in KERNELS if sym in KERNELS[e]["enclave"])
+        k["launches"] = launches[engine][sym] if engine in launches \
+            else None
+        k.update(extra.get(sym, {}))
     phase("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

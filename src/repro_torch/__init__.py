@@ -1,4 +1,4 @@
-"""repro_torch: the SecureStreams window engine on PyTorch and CUDA.
+"""repro_torch: SecureStreams on PyTorch and CUDA (engines, DSL, kernels).
 
 A port of :mod:`repro` (the JAX/Pallas reference, which stays the oracle)
 module for module: ``repro/<pkg>/<mod>.py`` -> ``repro_torch/<pkg>/<mod>.py``.

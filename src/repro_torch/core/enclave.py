@@ -1,23 +1,28 @@
 """Enclave executor: runs operators under one of the paper's three modes.
 
-Port of the window paths of ``repro/core/enclave.py``.  Fig. 6 of the
-paper compares three deployments; they map here to:
+Port of ``repro/core/enclave.py``.  Fig. 6 of the paper compares three
+deployments; they map here to:
 
 * ``plain``     — operator on cleartext words (baseline, unsafe);
-* ``encrypted`` — ``open_many`` -> operator -> ``seal_many`` as separate
-  device programs: ciphertext on the wire, but plaintext transits device
-  memory during the operator (which runs as plain torch ops, outside
-  any kernel, exactly as the reference runs it outside Pallas);
-* ``enclave``   — the fused ``enclave_map_rows`` kernel: plaintext
-  exists only in registers inside the kernel, device memory sees
-  ciphertext end to end.  Operators come from the static registry (the
-  paper's no-dynamic-linking constraint, §4).
+* ``encrypted`` — AEAD open -> operator -> AEAD seal as separate device
+  programs: ciphertext on the wire, but plaintext transits device memory
+  during the operator (which runs as plain torch ops, outside any
+  kernel, exactly as the reference runs it outside Pallas);
+* ``enclave``   — the fused enclave map kernel: plaintext exists only in
+  registers inside the kernel, device memory sees ciphertext end to
+  end.  Operators come from the static registry (the paper's
+  no-dynamic-linking constraint, §4).
 
-The unit of device work is a :class:`SealedWindow` of chunks.  MAC
-verdicts are **deferred**: the window entry points return a per-row
-device verdict vector without a host sync; the pipeline syncs once per
-window.  Windows straddling a ``rekey_every_n`` flip carry mixed epochs
-and use per-row keys, so rows never cross keystreams.
+Two units of device work.  The window engine moves a
+:class:`SealedWindow` of chunks (``run_window`` / ``run_static_window``,
+batched AEAD and the per-row enclave kernel); MAC verdicts are
+**deferred**: the window entry points return a per-row device verdict
+vector without a host sync, and the pipeline syncs once per window.
+Windows straddling a ``rekey_every_n`` flip carry mixed epochs and use
+per-row keys, so rows never cross keystreams.  The per-chunk oracle
+engine moves one :class:`SealedChunk` at a time (:meth:`EnclaveExecutor.
+run` / :meth:`EnclaveExecutor.run_static`, the scalar AEAD and the
+shared-key enclave kernel) and syncs each verdict as it comes.
 """
 from __future__ import annotations
 
@@ -31,8 +36,80 @@ import torch.nn.functional as F
 from repro_torch.crypto import aead
 from repro_torch.crypto.keys import current_epoch as _cur_epoch, \
     resolve_key as _key_at
+from repro_torch.kernels.cwmac import ops as cwmac_ops
 from repro_torch.kernels.enclave_map import ops as enclave_ops
+from repro_torch.obs.metrics import REGISTRY as _METRICS
 from repro_torch.u32 import host_to_device, repeat_rows
+
+# the per-chunk enclave hop MACs ciphertext outside the fused kernel, one
+# mac2 each side; the reference counts those launches at the call sites
+_DISPATCHES = _METRICS.counter("device.dispatches")
+_DISP_CWMAC = _METRICS.counter("device.dispatches.cwmac.mac2")
+
+
+@dataclass
+class SealedChunk:
+    """Fixed-shape ciphertext unit of the per-chunk engine."""
+    blocks: torch.Tensor             # (N, 16) int32-carried ciphertext (or
+                                     # plaintext words in plain mode)
+    tag: Optional[torch.Tensor]      # (2,) CW-MAC tag or None
+    counter: int                     # per-stream chunk counter -> nonce
+    meta: Tuple                      # tensor framing (shape, dtype, pad)
+    n_words: int                     # valid words before block padding
+    epoch: int = 0                   # ingress key epoch: every edge seals
+                                     # the chunk under ITS epoch (counters
+                                     # are epoch-local)
+
+
+def _words_to_blocks(words: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    n = words.shape[0]
+    n_blocks = (n + 15) // 16
+    return F.pad(words, (0, n_blocks * 16 - n)).reshape(n_blocks, 16), n
+
+
+def _chunk_coords(key, epoch: int, counter: int, device
+                  ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
+    """(StageKey, key words, nonce words) of a chunk under ``key`` at
+    ``epoch``, the words on ``device``."""
+    k = _key_at(key, epoch)
+    return (k, host_to_device(k.key, device),
+            host_to_device(k.nonce(counter), device))
+
+
+def seal_tensor(key, counter: int, x: torch.Tensor,
+                epoch: Optional[int] = None) -> SealedChunk:
+    """Seal under ``key`` at ``epoch`` (the handle's current epoch when
+    None — ingress; executors pass the chunk's own epoch through)."""
+    if epoch is None:
+        epoch = _cur_epoch(key)
+    words, meta = aead.tensor_to_words(x)
+    _, k, nonce = _chunk_coords(key, epoch, counter, words.device)
+    ct, tag = aead.seal(k, nonce, words)
+    blocks, n = _words_to_blocks(ct)
+    return SealedChunk(blocks=blocks, tag=tag, counter=counter, meta=meta,
+                       n_words=n, epoch=epoch)
+
+
+def open_tensor(key, chunk: SealedChunk
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (tensor, ok () bool tensor, not synced)."""
+    _, k, nonce = _chunk_coords(key, chunk.epoch, chunk.counter,
+                                chunk.blocks.device)
+    ct = chunk.blocks.reshape(-1)[:chunk.n_words]
+    pt, ok = aead.open_(k, nonce, ct, chunk.tag)
+    return aead.words_to_tensor(pt, chunk.meta), ok
+
+
+def plain_chunk(counter: int, x: torch.Tensor) -> SealedChunk:
+    words, meta = aead.tensor_to_words(x)
+    blocks, n = _words_to_blocks(words)
+    return SealedChunk(blocks=blocks, tag=None, counter=counter, meta=meta,
+                       n_words=n)
+
+
+def unplain_chunk(chunk: SealedChunk) -> torch.Tensor:
+    return aead.words_to_tensor(chunk.blocks.reshape(-1)[:chunk.n_words],
+                                chunk.meta)
 
 
 @dataclass
@@ -180,6 +257,31 @@ def _apply_static_words(op: str, const: float,
     return out.reshape(B, -1)[:, :n]
 
 
+def _apply_static_f32(op: str, const: float, x: torch.Tensor
+                      ) -> torch.Tensor:
+    """The static operator registry on a decoded tensor (plain torch)."""
+    words, meta = aead.tensor_to_words(x)
+    blocks, n = _words_to_blocks(words)
+    out = enclave_ops.OPS[op](blocks, const)
+    return aead.words_to_tensor(out.reshape(-1)[:n], meta)
+
+
+def ingress(mode: str, key, counter: int, x: torch.Tensor) -> SealedChunk:
+    """Bring a source tensor into the pipeline under the security mode."""
+    if mode == "plain":
+        return plain_chunk(counter, x)
+    return seal_tensor(key, counter, x)
+
+
+def egress(mode: str, key, chunk: SealedChunk
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Take a result out of the pipeline (trusted subscriber): -> (tensor,
+    ok () bool tensor; always true in plain mode)."""
+    if mode == "plain":
+        return unplain_chunk(chunk), torch.tensor(True)
+    return open_tensor(key, chunk)
+
+
 class EnclaveExecutor:
     """Executes one stage's operator under the configured security mode.
 
@@ -195,6 +297,65 @@ class EnclaveExecutor:
         self.key_in = key_in
         self.key_out = key_out
         self.errors = 0
+
+    # -- the per-chunk engine: one chunk, verdicts synced as they come ----
+
+    def run(self, fn: Callable[[torch.Tensor], torch.Tensor],
+            chunk: SealedChunk) -> Optional[SealedChunk]:
+        """open -> ``fn`` -> seal one chunk; None when its MAC fails (one
+        host sync for the verdict)."""
+        if self.mode == "plain":
+            return plain_chunk(chunk.counter, fn(unplain_chunk(chunk)))
+        if self.mode == "encrypted":
+            x, ok = open_tensor(self.key_in, chunk)
+            if not bool(ok):
+                self.errors += 1
+                return None
+            # re-seal under the CHUNK's epoch: counters are epoch-local
+            return seal_tensor(self.key_out, chunk.counter, fn(x),
+                               epoch=chunk.epoch)
+        raise ValueError(
+            "enclave mode only executes registered static operators "
+            "(run_static); arbitrary closures cannot be attested — "
+            "the paper's no-dynamic-linking rule.")
+
+    def run_static(self, op: str, const: float,
+                   chunk: SealedChunk) -> Optional[SealedChunk]:
+        """A registered operator on one chunk.  plain/encrypted: through
+        :meth:`run`.  enclave: MAC check of the ciphertext (mac-key
+        derivation + one dual-key MAC, outside the enclave: ciphertext is
+        public), one host sync for its verdict, the fused shared-key
+        enclave kernel (decrypt -> op -> encrypt under the outbound key,
+        same nonce, payload counters from 1), and a re-tag under the
+        outbound key — plaintext stays in registers."""
+        if self.mode in ("plain", "encrypted"):
+            return self.run(lambda x: _apply_static_f32(op, const, x), chunk)
+        dev = chunk.blocks.device
+        _, kin, nonce = _chunk_coords(self.key_in, chunk.epoch,
+                                      chunk.counter, dev)
+        _, kout, nonce_out = _chunk_coords(self.key_out, chunk.epoch,
+                                           chunk.counter, dev)
+        ct_words = chunk.blocks.reshape(-1)[:chunk.n_words]
+        r1, s1, r2, s2 = aead.derive_mac_keys(kin, nonce)
+        _DISPATCHES.inc()
+        _DISP_CWMAC.inc()
+        ok = (cwmac_ops.mac2(ct_words, r1, s1, r2, s2) == chunk.tag).all()
+        if not bool(ok):
+            self.errors += 1
+            return None
+        out_blocks = enclave_ops.enclave_map(kin, kout, nonce, 1,
+                                             chunk.blocks, op=op,
+                                             const=const)
+        ro1, so1, ro2, so2 = aead.derive_mac_keys(kout, nonce_out)
+        _DISPATCHES.inc()
+        _DISP_CWMAC.inc()
+        tag = cwmac_ops.mac2(out_blocks.reshape(-1)[:chunk.n_words],
+                             ro1, so1, ro2, so2)
+        return SealedChunk(blocks=out_blocks, tag=tag, counter=chunk.counter,
+                           meta=chunk.meta, n_words=chunk.n_words,
+                           epoch=chunk.epoch)
+
+    # -- the window engine: deferred verdicts -----------------------------
 
     def run_window(self, fn: Callable[[torch.Tensor], torch.Tensor],
                    win: SealedWindow, *, reseal_as=None

@@ -15,6 +15,12 @@ open -> operator -> seal chain, and MAC verdicts are **deferred**: they
 stay on the device and reach the host once per window (one device->host
 copy, :func:`_sync_window`), where failed rows are dropped and counted.
 
+``window_chunks=1`` runs the per-chunk oracle engine instead (the
+paper's seed engine, kept as the bitwise oracle): one scalar seal, open
+and enclave hop per chunk, with a blocking host sync for each MAC
+verdict, round-robin dispatch over the stage's workers and a fair-queue
+merge of their outputs (:mod:`repro_torch.core.router`).
+
 Per-edge session keys come from a :class:`KeyDirectory`: every stage
 worker is measured, enrolled and admitted only if its quote verifies,
 and edge keys are established by the attested handshake.
@@ -22,11 +28,10 @@ and edge keys are established by the attested handshake.
 straddling a flip opens every row under its ingress epoch, and
 ``KeyDirectory.revoke`` evicts a worker live.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item rather than being served by something else): the ``window_chunks=1``
-per-chunk oracle engine, and fault tolerance (``retry=``/``chaos=``).
-Span tracing and the live monitor are not ported either; the engine
-takes no ``tracer=``/``monitor=``.
+Not ported yet: fault tolerance (``retry=``/``chaos=`` raise
+``NotImplementedError`` naming its ROADMAP item rather than being served
+by something else).  Span tracing and the live monitor are not ported
+either; the engine takes no ``tracer=``/``monitor=``.
 """
 from __future__ import annotations
 
@@ -44,13 +49,14 @@ from repro_torch.attest.directory import (EdgeHandle, KeyDirectory,
                                           KeyDirectoryError)
 from repro_torch.attest.measure import IO_ENDPOINT, measure_stage
 from repro_torch.configs.base import SecureStreamConfig
-from repro_torch.core.enclave import (EnclaveExecutor, SealedWindow,
-                                      egress_window, plain_window,
+from repro_torch.core import router as R
+from repro_torch.core.enclave import (EnclaveExecutor, SealedChunk,
+                                      SealedWindow, egress, egress_window,
+                                      ingress, plain_window,
                                       seal_tensors_window, uniform_runs)
 from repro_torch.obs.metrics import REGISTRY as _METRICS
 from repro_torch.u32 import from_numpy, host_to_device
 
-_ORACLE_ITEM = "ROADMAP Queue 1 item 10 (the window_chunks=1 oracle engine)"
 _FT_ITEM = "ROADMAP Queue 1 item 12 (fault tolerance)"
 
 
@@ -65,6 +71,21 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain torch "
             "versions of the kernels on the CPU")
     return dev
+
+
+def as_device_tensor(x, device: torch.device) -> torch.Tensor:
+    """A source chunk on ``device``: host data enters here (uint32
+    records viewed as int32 words, others as they are, copied straight
+    to the device); tensors must already be on the device."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        if x.dtype in (np.uint32, np.int32):
+            return from_numpy(x, device)
+        return torch.as_tensor(x, device=device)
+    if x.device != device:
+        raise ValueError(f"source tensor on {x.device}, pipeline on "
+                         f"{device}")
+    return x
 
 
 @dataclass
@@ -168,15 +189,22 @@ def _sync_window(outputs: List[torch.Tensor],
 
 class Pipeline:
     """An executable secure dataflow: ordered :class:`Stage` list +
-    per-edge attested session keys, streamed by the window engine on
-    ``device`` (``"cuda"`` by default; ``"cpu"`` runs the plain torch
-    versions of the kernels)."""
+    per-edge attested session keys, streamed by the window engine (or,
+    at a window factor of 1, the per-chunk oracle engine) on ``device``
+    (``"cuda"`` by default; ``"cpu"`` runs the plain torch versions of
+    the kernels).
+
+    ``fusion`` is builder metadata from :mod:`repro_torch.dsl.compile`: a
+    ``{"fused_from": {survivor: [absorbed stage names]}, "decisions":
+    [...]}`` record of bit-exact stage merges, surfaced via
+    :meth:`report`; hand-built pipelines leave it empty."""
 
     def __init__(self, stages: Sequence[Stage],
                  secure: SecureStreamConfig = SecureStreamConfig(),
                  seed: int = 0,
                  directory: Optional[KeyDirectory] = None,
                  window_chunks: int = 8,
+                 fusion: Optional[Dict[str, Any]] = None,
                  device=None,
                  retry=None,
                  chaos=None):
@@ -195,8 +223,10 @@ class Pipeline:
         self._egress_dispatches = 0
         # worker ids whose eviction has already been audit-logged
         self._evicted_logged: set = set()
+        # DSL-compiler provenance (stage merges); never read on the hot path
+        self.fusion: Dict[str, Any] = dict(fusion or {})
         # chunks per worker per window: each worker's queue of a window is
-        # ONE batched device dispatch
+        # ONE batched device dispatch; 1 = the per-chunk oracle engine
         self.window_chunks = max(1, int(window_chunks))
         self.directory = directory if directory is not None \
             else KeyDirectory(seed=seed)
@@ -399,19 +429,6 @@ class Pipeline:
                 epochs=[e[3] for e in entries],
                 meta=outs[0].meta, n_words=outs[0].n_words)
 
-    def _as_source_tensor(self, x) -> torch.Tensor:
-        """A source chunk on the pipeline's device: numpy arrays enter
-        here (uint32 records viewed as int32 words, others as they are);
-        tensors must already be on the device."""
-        if isinstance(x, np.ndarray):
-            if x.dtype in (np.uint32, np.int32):
-                return from_numpy(x, self.device)
-            return torch.as_tensor(x).to(self.device)
-        if x.device != self.device:
-            raise ValueError(f"source tensor on {x.device}, pipeline on "
-                             f"{self.device}")
-        return x
-
     def _ingress_stream(self, source: Iterable, mode: str,
                         rekey_every_n: Optional[int],
                         window: int) -> Iterator[SealedWindow]:
@@ -428,7 +445,7 @@ class Pipeline:
         buffered = _METRICS.gauge("pipeline.ingress.buffered_rows")
         prev: Optional[List[SealedWindow]] = None
         while True:
-            xs = [self._as_source_tensor(x)
+            xs = [as_device_tensor(x, self.device)
                   for x in itertools.islice(it, window)]
             if not xs:
                 break
@@ -515,8 +532,8 @@ class Pipeline:
         ingressed in, and the window factor is clamped so the
         directory's ``epoch_history`` covers the deepest in-flight lag.
         ``window_chunks`` overrides the pipeline's window factor for this
-        run.  ``retry``/``chaos`` and a window factor of 1 are not
-        ported yet and raise ``NotImplementedError``."""
+        run; 1 is the per-chunk oracle engine.  ``retry``/``chaos`` are
+        not ported yet and raise ``NotImplementedError``."""
         if retry is not None or chaos is not None:
             raise NotImplementedError(
                 f"retry=/chaos= are not ported yet: {_FT_ITEM}")
@@ -526,11 +543,9 @@ class Pipeline:
         if rekey_every_n and mode != "plain":
             wc = self._clamp_window_for_rekey(wc, rekey_every_n)
         if wc == 1:
-            raise NotImplementedError(
-                f"the window factor resolved to 1 (the per-chunk oracle "
-                f"engine), which is not ported yet: {_ORACLE_ITEM}; if "
-                f"rekey_every_n clamped it, raise the KeyDirectory's "
-                f"epoch_history")
+            # the per-chunk oracle engine: scalar seal/open per chunk with
+            # a blocking verdict sync per chunk (the seed engine)
+            return self._run_chunked(source, on_result, rekey_every_n)
         w0 = max(1, self.stages[0].workers) if self.stages else 1
         stream: Iterator[SealedWindow] = self._ingress_stream(
             source, mode, rekey_every_n, w0 * wc)
@@ -628,6 +643,129 @@ class Pipeline:
         self._egress_dispatches += _DISPATCHES.value - d0
         return groups, verdicts, dt
 
+    # ------------------------------------- per-chunk oracle (window_chunks=1)
+
+    def _ingress_stream_chunked(self, source: Iterable, mode: str,
+                                rekey_every_n: Optional[int]
+                                ) -> Iterator[SealedChunk]:
+        """Scalar per-chunk ingress (the oracle engine): one seal and one
+        managed counter per chunk, rekey checked per chunk."""
+        n_plain = 0
+        for x in source:
+            x = as_device_tensor(x, self.device)
+            if mode == "plain":
+                yield ingress(mode, None, n_plain, x)
+                n_plain += 1
+                continue
+            h0 = self.keys[0]
+            if rekey_every_n and \
+                    self.directory.session(h0.edge).chunks >= rekey_every_n:
+                self.directory.advance_epoch()
+            yield ingress(mode, h0, h0.next_counter(), x)
+
+    def _stage_stream_chunked(self, upstream: Iterator[SealedChunk],
+                              st: Stage, pool: List[EnclaveExecutor]
+                              ) -> Iterator[SealedChunk]:
+        """The per-chunk oracle: scalar open->op->seal per chunk with a
+        blocking host sync for each verdict — round-robin dispatch over
+        the live workers, fair-queue merge of the worker sub-streams.
+        Each chunk counts as one window of the stage."""
+        m = self.metrics[st.name]
+        if len(m.per_worker) < len(pool):
+            m.per_worker.extend([0] * (len(pool) - len(m.per_worker)))
+        audit = self.directory.audit
+        lat = _METRICS.histogram(f"pipeline.stage.{st.name}.window_seconds")
+        while True:
+            live = self._live_workers(st)
+            window = list(itertools.islice(upstream, len(live)))
+            if not window:
+                return
+            worker_outs: List[List[SealedChunk]] = []
+            for k, queue in enumerate(R.round_robin(window, len(live))):
+                w = live[k]
+                outs: List[SealedChunk] = []
+                for chunk in queue:
+                    d0 = _DISPATCHES.value
+                    t0 = time.perf_counter()
+                    if st.fn is not None:
+                        out = pool[w].run(st.fn, chunk)
+                    else:
+                        out = pool[w].run_static(st.op, st.const, chunk)
+                    if pool[w].mode != "plain":
+                        _HOST_SYNCS.inc()      # the scalar bool(ok) sync
+                    dt = time.perf_counter() - t0
+                    m.seconds += dt
+                    lat.observe(dt)
+                    m.windows += 1
+                    m.dispatches += _DISPATCHES.value - d0
+                    if out is None:
+                        m.mac_failures += 1
+                        audit.record("mac_failure", stage=st.name,
+                                     worker=self.worker_id(st.name, w),
+                                     row=chunk.counter, epoch=chunk.epoch)
+                        continue
+                    m.chunks += 1
+                    m.per_worker[w] += 1
+                    m.bytes += int(chunk.n_words) * 4
+                    outs.append(out)
+                worker_outs.append(outs)
+            yield from R.fair_queue(worker_outs)
+
+    def _run_chunked(self, source: Iterable, on_result: Optional[Callable],
+                     rekey_every_n: Optional[int]) -> Any:
+        """The original streaming engine, chunk by chunk (the
+        ``window_chunks=1`` degenerate case)."""
+        mode = self.secure.mode
+        audit = self.directory.audit
+        stream: Iterator[SealedChunk] = self._ingress_stream_chunked(
+            source, mode, rekey_every_n)
+        reduce_idx = next((i for i, s in enumerate(self.stages)
+                           if s.reduce_fn is not None), None)
+        end = len(self.stages) if reduce_idx is None else reduce_idx
+        for i in range(end):
+            st = self.stages[i]
+            stream = self._stage_stream_chunked(stream, st,
+                                                self._worker_pool(i, st))
+
+        if reduce_idx is not None:
+            st = self.stages[reduce_idx]
+            m = self.metrics[st.name]
+            reduce_state: Any = None
+            reduce_started = False
+            for chunk in stream:
+                t0 = time.perf_counter()
+                val, ok = egress(mode, self.keys[reduce_idx], chunk)
+                if mode != "plain":
+                    _HOST_SYNCS.inc()
+                if not bool(ok):
+                    m.mac_failures += 1
+                    audit.record("mac_failure", stage=st.name,
+                                 worker="io/sink", row=chunk.counter,
+                                 epoch=chunk.epoch)
+                    continue
+                if not reduce_started:
+                    reduce_state = st.reduce_init
+                    reduce_started = True
+                reduce_state = st.reduce_fn(reduce_state, val)
+                m.chunks += 1
+                m.bytes += int(chunk.n_words) * 4
+                m.seconds += time.perf_counter() - t0
+            return reduce_state if reduce_started else None
+
+        final = None
+        for chunk in stream:
+            result, ok = egress(mode, self.keys[len(self.stages)], chunk)
+            if mode != "plain":
+                _HOST_SYNCS.inc()
+            final = result
+            if not bool(ok):
+                audit.record("mac_failure", stage="egress",
+                             worker="io/sink", row=chunk.counter,
+                             epoch=chunk.epoch)
+            elif on_result is not None:
+                on_result(result)
+        return final
+
     # ------------------------------------------------------------- elastic
 
     def scale_stage(self, name: str, workers: int) -> "Pipeline":
@@ -641,7 +779,8 @@ class Pipeline:
         ]
         p = Pipeline(stages, self.secure, seed=self.seed,
                      directory=self.directory,
-                     window_chunks=self.window_chunks, device=self.device)
+                     window_chunks=self.window_chunks, fusion=self.fusion,
+                     device=self.device)
         p._evicted_logged = self._evicted_logged
         p._ingress_windows_n = self._ingress_windows_n
         p._ingress_dispatches = self._ingress_dispatches
@@ -657,7 +796,11 @@ class Pipeline:
     def report(self) -> Dict[str, Dict[str, Any]]:
         """Per-stage metrics dict (chunks, bytes, seconds, MB/s, MAC
         failures, per-worker counts, windows, dispatches), the audit
-        summary, and the ingress/egress dispatch accounting."""
+        summary, and the ingress/egress dispatch accounting.  Stages the
+        DSL compiler merged carry a ``fused_from`` list, and a top-level
+        ``"fusion"`` entry logs every fusion decision (taken or
+        declined) — both absent for hand-built pipelines."""
+        fused_from = self.fusion.get("fused_from", {})
         out: Dict[str, Dict[str, Any]] = {
             name: {"chunks": m.chunks, "bytes": m.bytes,
                    "seconds": round(m.seconds, 4),
@@ -671,9 +814,13 @@ class Pipeline:
                    "dispatches": m.dispatches,
                    "dispatches_per_window":
                    None if m.dispatches_per_window is None
-                   else round(m.dispatches_per_window, 4)}
+                   else round(m.dispatches_per_window, 4),
+                   **({"fused_from": list(fused_from[name])}
+                      if name in fused_from else {})}
             for name, m in self.metrics.items()
         }
+        if self.fusion.get("decisions"):
+            out["fusion"] = {"decisions": list(self.fusion["decisions"])}
         out["audit"] = self.directory.audit.summary()
         out["dispatch"] = {
             "total": self._ingress_dispatches + self._egress_dispatches

@@ -1,13 +1,20 @@
-"""Batched AEAD over u32 word rows: ChaCha20-CTR + CW-MAC (encrypt-then-MAC).
+"""AEAD over u32 words: ChaCha20-CTR + CW-MAC (encrypt-then-MAC).
 
-Port of the batched path of ``repro/crypto/aead.py``.  As in
-ChaCha20-Poly1305, the MAC keys (r1, s1, r2, s2) of an item come from
-its keystream block 0 (counter 0) and the payload is encrypted from
-counter 1; :func:`seal_many` / :func:`open_many` cover a whole (B,
-n_words) batch with ONE row-parallel cipher pass over counters 0..N of
-every item plus ONE dual-key MAC pass.
+Port of ``repro/crypto/aead.py``.  As in ChaCha20-Poly1305, the MAC keys
+(r1, s1, r2, s2) of an item come from its keystream block 0 (counter 0)
+and the payload is encrypted from counter 1.  The scalar :func:`seal` /
+:func:`open_` (the per-chunk oracle engine's) cover one flat message with
+ONE cipher pass over counters 0..N (the shared-key blocks kernel over
+[zero block | padded payload] at counter 0) plus ONE dual-key MAC pass
+(the single-message MAC kernel, both keys in one launch);
+:func:`seal_many` / :func:`open_many` cover a whole (B, n_words) batch
+with ONE row-parallel cipher pass over counters 0..N of every item plus
+ONE dual-key MAC pass.
 
 Backends:
+
+The scalar functions always go through the kernel wrappers, which run
+their plain versions for CPU tensors.  The batched path has two backends:
 
 * ``"kernel"`` (default) — the hand-written CUDA kernels
   (:mod:`repro_torch.kernels.chacha20.ops`,
@@ -19,9 +26,10 @@ Backends:
 
 Words are int32-carried (:mod:`repro_torch.u32`).  There is no compile
 cache (PyTorch runs eagerly), so the reference's ``fastpath_stats`` has
-no counterpart.  Each call counts one ``device.dispatches`` (plus its
-``device.dispatches.aead.*`` site), where the reference counts its one
-compiled-program launch.
+no counterpart.  Each batched call counts one ``device.dispatches`` (plus
+its ``device.dispatches.aead.*`` site), where the reference counts its
+one compiled-program launch; the scalar calls count none, as in the
+reference, whose scalar path runs eagerly outside any counted program.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.crypto import chacha20, cwmac
+from repro_torch.kernels.chacha20 import ops as chacha_ops
+from repro_torch.kernels.cwmac import ops as cwmac_ops
 from repro_torch.obs.metrics import REGISTRY as _METRICS
 from repro_torch.u32 import repeat_rows
 
@@ -48,6 +58,60 @@ _DISP_MAC2 = _METRICS.counter("device.dispatches.aead.mac2_many")
 def _clamp(w: torch.Tensor) -> torch.Tensor:
     """MAC key words: low 31 bits, clamped below p (reference ``_clamp``)."""
     return torch.clamp_max(w & P31, P31 - 1)
+
+
+def derive_mac_keys(key: torch.Tensor, nonce: torch.Tensor
+                    ) -> Tuple[torch.Tensor, ...]:
+    """(r1, s1, r2, s2) from keystream block 0, clamped below 2^31 - 1:
+    key (8,), nonce (3,) -> four () int32 tensors.  One launch of the
+    blocks kernel over one zero block at counter 0."""
+    zero = torch.zeros((1, 16), dtype=torch.int32, device=nonce.device)
+    mk = _clamp(chacha_ops.xor_blocks(key, nonce, 0, zero)[0, :4])
+    return mk[0], mk[1], mk[2], mk[3]
+
+
+def _fused_stream(key, nonce, words) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (mac keys (4,) clamped, words ^ payload keystream): MAC keys
+    and keystream from ONE cipher pass over counters 0..N."""
+    n = words.shape[0]
+    n_blocks = (n + 15) // 16
+    blocks = F.pad(words, (16, n_blocks * 16 - n)).reshape(n_blocks + 1, 16)
+    out = chacha_ops.xor_blocks(key, nonce, 0, blocks)
+    return _clamp(out[0, :4]), out[1:].reshape(-1)[:n]
+
+
+def _check_message(key, nonce, words, what):
+    for name, t, shape in (("words", words, None), ("nonce", nonce, (3,)),
+                           ("key", key, (8,))):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{what} expects int32-carried u32 {name}, "
+                             f"got {t.dtype}")
+        if t.device != words.device:
+            raise ValueError(f"{what}: {name} on {t.device}, words on "
+                             f"{words.device}")
+        if t.dim() != 1 or shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{what} expects {name} of shape "
+                             f"{shape or '(n,)'}, got {tuple(t.shape)}")
+
+
+def seal(key: torch.Tensor, nonce: torch.Tensor, plaintext: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (ciphertext (n,), tag (2,)), all int32-carried."""
+    _check_message(key, nonce, plaintext, "seal")
+    mk, ct = _fused_stream(key, nonce, plaintext)
+    return ct, cwmac_ops.mac2(ct, mk[0], mk[1], mk[2], mk[3])
+
+
+def open_(key: torch.Tensor, nonce: torch.Tensor, ciphertext: torch.Tensor,
+          tag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (plaintext, ok: () bool tensor on the words' device).  The
+    verdict is not synced: the caller decides what to do with ok=False
+    (the stream layer drops the chunk)."""
+    _check_message(key, nonce, ciphertext, "open_")
+    ciphertext = ciphertext.contiguous()
+    mk, pt = _fused_stream(key, nonce, ciphertext)
+    expect = cwmac_ops.mac2(ciphertext, mk[0], mk[1], mk[2], mk[3])
+    return pt, (expect == tag).all()
 
 
 def _resolve_backend(backend: Optional[str]) -> str:
@@ -77,7 +141,6 @@ def _batch_rows(key, nonces, payload):
 
 def _xor_rows(keys, nonces, counters, rows, backend):
     if backend == "kernel":
-        from repro_torch.kernels.chacha20 import ops as chacha_ops
         return chacha_ops.xor_rows(keys, nonces, counters, rows)
     return rows ^ chacha20.chacha20_block_rows(keys, nonces, counters)
 
@@ -94,7 +157,6 @@ def _cipher_pass(key, nonces, payload, backend):
 
 def _mac2_batch(words, mk, backend):
     if backend == "kernel":
-        from repro_torch.kernels.cwmac import ops as cwmac_ops
         return cwmac_ops.mac2_batch(words, mk[:, 0], mk[:, 1],
                                     mk[:, 2], mk[:, 3])
     return cwmac.mac2_batch(words, mk[:, 0], mk[:, 1], mk[:, 2], mk[:, 3])

@@ -1,8 +1,15 @@
 // Carter-Wegman MAC partials over GF(2^31 - 1), batched over rows.
 //
-// Replaces: repro/kernels/cwmac/cwmac.py::_mac_tile_batch_kernel
-// (pallas_call in mac_partials_batch), behind every batched AEAD MAC
-// (seal, open, and the enclave hop's ciphertext MAC and re-tag).
+// ss_cwmac_partials replaces
+// repro/kernels/cwmac/cwmac.py::_mac_tile_batch_kernel (pallas_call in
+// mac_partials_batch), behind every batched AEAD MAC (seal, open, and the
+// enclave hop's ciphertext MAC and re-tag).  ss_cwmac_mac_partials
+// replaces _mac_tile_kernel (pallas_call in mac_partials): the tiles of
+// ONE message under K in {1, 2} keys, behind the scalar AEAD seal/open
+// and the per-chunk enclave hop's MAC check and re-tag.  The single
+// message is literally the batched case at B = 1 (row q of the K key rows
+// reads word row q % 1 = 0), so it is a thin entry over the same
+// __global__ with its own symbol, which keeps its own launch count.
 //
 // The tag of a row of n words under key (r, s) is
 //     tag = ( sum_l limb_l * r^(2n - l) + s ) mod p,  p = 2^31 - 1,
@@ -15,10 +22,15 @@
 // 64-bit and folded twice by (t & p) + (t >> 31), where the reference
 // splits into 16-bit halves because the TPU has no 64-bit multiply.
 //
-// Bound on an H100 SXM: integer operations.  Each word costs two
+// Bound on an H100 SXM: memory traffic, narrowly.  Each word costs two
 // multiply-add steps mod p per key (~16 int32 operations) for 4 bytes read
-// once for both keys of mac2: at the main path's shape (2 keys x 8 rows x
-// 16384 words) ~0.25 us of integer work against ~0.16 us of traffic.
+// once for both keys of mac2 (~8 operations per byte, under the ~10 at
+// which 33.5 T int32 operations/s and 3.35 TB/s balance): at the main
+// path's shape (2 keys x 8 rows x 16384 words) ~0.16 us of traffic
+// against ~0.13 us of integer work; one 64 KB chunk under 2 keys (the
+// per-chunk engine) is ~0.02 us, far under the launch latency; one 100 MB
+// message under 2 keys is ~31 us of traffic against ~25 us of integer
+// work.
 //
 // Design: a (row x tile) grid, 256 threads per block, tiles of 2048 words
 // (4096 limbs, the reference's tile).  Thread i walks its words from the
@@ -109,6 +121,18 @@ extern "C" int ss_cwmac_partials(const void* words, long long B, long long n,
   cwmac_partials_kernel<<<(unsigned)(rows * T), kThreads, 0,
                           (cudaStream_t)stream>>>(
       (const uint32_t*)words, B, n, (const uint32_t*)rkeys, tile_words,
+      (uint32_t*)partials, T);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ss_cwmac_mac_partials(const void* words, long long n,
+                                     const void* rkeys, int K, int tile_words,
+                                     void* partials, int T, void* stream) {
+  if (K <= 0 || T <= 0) return 0;
+  if (tile_words <= 0) return (int)cudaErrorInvalidValue;
+  cwmac_partials_kernel<<<(unsigned)(K * T), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const uint32_t*)words, 1, n, (const uint32_t*)rkeys, tile_words,
       (uint32_t*)partials, T);
   return (int)cudaGetLastError();
 }

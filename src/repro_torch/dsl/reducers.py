@@ -11,9 +11,23 @@ pipeline's device).  Built-ins:
   the device with ``torch.bincount`` (integers below 2^53 add exactly,
   so the result equals the reference's numpy fold bit for bit).
 * ``sum`` — elementwise running sum of chunks (the 8-stage job's fold).
+* ``count`` — number of chunks that reached the sink.
+
+Register your own::
+
+    from repro_torch.dsl import register_reducer
+
+    @register_reducer("my_stats")
+    def _my_stats(**kw):
+        def fn(acc, chunk): ...
+        return fn, init
+
+A factory that takes a ``device`` keyword gets the pipeline's device
+from the DSL compiler (:func:`resolve_reducer_on`).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -35,13 +49,30 @@ def register_reducer(name: str) -> Callable[[ReducerFactory],
     return deco
 
 
-def resolve_reducer(name: str, **kw) -> Tuple[Callable, Any]:
-    """Instantiate a registered reducer -> fresh ``(fn, init)``."""
+def reducer_factory(name: str) -> ReducerFactory:
+    """The factory registered under ``name``; KeyError naming the
+    registered reducers otherwise."""
     factory = REDUCERS.get(name)
     if factory is None:
         raise KeyError(f"unknown reducer {name!r}; registered: "
-                       f"{sorted(REDUCERS)}")
-    return factory(**kw)
+                       f"{sorted(REDUCERS)} "
+                       f"(add one with @register_reducer)")
+    return factory
+
+
+def resolve_reducer(name: str, **kw) -> Tuple[Callable, Any]:
+    """Instantiate a registered reducer -> fresh ``(fn, init)``."""
+    return reducer_factory(name)(**kw)
+
+
+def resolve_reducer_on(name: str, device) -> Tuple[Callable, Any]:
+    """:func:`resolve_reducer` with ``device`` passed to the factories
+    that take it (accumulators on the pipeline's device)."""
+    factory = reducer_factory(name)
+    params = inspect.signature(factory).parameters
+    takes = "device" in params or any(
+        p.kind is p.VAR_KEYWORD for p in params.values())
+    return factory(device=device) if takes else factory()
 
 
 @register_reducer("carrier_delay_stats")
@@ -69,3 +100,9 @@ def _sum():
     def fn(acc, chunk):
         return chunk if acc is None else acc + chunk
     return fn, None
+
+
+@register_reducer("count")
+def _count():
+    """Count of chunks that survived to the sink."""
+    return (lambda acc, chunk: acc + 1), 0

@@ -149,6 +149,93 @@ def ptxas_kernels(report: str) -> List[Dict]:
     return out
 
 
+def sass_report() -> str:
+    """``cuobjdump -sass`` of the library that :func:`library` loaded."""
+    library()
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(_LIB_DIR / LIB_NAME)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+#: SASS opcodes by the SM pipe that executes them on Hopper; an opcode not
+#: listed here is an integer/logic op of the ALU pipe (INT32 lanes)
+_FMA_PIPE = ("IMAD", "IMUL", "FFMA", "FMUL", "FADD", "HFMA2", "HMUL2",
+             "HADD2", "DFMA", "DMUL", "DADD")
+_MEM = ("LDG", "STG", "LDS", "STS", "LDL", "STL", "LD", "ST", "LDC",
+        "ATOM", "ATOMS", "ATOMG", "RED", "LDSM")
+_CONTROL = ("EXIT", "BRA", "BSSY", "BSYNC", "BAR", "RET", "CALL", "S2R",
+            "S2UR", "CS2R", "WARPSYNC", "YIELD", "DEPBAR", "MEMBAR", "BMOV",
+            "NANOSLEEP", "ERRBAR", "CCTL")
+
+
+def sass_mix(report: str) -> List[Dict]:
+    """Per kernel function of a ``cuobjdump -sass`` listing: the static
+    count of its instructions (NOP padding left out) by pipe — ``alu``
+    (integer and logic ops on the INT32 lanes), ``fma`` (``IMAD`` and the
+    float multiply-adds on the FP32 lanes), ``uniform`` (the per-warp
+    ``U*`` datapath), ``mem`` and ``control`` — its opcode histogram, and
+    whether it branches backwards (then its dynamic count is not its
+    static count)."""
+    out: List[Dict] = []
+    cur: Optional[Dict] = None
+    labels: Dict[str, int] = {}
+    branches: List = []
+    pending: List[str] = []
+
+    def close():
+        if cur is not None:
+            cur["loops"] = any(labels.get(t, at + 1) < at or
+                               (t.startswith("0x") and int(t, 16) < at)
+                               for at, t in branches)
+
+    for line in report.splitlines():
+        text = line.strip()
+        if "Function :" in text:
+            close()
+            cur = {"name": text.split("Function :")[1].strip(),
+                   "alu": 0, "fma": 0, "uniform": 0, "mem": 0,
+                   "control": 0, "ops": {}, "loops": False}
+            labels, branches, pending = {}, [], []
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        if text.endswith(":") and text.startswith("."):
+            pending.append(text[:-1])
+            continue
+        if not text.startswith("/*") or ";" not in text:
+            continue
+        head, _, body = text[2:].partition("*/")
+        try:
+            at = int(head, 16)
+        except ValueError:
+            continue
+        for lab in pending:
+            labels[lab] = at
+        pending = []
+        toks = body.split(";")[0].split()
+        if toks and toks[0].startswith("@"):
+            toks = toks[1:]
+        if not toks or toks[0] == "NOP":
+            continue
+        op = toks[0].split(".")[0]
+        cur["ops"][toks[0]] = cur["ops"].get(toks[0], 0) + 1
+        if op == "BRA":
+            branches.append((at, toks[-1].strip("`()")))
+        if op in _FMA_PIPE:
+            cur["fma"] += 1
+        elif op in _MEM:
+            cur["mem"] += 1
+        elif op in _CONTROL:
+            cur["control"] += 1
+        elif op.startswith("U"):
+            cur["uniform"] += 1
+        else:
+            cur["alu"] += 1
+    close()
+    return out
+
+
 #: every Kernel ever constructed, by name (launch accounting)
 KERNELS: Dict[str, "Kernel"] = {}
 

@@ -1,4 +1,4 @@
-"""Plain torch version of the CW-MAC partials kernel."""
+"""Plain torch versions of the CW-MAC partials kernels."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +22,10 @@ def mac_partials_batch_ref(words: torch.Tensor, r: torch.Tensor,
     terms = (limbs * r_powers_batch(r, 2 * n)) % P31
     terms = torch.nn.functional.pad(terms, (0, 2 * T * tile_words - 2 * n))
     return (terms.reshape(rows, T, -1).sum(-1) % P31).to(torch.int32)
+
+
+def mac_partials_ref(words: torch.Tensor, r: torch.Tensor,
+                     tile_words: int) -> torch.Tensor:
+    """One message: (n,) words under (K,) keys -> (K, T) scaled partials,
+    the batched layout at B = 1 (exactly what the kernel writes)."""
+    return mac_partials_batch_ref(words.reshape(1, -1), r, tile_words)

@@ -1,12 +1,17 @@
-"""Public op: the fused enclave step over per-row cipher parameters.
+"""Public ops: the fused enclave step, over per-row cipher parameters
+(:func:`enclave_map_rows`) or over one chunk's blocks under a shared key
+pair and nonce (:func:`enclave_map`).
 
-Replaces the reference's ``repro/kernels/enclave_map/ops.py::
-enclave_map_rows`` (Pallas ``_enclave_rows_kernel``).  A CPU tensor runs
-the plain version (:mod:`.ref`, plaintext visible); a CUDA tensor
-launches ``ss_enclave_map_rows`` (``repro_torch/csrc/enclave_map.cu``),
-whose plaintext lives only in registers, or raises.  Like the
-reference's wrapper it counts one ``device.dispatches`` per call; the
-kernel's own launches are counted on :data:`KERNEL`.
+Replaces the reference's ``repro/kernels/enclave_map/ops.py``:
+``enclave_map_rows`` (Pallas ``_enclave_rows_kernel``) and
+``enclave_map`` (Pallas ``_enclave_kernel``).  A CPU tensor runs the
+plain version (:mod:`.ref`, plaintext visible); a CUDA tensor launches
+``ss_enclave_map_rows`` / ``ss_enclave_map_blocks``
+(``repro_torch/csrc/enclave_map.cu``), whose plaintext lives only in
+registers, or raises.  Like the reference's wrappers each call counts
+one ``device.dispatches`` (and ``device.dispatches.enclave_map``); the
+kernels' own launches are counted on :data:`KERNEL` /
+:data:`BLOCKS_KERNEL`.
 """
 from __future__ import annotations
 
@@ -15,8 +20,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.enclave_map.enclave_map import (  # noqa: F401
     OP_IDS, OPS, const_bits, const_int)
-from repro_torch.kernels.enclave_map.ref import enclave_apply_rows_ref
+from repro_torch.kernels.enclave_map.ref import (enclave_apply_ref,
+                                                 enclave_apply_rows_ref)
 from repro_torch.obs.metrics import REGISTRY as _METRICS
+from repro_torch.u32 import MASK
 
 _DISPATCHES = _METRICS.counter("device.dispatches")
 _DISP_MAP = _METRICS.counter("device.dispatches.enclave_map")
@@ -25,6 +32,47 @@ KERNEL = build.Kernel("ss_enclave_map_rows", [
     build.INT, build.VOIDP, build.INT, build.VOIDP, build.INT,
     build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP,
     build.VOIDP, build.LONG, build.U32, build.INT, build.VOIDP])
+BLOCKS_KERNEL = build.Kernel("ss_enclave_map_blocks", [
+    build.INT, build.VOIDP, build.VOIDP, build.VOIDP, build.U32,
+    build.VOIDP, build.VOIDP, build.LONG, build.U32, build.INT, build.VOIDP])
+
+
+def _check_op(op: str) -> None:
+    if op not in OP_IDS:
+        raise ValueError(f"unknown enclave op {op!r}; registered: "
+                         f"{sorted(OP_IDS)}")
+
+
+def enclave_map(key_in, key_out, nonce, counter0, blocks, *, op,
+                const=0.0):
+    """Fused decrypt -> ``OPS[op]`` -> encrypt over (N, 16) ciphertext
+    blocks under (``key_in``, ``nonce``, counter0 + i), re-encrypted under
+    ``key_out`` at the same nonce and counter; keys (8,), nonce (3,),
+    counters wrap mod 2^32.  The grid covers N rounded up to a block and
+    the kernel masks the tail, so N need not be a multiple of anything.
+    """
+    _check_op(op)
+    _DISPATCHES.inc()
+    _DISP_MAP.inc()
+    dev = blocks.device
+    build.check_words("blocks", blocks, [(None, 16)], dev, align16=True)
+    for what, t in (("key_in", key_in), ("key_out", key_out)):
+        build.check_words(what, t, [(8,)], dev)
+    build.check_words("nonce", nonce, [(3,)], dev)
+    counter0 = int(counter0) & MASK
+    if dev.type == "cpu":
+        return enclave_apply_ref(key_in, key_out, nonce, counter0, blocks,
+                                 op=op, const=const)
+    build.require_cuda(blocks)
+    ci = const_int(const) if op == "delay_filter_u32" else 0
+    out = torch.empty_like(blocks)
+    if blocks.shape[0]:
+        BLOCKS_KERNEL(OP_IDS[op], key_in.data_ptr(), key_out.data_ptr(),
+                      nonce.data_ptr(), counter0, blocks.data_ptr(),
+                      out.data_ptr(), blocks.shape[0],
+                      const_bits(const) & 0xFFFFFFFF, ci,
+                      build.stream_of(blocks))
+    return out
 
 
 def enclave_map_rows(keys_in, keys_out, nonces, counters, rows, *, op,
@@ -38,9 +86,7 @@ def enclave_map_rows(keys_in, keys_out, nonces, counters, rows, *, op,
     on the outbound key).  The grid covers R rounded up to a block and
     the kernel masks the tail, so R need not be a multiple of anything.
     """
-    if op not in OP_IDS:
-        raise ValueError(f"unknown enclave op {op!r}; registered: "
-                         f"{sorted(OP_IDS)}")
+    _check_op(op)
     _DISPATCHES.inc()
     _DISP_MAP.inc()
     if nonces_out is None:

@@ -1,12 +1,23 @@
-"""Plain torch version of the enclave map rows kernel: decrypt, op,
+"""Plain torch versions of the enclave map kernels: decrypt, op,
 re-encrypt — with plaintext as a visible intermediate (exactly the
 'encrypted' mode of the paper's Fig. 6, vs. the kernel's 'enclave')."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.crypto.chacha20 import chacha20_block_rows
+from repro_torch.crypto.chacha20 import chacha20_block, chacha20_block_rows
 from repro_torch.kernels.enclave_map.enclave_map import OPS
+from repro_torch.u32 import narrow
+
+
+def enclave_apply_ref(key_in, key_out, nonce, counter0, blocks, *,
+                      op="identity", const=0.0) -> torch.Tensor:
+    """Shared-key decrypt -> op -> re-encrypt of (N, 16) blocks, block i
+    at counter ``(counter0 + i) mod 2^32`` and the same nonce both ways."""
+    counters = narrow(int(counter0) + torch.arange(
+        blocks.shape[0], dtype=torch.int64, device=blocks.device))
+    pt = blocks ^ chacha20_block(key_in, nonce, counters)
+    return OPS[op](pt, const) ^ chacha20_block(key_out, nonce, counters)
 
 
 def enclave_apply_rows_ref(keys_in, keys_out, nonces, counters, data_rows,

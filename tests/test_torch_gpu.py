@@ -10,12 +10,15 @@ import torch
 from repro_torch.crypto import aead, cwmac
 from repro_torch.kernels import build
 from repro_torch.kernels.chacha20 import ops as chacha_ops
-from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
+from repro_torch.kernels.chacha20.ref import (chacha20_xor_blocks_ref,
+                                              chacha20_xor_rows_ref)
 from repro_torch.kernels.cwmac import ops as cwmac_ops
-from repro_torch.kernels.cwmac.ref import mac_partials_batch_ref
+from repro_torch.kernels.cwmac.ref import (mac_partials_batch_ref,
+                                           mac_partials_ref)
 from repro_torch.kernels.enclave_map import ops as em_ops
 from repro_torch.kernels.enclave_map.enclave_map import OPS
-from repro_torch.kernels.enclave_map.ref import enclave_apply_rows_ref
+from repro_torch.kernels.enclave_map.ref import (enclave_apply_ref,
+                                                 enclave_apply_rows_ref)
 from repro_torch.u32 import from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -153,3 +156,110 @@ def test_failed_build_raises_for_a_cuda_tensor(cuda, monkeypatch):
     with pytest.raises(build.BuildError):
         chacha_ops.xor_rows(t(_u32(8, 1)), t(_u32((4, 3), 2)),
                             t(_u32(4, 3)), t(_u32((4, 16), 4)))
+
+
+# ------------------------------------- the per-chunk engine's kernels (4-6)
+
+WRAP = 2 ** 32 - 3
+
+
+@pytest.mark.parametrize("N,counter0", [(1025, 0), (1025, WRAP), (37, 5),
+                                        (1, WRAP)])
+def test_chacha20_blocks_kernel_equals_plain(cuda, N, counter0):
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    key, nonce, data = t(_u32(8, 1)), t(_u32(3, 2)), t(_u32((N, 16), 3))
+    before = chacha_ops.BLOCKS_KERNEL.launches
+    assert torch.equal(chacha_ops.xor_blocks(key, nonce, counter0, data),
+                       chacha20_xor_blocks_ref(key, nonce, counter0, data))
+    assert chacha_ops.BLOCKS_KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [16384, 5003, 1])
+def test_cwmac_message_kernel_equals_plain(cuda, n):
+    words = from_numpy(_u32(n, 5), cuda)
+    mk = torch.as_tensor(np.random.default_rng(6).integers(
+        0, 2 ** 31 - 1, 4), dtype=torch.int32, device=cuda)
+    r = mk[0::2].contiguous()
+    before = cwmac_ops.MESSAGE_KERNEL.launches
+    assert torch.equal(cwmac_ops.mac_partials(words, r),
+                       mac_partials_ref(words, r, cwmac_ops.TILE_WORDS))
+    assert torch.equal(cwmac_ops.mac2(words, *mk), cwmac.mac2(words, *mk))
+    assert cwmac_ops.MESSAGE_KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("op", list(OPS))
+def test_enclave_blocks_kernel_equals_plain_on_adversarial_words(cuda, op):
+    w = _words(rows=96)
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    kin, kout, nonce = t(_u32(8, 7)), t(_u32(8, 8)), t(_u32(3, 9))
+    before = em_ops.BLOCKS_KERNEL.launches
+    for counter0 in (1, WRAP):
+        blocks = chacha20_xor_blocks_ref(kin, nonce, counter0, t(w))
+        for c in (0.0, 0.1, -2.5, 2.0 ** 40, float("nan"), 1e-40, 15.7):
+            if op == "delay_filter_u32" and not np.isfinite(c) or \
+                    op == "delay_filter_u32" and abs(c) > 2 ** 31:
+                continue
+            assert torch.equal(
+                em_ops.enclave_map(kin, kout, nonce, counter0, blocks,
+                                   op=op, const=c),
+                enclave_apply_ref(kin, kout, nonce, counter0, blocks, op=op,
+                                  const=c)), (counter0, c)
+    assert em_ops.BLOCKS_KERNEL.launches > before
+
+
+def test_scalar_seal_open_on_the_card_equal_the_cpu(cuda):
+    key, nonce, pt = _u32(8, 13), _u32(3, 14), _u32(16384 + 5, 15)
+    ct, tag = aead.seal(from_numpy(key, cuda), from_numpy(nonce, cuda),
+                        from_numpy(pt, cuda))
+    want_ct, want_tag = aead.seal(from_numpy(key, "cpu"),
+                                  from_numpy(nonce, "cpu"),
+                                  from_numpy(pt, "cpu"))
+    assert torch.equal(ct.cpu(), want_ct) and torch.equal(tag.cpu(),
+                                                          want_tag)
+    back, ok = aead.open_(from_numpy(key, cuda), from_numpy(nonce, cuda),
+                          ct, tag)
+    assert bool(ok) and torch.equal(back.cpu(), from_numpy(pt, "cpu"))
+
+
+@pytest.mark.parametrize("mode", ["encrypted", "enclave"])
+def test_oracle_engine_on_the_card_goes_through_kernels_4_to_6(cuda, mode):
+    from repro_torch.data.synthetic import flight_chunks, flight_records
+    from repro_torch.dsl import stream
+    sb = (stream().map("identity", name="m", workers=2)
+          .filter("delay_filter_u32", const=15, name="f")
+          .reduce("carrier_delay_stats", name="r").window(1).device(cuda))
+    build.reset_launch_counts()
+    out = sb.run(flight_chunks(4096, 256, seed=1), mode=mode)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    want = {"ss_chacha20_xor_blocks", "ss_cwmac_mac_partials"}
+    if mode == "enclave":
+        want.add("ss_enclave_map_blocks")
+    assert {k for k, v in counts.items() if v} == want, counts
+    recs = flight_records(4096, seed=1)
+    keep = recs[:, 1] > 15
+    assert np.array_equal(out["count"].cpu().numpy(), np.bincount(
+        recs[keep, 0], minlength=20))
+    assert np.array_equal(out["sum"].cpu().numpy(), np.bincount(
+        recs[keep, 0], weights=recs[keep, 1].astype(np.float64),
+        minlength=20))
+
+
+def test_failed_build_raises_for_the_oracle_kernels(cuda, monkeypatch):
+    """No fallback for the per-chunk engine's kernels either."""
+    def broken():
+        raise build.BuildError("simulated failed build")
+    monkeypatch.setattr(build, "library", broken)
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    key, nonce, blocks = t(_u32(8, 1)), t(_u32(3, 2)), t(_u32((4, 16), 4))
+    for kernel, call in (
+            (chacha_ops.BLOCKS_KERNEL,
+             lambda: chacha_ops.xor_blocks(key, nonce, 1, blocks)),
+            (cwmac_ops.MESSAGE_KERNEL,
+             lambda: cwmac_ops.mac2(blocks.reshape(-1), *key[:4])),
+            (em_ops.BLOCKS_KERNEL,
+             lambda: em_ops.enclave_map(key, key, nonce, 1, blocks,
+                                        op="identity"))):
+        monkeypatch.setattr(kernel, "_fn", None)
+        with pytest.raises(build.BuildError):
+            call()

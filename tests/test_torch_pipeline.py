@@ -1,10 +1,13 @@
-"""The torch port's window engine on the DelayedFlights job (paper §5.2)
+"""The torch port's engines on the DelayedFlights job (paper §5.2)
 against the JAX reference and a plain numpy computation, on the CPU.
 
 The same records (``flight_records(seed=1)``, identical in both packages)
 go through the reference's ``Pipeline`` and the port's; the terminal
 reduce must be identical in every mode, with one or two workers per
-stage, and under ``rekey_every_n=3`` plus a mid-stream revocation."""
+stage, and under ``rekey_every_n=3`` plus a mid-stream revocation.  A
+window factor of 1 (asked for, or forced by a tight rekey cadence) runs
+the per-chunk oracle engine in both packages; those runs use a short
+stream, since the reference's oracle is slow on the CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from repro_torch.dsl.reducers import resolve_reducer
 
 RECORDS = 4096
 CHUNK = 256
+SHORT = 1024                  # 4 chunks: the oracle-engine comparisons
 MODES = ("plain", "encrypted", "enclave")
 
 
@@ -36,14 +40,14 @@ def _port(mode, workers, **kw):
     ], SecureStreamConfig(mode=mode), device="cpu", **kw)
 
 
-def _jax(mode, workers):
+def _jax(mode, workers, **kw):
     fn, init = j_resolve_reducer("carrier_delay_stats")
     return JPipeline([
         JStage("sgx_mapper", op="identity", workers=workers),
         JStage("sgx_filter", op="delay_filter_u32", const=15,
                workers=workers),
         JStage("reducer", op="custom", reduce_fn=fn, reduce_init=init),
-    ], JConfig(mode=mode))
+    ], JConfig(mode=mode), **kw)
 
 
 def _numpy():
@@ -56,6 +60,30 @@ def _numpy():
 
 def _as_np(out):
     return out["count"].numpy(), out["sum"].numpy()
+
+
+def _short():
+    return flight_chunks(SHORT, CHUNK, seed=1)
+
+
+@pytest.fixture(scope="module")
+def oracle_reference():
+    """The reference's per-chunk oracle runs on the short stream, in
+    encrypted mode: asked for (one worker, ``window_chunks=1``), and
+    forced (two workers, ``rekey_every_n=3`` against an epoch history of
+    3, which clamps the window to 1).  -> {case: (count, sum)}."""
+    asked = _jax("encrypted", 1).run(
+        (jnp.asarray(c) for c in _short()), window_chunks=1)
+    forced = _jax("encrypted", 2,
+                  directory=JKeyDirectory(seed=0, epoch_history=3)).run(
+        (jnp.asarray(c) for c in _short()), rekey_every_n=3)
+    return {name: (np.asarray(r["count"]), np.asarray(r["sum"]))
+            for name, r in (("asked", asked), ("forced", forced))}
+
+
+def _assert_equal(got, want):
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
 
 
 @pytest.fixture(scope="module")
@@ -104,9 +132,11 @@ def test_rekey_and_revocation_match_static_keys(reference, mode):
 
 
 @pytest.mark.parametrize("wc", [2, 4])
-def test_run_window_chunks_override_keeps_result(reference, wc):
+def test_run_window_chunks_override_keeps_result(reference,
+                                                 oracle_reference, wc):
     """``run(window_chunks=)`` re-windows one run: RECORDS / CHUNK = 16
-    chunks in windows of ``wc``, the same terminal reduce."""
+    chunks in windows of ``wc``, the same terminal reduce; a factor of 1
+    runs the per-chunk oracle engine, equal to the reference's."""
     p = _port("encrypted", 1)
     got = _as_np(p.run(flight_chunks(RECORDS, CHUNK, seed=1),
                        window_chunks=wc))
@@ -115,24 +145,34 @@ def test_run_window_chunks_override_keeps_result(reference, wc):
     rep = p.report()
     assert rep["sgx_mapper"]["windows"] == RECORDS // CHUNK // wc
     assert p.window_chunks == 8                 # the pipeline's own factor
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.run(flight_chunks(RECORDS, CHUNK, seed=1), window_chunks=1)
+    # a fresh pipeline (the reducer's state carries over between runs of
+    # one pipeline, as in the reference) with the factor overridden to 1
+    p = _port("encrypted", 1, window_chunks=wc)
+    _assert_equal(_as_np(p.run(_short(), window_chunks=1)),
+                  oracle_reference["asked"])
+    assert p.window_chunks == wc
+    # the oracle engine counts one window per chunk
+    assert p.report()["sgx_mapper"]["windows"] == SHORT // CHUNK
 
 
-def test_unported_paths_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port("encrypted", 1, window_chunks=1).run(
-            flight_chunks(RECORDS, CHUNK, seed=1))
+def test_unported_paths_raise_not_implemented(oracle_reference):
+    """Fault tolerance is not ported and raises; a window factor of 1,
+    asked for or forced by a tight rekey cadence, runs the per-chunk
+    oracle engine and equals the reference's."""
+    _assert_equal(_as_np(_port("encrypted", 1, window_chunks=1).run(
+        _short())), oracle_reference["asked"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port("encrypted", 1).run([], retry=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port("encrypted", 1, chaos=object())
-    # a rekey cadence that clamps the window to 1 is refused the same way
+    # a rekey cadence that clamps the window to 1 runs the oracle engine
     tight = _port("encrypted", 2,
                   directory=pipeline_mod.KeyDirectory(seed=0,
                                                       epoch_history=3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tight.run(flight_chunks(RECORDS, CHUNK, seed=1), rekey_every_n=3)
+    _assert_equal(_as_np(tight.run(_short(), rekey_every_n=3)),
+                  oracle_reference["forced"])
+    assert tight.report()["sgx_mapper"]["windows"] == SHORT // CHUNK
+    assert tight.directory.audit.summary()["rekey"] == 1
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
