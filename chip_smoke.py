@@ -4,7 +4,7 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, the time to build
-   the six CUDA kernels from ``src/repro_torch/csrc``, and their
+   the seven CUDA kernels from ``src/repro_torch/csrc``, and their
    ``-Xptxas -v`` register and spill lines (no enclave kernel may
    spill: a spill would put plaintext in device memory), and each
    kernel's SASS instruction mix by pipe (``cuobjdump -sass``);
@@ -45,18 +45,44 @@ Phases, each printed on its own line; any failure exits non-zero:
    revocation over 64 chunks equal to the static-key run;
 8. the paper's §5.1 chunk-copy experiment: a 100 MB payload on the card
    through the enclave kernel in chunks of 16 KB .. 1 MB, in and in-out,
-   MB/s beside the bound; then kernels 4 and 5 over one 100 MB message.
+   MB/s beside the bound; then kernels 4 and 5 over one 100 MB message;
+9. kernel 7 (causal flash attention forward) against its plain torch
+   version, bf16 (within a bound that scales with the values, see
+   ``ref.bf16_mismatch``) and f32 (max-abs 2e-5), causal and not, at the
+   serving path's prefill shape (8 requests x 4096 tokens, 32 heads of
+   64), a ragged length (1000), a short one (128) and Sq < Skv; no spill
+   in its ``-Xptxas -v`` lines; timed beside its bound, its plain version
+   and ``scaled_dot_product_attention`` (the yardstick, which the port
+   never calls);
+10. secure LM serving of llama3.2-1b at full width and depth (16 layers,
+   weights drawn from a seed on the card): a client attests the serving
+   enclave (``KeyDirectory(seed=7)``), 8 prompts of 4096 tokens are
+   sealed and opened (MAC checked), prefilled through the engine's
+   ``make_prefill_step`` (``max_seq`` 4160: the time to first token) and
+   generated through ``greedy_generate`` (its prefill and 64 greedy
+   decode steps); seal/open ms, prefill s and tokens/s, time to first
+   token, generation s, decode ms per step and tokens/s, peak memory,
+   and a profiled run's device busy share.  Then an end-to-end check at
+   2 x 4096: the prefill with kernel 7 against the same prefill with the
+   plain attention substituted (in this script only), on the last
+   logits and on every layer's cached keys and values, and decode at
+   position S against prefill(S+1); two wrong attentions put in the same
+   place (no causal mask; each row's diagonal KV tile left out) must
+   fail both limits, which shows the check can fail.
 
-Every pipeline run of phases 3-7 sets the kernels' launch counts to 0
-just before it and reads them just after: it fails unless exactly the
-kernels of its mode's path on its engine were launched (window engine:
-kernels 1-3 in enclave mode, 1 and 2 in encrypted mode; per-chunk
-engine: kernels 4-6 and 4-5; plain mode none).
+Every pipeline run of phases 3-7 and the serving run of phase 10 sets the
+kernels' launch counts to 0 just before it and reads them just after: it
+fails unless exactly the kernels of its mode's path on its engine were
+launched (window engine: kernels 1-3 in enclave mode, 1 and 2 in
+encrypted mode; per-chunk engine: kernels 4-6 and 4-5; plain mode none;
+serving: kernels 4, 5 and 7, kernel 7 once per layer in the prefill and
+never in decode).
 
 Then one JSON line with every kernel's numbers (``launches`` from the
-main run of its engine: phase 3 for kernels 1-3, phase 7's timed run for
-kernels 4-6), and as the last line ``{"ok": true, "device": {...}}``.
-Exits 2 without printing a result when no CUDA device is available.
+main run of its path: phase 3 for kernels 1-3, phase 7's timed run for
+kernels 4-6, phase 10's serving run for kernel 7), and as the last line
+``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
+when no CUDA device is available.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -64,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -80,6 +107,9 @@ import numpy as np
 # to per clock: counting the INT32 lanes alone would understate the peak.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+# dense tensor-core bf16 and CUDA-core f32 peaks (data sheet): kernel 7
+BF16_TC_FLOPS = 989e12
+F32_FLOPS = 67e12
 #: issue slots per second of the card: 132 SMs x 4 schedulers x 1.98 GHz
 WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
 
@@ -104,6 +134,18 @@ KERNELS = {
         "enclave": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_partials",
                     "ss_enclave_map_blocks"),
     },
+    # secure LM serving: the prompts are sealed and opened with the scalar
+    # AEAD (kernels 4 and 5), the prefill runs kernel 7 in every layer
+    "serve": {
+        "encrypted": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_partials",
+                      "ss_flash_attention_fwd"),
+    },
+}
+#: the run whose launch counts go into each kernel's row of the JSON line
+LAUNCHES_FROM = {
+    **{sym: "window" for sym in KERNELS["window"]["enclave"]},
+    **{sym: "chunk" for sym in KERNELS["chunk"]["enclave"]},
+    "ss_flash_attention_fwd": "serve",
 }
 
 RECORDS = 28_000_000        # the paper's DelayedFlights dataset
@@ -121,9 +163,11 @@ def phase(tag: str, **kv) -> None:
           flush=True)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S):
+    """Least ms for the work: bytes over the memory rate or operations
+    over ``ops_per_s`` (int32 issue rate unless named), the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -690,6 +734,17 @@ def phase_delayed_flights(torch, dev, n_records):
     return launches
 
 
+def device_rows(prof):
+    """(name, device microseconds, calls) of the kernels and copies on the
+    device in a torch.profiler trace.  Only device-side events count: a
+    host op (``aten::mm``) also reports the device time of the kernels it
+    launched, so summing every row would count that time twice."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+
+
 def phase_profile(torch, dev, n_records):
     """Where the time of the enclave-mode job goes: a short steady run
     under torch.profiler — device busy share (kernel time over wall) and
@@ -709,8 +764,7 @@ def phase_profile(torch, dev, n_records):
         p.run(_chunks(recs_dev, n_chunks))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy = sum(r[1] for r in rows) / 1e6          # microseconds -> s
     if not rows:
         phase("profile", device_busy="not measured (no device time in "
@@ -1033,11 +1087,359 @@ def phase_chunk_copy(torch, dev, mixes):
             "ss_enclave_map_blocks": {"chunk_copy_100mb": sizes}}
 
 
+# ------------------------------------------- phases 9 and 10: LM serving
+
+#: kernel 7's checks: (B, H, Sq, Skv); the first is the serving path's
+#: prefill (8 requests x 4096 tokens, llama3.2-1b's 32 heads of 64)
+FLASH_SHAPES = ((8, 32, 4096, 4096), (2, 32, 1000, 1000), (2, 32, 128, 128),
+                (1, 32, 100, 300))
+F32_TOL = 2e-5                   # f32, max-abs (tests/test_kernels.py)
+SERVE_ARCH = "llama3.2-1b"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 4096, 64
+SERVE_CHECK_REQUESTS = 2
+#: end-to-end tolerance on f32 logits (their std is ~0.9 with these random
+#: weights) of two bf16 runs of the 16-layer model: the residual stream
+#: rounds to bf16 about 50 times, each up to 2^-8 of its magnitude, so
+#: runs that differ in rounding drift ~2^-4; 2^-3 leaves a factor of two
+SERVE_LOGIT_TOL = 0.125
+#: the same two runs on every layer's cached keys and values: the largest
+#: relative L2 difference of a layer's cache (bf16 drift of ~2^-7 a
+#: layer, compounding over the layers before it)
+SERVE_CACHE_RTOL = 0.05
+
+
+def flash_flops(B, H, Sq, Skv, D, causal):
+    """FLOPs kernel 7 needs: 2*D for q.k and 2*D for p*v per attended
+    (query, key) pair; causal (top-left) row i attends min(i+1, Skv)."""
+    if causal:
+        full = min(Sq, Skv)
+        pairs = full * (full + 1) // 2 + max(Sq - Skv, 0) * Skv
+    else:
+        pairs = Sq * Skv
+    return 4 * B * H * D * pairs
+
+
+def _plain_bshd(torch, keep=None):
+    """The plain attention in the model's (B, S, H, D) layout.  ``keep``
+    (S -> (S, S) bool) replaces the causal mask: the wrong attentions of
+    phase_serve_check's controls."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
+
+    def plain(q, k, v, *, causal=True):
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        if keep is None:
+            return attention_ref(q, k, v, causal=causal).transpose(1, 2)
+        out = torch.empty_like(q)
+        mask = ~keep(q.shape[2]).to(q.device)
+        for b in range(q.shape[0]):
+            s = q[b].float() @ k[b].float().transpose(-1, -2)
+            s = (s / math.sqrt(q.shape[-1])).masked_fill_(mask, NEG_INF)
+            out[b] = (torch.softmax(s, dim=-1) @ v[b].float()).to(q.dtype)
+        return out.transpose(1, 2)
+    return plain
+
+
+def phase_flash(torch, dev):
+    """Kernel 7 against its plain version on the card at FLASH_SHAPES,
+    bf16 and f32, causal and not; then its time at the serving path's
+    shape beside its bound, the plain version and SDPA.  -> its row."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_ROW_RTOL, attention_ref, bf16_mismatch)
+    for k in build.ptxas_kernels(build.ptxas_report()):
+        if "flash" in k["name"] and (k["spill_stores"] != 0
+                                     or k["spill_loads"] != 0):
+            raise AssertionError(f"{k['name']} spills registers")
+    g = torch.Generator(device=dev).manual_seed(9)
+    D = flash_ops.HEAD_DIM
+
+    def qkv(B, H, Sq, Skv, dtype):
+        return [torch.randn((B, H, s, D), generator=g, device=dev).to(dtype)
+                for s in (Sq, Skv, Skv)]
+    path_err, failed = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for causal in (True, False):
+            for shape in FLASH_SHAPES:
+                q, k, v = qkv(*shape, dtype)
+                got = flash_ops.flash_attention_bhsd(q, k, v, causal=causal)
+                want = attention_ref(q, k, v, causal=causal)
+                if dtype == torch.float32:
+                    err = (got - want).abs().max().item()
+                    ok, more = err <= F32_TOL, dict(tol=F32_TOL)
+                else:
+                    err, excess, row_rel = bf16_mismatch(got, want, q, k, v,
+                                                         causal=causal)
+                    ok = excess <= 0 and row_rel <= BF16_ROW_RTOL
+                    more = dict(excess=excess, row_rel_err=row_rel,
+                                row_rtol=BF16_ROW_RTOL)
+                del got, want
+                if shape == FLASH_SHAPES[0] and causal and name == "bfloat16":
+                    path_err = dict(max_abs_err=err, **more)
+                case = f"{name} causal={causal} {'x'.join(map(str, shape))}"
+                phase("flash_check", dtype=name, causal=causal,
+                      shape="x".join(map(str, shape)), max_abs_err=err,
+                      **more, ok=ok)
+                if not ok:
+                    failed.append(case)
+    if failed:
+        raise AssertionError(f"flash attention differs from its plain "
+                             f"version: {failed}")
+    B, H, S, _ = FLASH_SHAPES[0]
+    q, k, v = qkv(B, H, S, S, torch.bfloat16)
+    run = lambda: flash_ops.flash_attention_bhsd(q, k, v)   # noqa: E731
+    ms = eager_ms(torch, run, 20)
+    plain_ms = eager_ms(torch, lambda: attention_ref(q, k, v), 2)
+    library_ms = eager_ms(torch, lambda: torch.nn.functional
+                          .scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True), 20)
+    flops = flash_flops(B, H, S, S, D, True)
+    b, by = bound(4 * q.numel() * q.element_size(), flops, BF16_TC_FLOPS)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32_ms = eager_ms(torch, lambda: flash_ops.flash_attention_bhsd(
+        qf, kf, vf), 2)
+    f32_b, f32_by = bound(4 * qf.numel() * 4, flops, F32_FLOPS)
+    del qf, kf, vf
+    row = dict(name="flash_attention_fwd", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/"
+                        "flash_attention.py:27",
+               symbol="ss_flash_attention_fwd", **path_err, ms=ms,
+               plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=library_ms,
+               library_call="torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True)",
+               tflops=flops / ms / 1e9, f32_ms=f32_ms, f32_bound_ms=f32_b,
+               shape=f"B={B} H={H} S={S} D={D} bf16 causal")
+    phase("kernel", name=row["name"], ms=ms, plain_ms=plain_ms,
+          library_ms=library_ms, bound_ms=b, bound_by=by,
+          tflops=round(row["tflops"], 1), share_of_bound=round(b / ms, 4),
+          f32_ms=f32_ms, f32_bound_ms=f32_b, f32_bound_by=f32_by)
+    return row
+
+
+def _serve_model(torch, dev):
+    from repro_torch.configs import get_model_config
+    from repro_torch.models import api
+    from repro_torch.models.layers import template_leaves
+    cfg = get_model_config(SERVE_ARCH)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, g, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(math.prod(s.shape) for s in template_leaves(
+        api.param_template(cfg)))
+    if n != cfg.param_count() or n != 1_235_814_400:
+        raise AssertionError(f"llama3.2-1b has {n} parameters")
+    return cfg, params, g, init_s
+
+
+def phase_serve(torch, dev):
+    """Secure serving of llama3.2-1b at full width and depth (phase 10).
+    -> the serving run's launch counts."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.serve import secure
+    from repro_torch.serve.engine import (greedy_generate, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.kernels import build
+    cfg, params, g, init_s = _serve_model(torch, dev)
+    run_cfg = RunConfig(model=cfg, shape=ShapeConfig(
+        "serve", SERVE_PROMPT, SERVE_REQUESTS, "decode"))
+    t0 = time.perf_counter()
+    _, key, server_m = secure.attested_session(cfg.arch_id)
+    attest_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT),
+                            generator=g, device=dev, dtype=torch.int32)
+    max_seq = SERVE_PROMPT + SERVE_NEW
+    prefill = make_prefill_step(run_cfg, max_seq=max_seq)
+    # warm-up off the counted run: the kernels' first launches, cuBLAS
+    # handles, the allocator's pools
+    secure.open_prompts(key, secure.seal_prompts(key, prompts, counter=1))
+    greedy_generate(run_cfg, params, prompts[:, :256], steps=2, max_seq=257)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+
+    def serve():
+        t0 = time.perf_counter()
+        sealed = secure.seal_prompts(key, prompts)
+        torch.cuda.synchronize()
+        t["seal"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        opened = secure.open_prompts(key, sealed)        # syncs on the MAC
+        torch.cuda.synchronize()
+        t["open"] = time.perf_counter() - t0
+        if not torch.equal(opened, prompts):
+            raise AssertionError("opened prompts differ from the sent ones")
+        t["after_open"] = build.launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": opened})[0]   # frees its cache
+        first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None].cpu()
+        t["prefill"] = time.perf_counter() - t0
+        t["after_prefill"] = build.launch_counts()
+        t0 = time.perf_counter()
+        gen = greedy_generate(run_cfg, params, opened, steps=SERVE_NEW + 1,
+                              max_seq=max_seq).cpu()
+        t["generate"] = time.perf_counter() - t0
+        return first, gen, logits
+    (first, gen, logits), launches = counted_run(
+        torch, "secure_serve", "encrypted", serve, engine="serve")
+    flash = "ss_flash_attention_fwd"
+    in_prefill = t["after_prefill"][flash] - t["after_open"][flash]
+    in_generate = {k: launches[k] - t["after_prefill"][k] for k in launches}
+    if in_prefill != cfg.num_layers or in_generate != {
+            k: cfg.num_layers if k == flash else 0 for k in launches}:
+        raise AssertionError(
+            f"kernel 7: {in_prefill} launches in the prefill step (want one "
+            f"per layer, {cfg.num_layers}); greedy_generate launched "
+            f"{in_generate} (want kernel 7 once per layer of its prefill, "
+            f"none in decode)")
+    if not (bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+            SERVE_REQUESTS, cfg.vocab_size) and tuple(gen.shape) == (
+            SERVE_REQUESTS, SERVE_NEW + 1) and torch.equal(gen[:, :1], first)
+            and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
+        raise AssertionError("serving produced malformed logits or tokens")
+    # greedy_generate's decode time: its whole time less one prefill (the
+    # prefill step's own time, of the same prompts just before)
+    decode_s = t["generate"] - t["prefill"]
+    peak = torch.cuda.max_memory_allocated()
+    tokens = SERVE_REQUESTS * SERVE_PROMPT
+    phase("serve", arch=SERVE_ARCH, layers=cfg.num_layers,
+          params=cfg.param_count(), requests=SERVE_REQUESTS,
+          prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_params_s=init_s,
+          attest_s=attest_s, measurement=server_m.hex()[:16],
+          seal_ms=t["seal"] * 1e3, open_ms=t["open"] * 1e3, mac_ok=True,
+          prefill_s=t["prefill"], prefill_tokens_per_s=tokens / t["prefill"],
+          ttft_ms=(t["open"] + t["prefill"]) * 1e3,
+          generate_s=t["generate"],
+          decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
+          decode_tokens_per_s=SERVE_REQUESTS * SERVE_NEW / decode_s,
+          peak_memory_gb=peak / 1e9, flash_launches_prefill=in_prefill)
+    print(f"   generated req0: {gen[0, :12].tolist()} ...", flush=True)
+    phase_serve_profile(torch, cfg, params, prompts, prefill,
+                        make_decode_step(run_cfg))
+    phase_serve_check(torch, cfg, params, prompts[:SERVE_CHECK_REQUESTS])
+    return launches
+
+
+def phase_serve_profile(torch, cfg, params, prompts, prefill_step, decode,
+                        steps=16):
+    """Device busy share of one prefill at the serving shape and of
+    ``steps`` decode steps after it (the engine's steps), each under its
+    own torch.profiler window, and the kernels that take the device's
+    time in each."""
+    from torch.profiler import ProfilerActivity, profile
+    state = {}
+
+    def prefill():
+        logits, state["cache"] = prefill_step(params, {"tokens": prompts})
+        state["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+    def decode_steps():
+        for pos in range(SERVE_PROMPT, SERVE_PROMPT + steps):
+            state["tok"], _, state["cache"] = decode(
+                params, state["tok"], pos, state["cache"])
+    for part, fn in (("prefill", prefill), ("decode", decode_steps)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = sorted(device_rows(prof), key=lambda r: -r[1])
+        if not rows:
+            phase("serve_profile", part=part, device_busy="not measured "
+                  "(no device time in the trace)", wall_s=round(wall, 4))
+            continue
+        busy = sum(r[1] for r in rows) / 1e6
+        phase("serve_profile", part=part, steps=steps if part == "decode"
+              else 1, wall_s=round(wall, 4), device_busy_s=round(busy, 4),
+              device_busy_share=round(busy / wall, 4),
+              kernels=sum(r[2] for r in rows))
+        for key, t_us, count in rows[:10]:
+            print(f"   device {t_us / 1e3:10.3f} ms  {count:7d} calls  "
+                  f"{key[:90]}", flush=True)
+
+
+def phase_serve_check(torch, cfg, params, prompts):
+    """End-to-end on the card at 2 x 4096: prefill with kernel 7 against
+    the same prefill with the plain attention put in its place (in this
+    script only: the library is untouched), on the last logits and on
+    every layer's cached keys and values; decode at position S against
+    prefill(S+1)'s last position.  Two wrong attentions put in the same
+    place must fail both limits: no causal mask, and each row's diagonal
+    KV tile of 64 keys left out (rows of the first tile keep theirs), as
+    a kernel that skips its last KV tile would compute."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import api
+    S = prompts.shape[1]
+
+    def no_diagonal_tile(n):
+        i = torch.arange(n)[:, None]
+        j = torch.arange(n)[None, :]
+        return (j <= i) & ((j < i // 64 * 64) | (i < 64))
+    attentions = {
+        "plain": _plain_bshd(torch),
+        "control_no_causal_mask": _plain_bshd(
+            torch, lambda n: torch.ones((n, n), dtype=torch.bool)),
+        "control_no_diagonal_tile": _plain_bshd(torch, no_diagonal_tile),
+    }
+    logits_k, cache_k = api.prefill(cfg, params, {"tokens": prompts},
+                                    max_seq=S + 1)
+    kernel = flash_ops.flash_attention
+    gaps, logits_r = {}, None
+    try:
+        for name, attention in attentions.items():
+            flash_ops.flash_attention = attention
+            logits, cache = api.prefill(cfg, params, {"tokens": prompts},
+                                        max_seq=S + 1)
+            cache_rel = max(
+                ((cache_k["attn"][t][i] - cache["attn"][t][i]).float().norm()
+                 / cache["attn"][t][i].float().norm()).item()
+                for t in ("k", "v") for i in range(cfg.num_layers))
+            gaps[name] = ((logits_k - logits).abs().max().item(), cache_rel)
+            logits_r = logits if name == "plain" else logits_r
+            del logits, cache
+    finally:
+        flash_ops.flash_attention = kernel
+    err, cache_err = gaps["plain"]
+    top2 = logits_r.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > SERVE_LOGIT_TOL
+    same = logits_k.argmax(-1) == logits_r.argmax(-1)
+    tok = logits_k.argmax(-1).to(torch.int32)[:, None]
+    logits_d, _ = api.decode_step(cfg, params, tok, S, cache_k)
+    logits_p, _ = api.prefill(cfg, params, {"tokens": torch.cat(
+        [prompts, tok], dim=1)})
+    err_d = (logits_d - logits_p).abs().max().item()
+    controls = {name: dict(logits_max_abs=g[0], cache_rel_l2=g[1])
+                for name, g in gaps.items() if name != "plain"}
+    phase("serve_check", requests=prompts.shape[0], prompt=S,
+          logits_std=logits_r.std().item(), kernel_vs_plain_max_abs=err,
+          kernel_vs_plain_cache_rel_l2=cache_err,
+          decode_vs_prefill_max_abs=err_d, tol=SERVE_LOGIT_TOL,
+          cache_rtol=SERVE_CACHE_RTOL, **controls,
+          decisive_first_tokens=int(decisive.sum()),
+          first_tokens_equal=bool(same.all()))
+    if not (err <= SERVE_LOGIT_TOL and err_d <= SERVE_LOGIT_TOL
+            and cache_err <= SERVE_CACHE_RTOL
+            and bool(same[decisive].all())):
+        raise AssertionError("serving end-to-end check failed")
+    for name, c in controls.items():
+        if c["logits_max_abs"] <= SERVE_LOGIT_TOL \
+                or c["cache_rel_l2"] <= SERVE_CACHE_RTOL:
+            raise AssertionError(f"serving check: the wrong attention {name} "
+                                 f"passes a limit ({c}), so the check could "
+                                 f"not fail a wrong kernel 7")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1079,11 +1481,14 @@ def main() -> int:
     if 7 in phases:
         launches["chunk"] = phase_oracle(torch, dev, window_results)
     extra = phase_chunk_copy(torch, dev, mixes) if 8 in phases else {}
+    if 9 in phases:
+        kernels.append(phase_flash(torch, dev))
+    if 10 in phases:
+        launches["serve"] = phase_serve(torch, dev)
     for k in kernels:
         sym = k.pop("symbol")
-        engine = next(e for e in KERNELS if sym in KERNELS[e]["enclave"])
-        k["launches"] = launches[engine][sym] if engine in launches \
-            else None
+        run = LAUNCHES_FROM[sym]
+        k["launches"] = launches[run][sym] if run in launches else None
         k.update(extra.get(sym, {}))
     phase("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,17 +8,22 @@ it here:
   and the managed counters into a port :class:`KeyDirectory`, so the
   port seals and opens under the reference's keys;
 * :func:`window_from_numpy` / :func:`window_to_numpy` move a sealed
-  window across, so a window sealed in one package opens in the other.
+  window across, so a window sealed in one package opens in the other;
+* :func:`lm_params_from_numpy` turns the reference's LM parameter pytree
+  into the port's, so both packages serve the same weights.
 """
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.attest.directory import KeyDirectory, SessionState
 from repro_torch.core.enclave import SealedWindow
 from repro_torch.crypto.keys import StageKey
+from repro_torch.models.api import param_template
+from repro_torch.models.layers import ParamSpec
 from repro_torch.u32 import from_numpy, to_numpy
 
 
@@ -75,3 +80,38 @@ def window_to_numpy(win: SealedWindow) -> Dict[str, object]:
             "tags": None if win.tags is None else to_numpy(win.tags),
             "counters": list(win.counters), "epochs": list(win.epochs),
             "meta": win.meta}
+
+
+def _tensor_from_numpy(a: np.ndarray, what: str, device) -> torch.Tensor:
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        # ml_dtypes' bfloat16 (numpy has no bf16 of its own): the same 16
+        # bits through an int16 view, exact, without importing ml_dtypes
+        return torch.from_numpy(a.view(np.int16).copy()) \
+            .view(torch.bfloat16).to(device)
+    if a.dtype == np.float32:
+        return torch.from_numpy(a.copy()).to(device)
+    raise ValueError(f"{what}: expected bfloat16 or float32, got {a.dtype}")
+
+
+def lm_params_from_numpy(tree: Mapping, cfg, device="cuda") -> Dict:
+    """The reference's parameter pytree (nested dicts of numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives them) -> the port's params
+    for ``cfg``, same keys, same stacked ``(L, ...)`` layer layout.
+
+    bf16 leaves (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses) cross bit for bit through an ``int16`` view and come out as
+    ``torch.bfloat16``; f32 leaves stay f32.  Every key and shape must be
+    the port template's (:func:`repro_torch.models.api.param_template`)."""
+    def walk(spec, node, path):
+        if isinstance(spec, ParamSpec):
+            a = np.asarray(node)
+            if tuple(a.shape) != spec.shape:
+                raise ValueError(f"{path}: shape {a.shape}, the template "
+                                 f"says {spec.shape}")
+            return _tensor_from_numpy(a, path, device)
+        if not isinstance(node, Mapping) or set(node) != set(spec):
+            got = sorted(node) if isinstance(node, Mapping) else type(node)
+            raise ValueError(f"{path or 'params'}: keys {got}, the template "
+                             f"has {sorted(spec)}")
+        return {k: walk(spec[k], node[k], f"{path}/{k}") for k in spec}
+    return walk(param_template(cfg), tree, "")

@@ -263,3 +263,125 @@ def test_failed_build_raises_for_the_oracle_kernels(cuda, monkeypatch):
         monkeypatch.setattr(kernel, "_fn", None)
         with pytest.raises(build.BuildError):
             call()
+
+
+# ----------------------- kernel 7 (flash attention) and the serving path
+
+FLASH_CASES = [   # (B, H, Sq, Skv, dtype, causal)
+    (8, 32, 4096, 4096, torch.bfloat16, True),   # the serving prefill's
+    (8, 32, 4096, 4096, torch.float32, True),
+    (2, 32, 1000, 1000, torch.bfloat16, False),  # a ragged tail
+    (2, 32, 1000, 1000, torch.float32, True),
+    (2, 32, 128, 128, torch.bfloat16, True),
+    (1, 32, 100, 300, torch.bfloat16, True),     # Sq < Skv, top-left mask
+    (1, 32, 100, 300, torch.float32, False),
+]
+#: f32 (the algorithm check) within max-abs 2e-5; bf16 within the bound
+#: that scales with the values, ``ref.bf16_mismatch``
+F32_TOL = 2e-5
+
+
+def _assert_flash_close(got, want, q, k, v, causal):
+    from repro_torch.kernels.flash_attention import ref
+    if got.dtype == torch.float32:
+        assert (got - want).abs().max().item() <= F32_TOL
+        return
+    max_abs, excess, row_rel = ref.bf16_mismatch(got, want, q, k, v,
+                                                 causal=causal)
+    assert excess <= 0 and row_rel <= ref.BF16_ROW_RTOL, (max_abs, excess,
+                                                          row_rel)
+
+
+def _qkv(cuda, B, H, Sq, Skv, dtype, seed=0, D=64):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn((B, H, s, D), generator=g, device=cuda).to(dtype)
+            for s in (Sq, Skv, Skv)]
+
+
+@pytest.mark.parametrize("B,H,Sq,Skv,dtype,causal", FLASH_CASES)
+def test_flash_kernel_equals_plain(cuda, B, H, Sq, Skv, dtype, causal):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q, k, v = _qkv(cuda, B, H, Sq, Skv, dtype, seed=Sq + Skv)
+    before = flash_ops.KERNEL.launches
+    got = flash_ops.flash_attention_bhsd(q, k, v, causal=causal)
+    assert flash_ops.KERNEL.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_flash_close(got, want, q, k, v, causal)
+
+
+def test_flash_kernel_reads_the_model_layout_through_strides(cuda):
+    """(B, S, H, D) views with a head stride (a slice of wider heads) go
+    in as they are: no copy, same result as the plain version."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    wide = [t.transpose(1, 2) for t in _qkv(cuda, 2, 12, 333, 333,
+                                            torch.bfloat16, seed=3)]
+    q, k, v = (t[:, :, 2:10] for t in wide)        # (2, 333, 8, 64) views
+    assert not q.is_contiguous()
+    got = flash_ops.flash_attention(q, k, v)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    want = attention_ref(q, k, v)
+    _assert_flash_close(got.transpose(1, 2), want, q, k, v, True)
+
+
+def test_flash_wrapper_refuses_on_the_card(cuda):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16)
+    before = flash_ops.KERNEL.launches
+    for bad in ((q.half(), k.half(), v.half()),              # dtype
+                (q, k.cpu(), v),                            # device mix
+                (q[..., :32], k[..., :32], v[..., :32]),    # head dim
+                (q.transpose(2, 3), k.transpose(2, 3),      # D stride
+                 v.transpose(2, 3))):
+        with pytest.raises(ValueError):
+            flash_ops.flash_attention_bhsd(*bad)
+    assert flash_ops.KERNEL.launches == before
+
+
+def test_failed_build_raises_for_the_flash_kernel(cuda, monkeypatch):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    def broken():
+        raise build.BuildError("simulated failed build")
+    monkeypatch.setattr(build, "library", broken)
+    monkeypatch.setattr(flash_ops.KERNEL, "_fn", None)
+    with pytest.raises(build.BuildError):
+        flash_ops.flash_attention_bhsd(*_qkv(cuda, 1, 2, 64, 64,
+                                             torch.bfloat16))
+
+
+def test_prefill_launches_kernel_7_once_per_layer_and_decode_never(cuda):
+    """A small dense model (head_dim 64) on the card: one kernel-7 launch
+    per layer in the prefill, none in decode, and logits equal to the
+    same model on the CPU (plain versions) within the bf16 tolerance of
+    tests/test_torch_lm.py."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import api
+    cfg = ModelConfig(arch_id="gpu-test", family="dense", num_layers=3,
+                      d_model=256, num_heads=4, num_kv_heads=2, d_ff=512,
+                      vocab_size=1000, head_dim=64, tie_embeddings=True)
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(1),
+                             cuda)
+    toks = torch.randint(0, 1000, (2, 200), device=cuda, dtype=torch.int32,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    build.reset_launch_counts()
+    logits, cache = api.prefill(cfg, params, {"tokens": toks}, max_seq=201)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.launch_counts().items() if v} == {
+        "ss_flash_attention_fwd": 3}
+    nxt = logits.argmax(-1).to(torch.int32)[:, None]
+    build.reset_launch_counts()
+    logits2, _ = api.decode_step(cfg, params, nxt, 200, cache)
+    torch.cuda.synchronize()
+    assert not any(build.launch_counts().values())
+    def cpu(tree):
+        return {k: cpu(v) for k, v in tree.items()} \
+            if isinstance(tree, dict) else tree.cpu()
+    want, _ = api.prefill(cfg, cpu(params), {"tokens": toks.cpu()},
+                          max_seq=201)
+    assert logits.dtype == torch.float32
+    excess = (logits.cpu() - want).abs() - (3e-2 + 2 ** -6 * want.abs())
+    assert excess.max().item() <= 0
+    assert torch.isfinite(logits2).all()
