@@ -15,11 +15,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    and separate outbound nonces/counters; kernels 4-6 (the per-chunk
    engine's) at one 64 KB chunk (1025 cipher blocks, 16384 words x 2
    keys, 1024 enclave blocks), with a counter that wraps past 2^32, the
-   six enclave ops on adversarial words and ragged block counts.  Each
-   is timed beside its plain version and its bound: device time per
-   call from a replayed CUDA graph (``ms``, ``plain_ms``) and the eager
-   call's time, which the host's enqueue sets for kernels this small
-   (``eager_ms``);
+   six enclave ops on adversarial words and ragged block counts.  The
+   CW-MAC kernels (2 and 5) write finished tags in one launch; their
+   call (``mac2_batch`` with the keys as strided columns, ``mac2`` with
+   scalar keys) is checked and timed at the window and chunk shapes and
+   at a ragged n, n under one block and n over more than 8 blocks (the
+   ticket path).  Each is timed beside its plain version and its bound:
+   device time per call from a replayed CUDA graph (``ms``,
+   ``plain_ms``) and the eager call's time, which the host's enqueue
+   sets for kernels this small (``eager_ms``);
 3. DelayedFlights (paper §5.2), built through the port's DSL (fluent
    form, fusion off, so its stage list equals the hand-built one), in
    enclave mode over the full 28 M-record stream in 64 KB chunks (1024
@@ -45,15 +49,20 @@ Phases, each printed on its own line; any failure exits non-zero:
    revocation over 64 chunks equal to the static-key run;
 8. the paper's §5.1 chunk-copy experiment: a 100 MB payload on the card
    through the enclave kernel in chunks of 16 KB .. 1 MB, in and in-out,
-   MB/s beside the bound; then kernels 4 and 5 over one 100 MB message;
+   MB/s beside the bound; then kernels 4 and 5 over one 100 MB message
+   (kernel 5's tags called twice: its tickets are zero again after each);
 9. kernel 7 (causal flash attention forward) against its plain torch
    version, bf16 (within a bound that scales with the values, see
    ``ref.bf16_mismatch``) and f32 (max-abs 2e-5), causal and not, at the
    serving path's prefill shape (8 requests x 4096 tokens, 32 heads of
    64), a ragged length (1000), a short one (128) and Sq < Skv; no spill
-   in its ``-Xptxas -v`` lines; timed beside its bound, its plain version
-   and ``scaled_dot_product_attention`` (the yardstick, which the port
-   never calls);
+   in its ``-Xptxas -v`` lines; timed beside its bound (and the share of
+   it), its plain version and ``scaled_dot_product_attention`` (the
+   yardstick, which the port never calls) in the same run, with its
+   registers, shared memory, and its exp2 count beside the
+   special-function units' rate; then what sets its pace: copies of the
+   kernel built without its products and exp2, and without its softmax
+   as well, timed on the same inputs (``[flash_pace]``);
 10. secure LM serving of llama3.2-1b at full width and depth (16 layers,
    weights drawn from a seed on the card): a client attests the serving
    enclave (``KeyDirectory(seed=7)``), 8 prompts of 4096 tokens are
@@ -110,6 +119,9 @@ INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 # dense tensor-core bf16 and CUDA-core f32 peaks (data sheet): kernel 7
 BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
+#: exp2 results per second of the special-function units: 16 per SM per
+#: clock (4 per sub-partition), 132 SMs x 1.98 GHz — kernel 7's softmax
+SFU_EXP2_PER_S = 132 * 16 * 1.98e9
 #: issue slots per second of the card: 132 SMs x 4 schedulers x 1.98 GHz
 WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
 
@@ -124,20 +136,20 @@ CWMAC_OPS_PER_WORD = 16                       # 2 limbs x (add, mul, fold)
 KERNELS = {
     "window": {
         "plain": (),
-        "encrypted": ("ss_chacha20_xor_rows", "ss_cwmac_partials"),
-        "enclave": ("ss_chacha20_xor_rows", "ss_cwmac_partials",
+        "encrypted": ("ss_chacha20_xor_rows", "ss_cwmac_tags"),
+        "enclave": ("ss_chacha20_xor_rows", "ss_cwmac_tags",
                     "ss_enclave_map_rows"),
     },
     "chunk": {
         "plain": (),
-        "encrypted": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_partials"),
-        "enclave": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_partials",
+        "encrypted": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_tags"),
+        "enclave": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_tags",
                     "ss_enclave_map_blocks"),
     },
     # secure LM serving: the prompts are sealed and opened with the scalar
     # AEAD (kernels 4 and 5), the prefill runs kernel 7 in every layer
     "serve": {
-        "encrypted": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_partials",
+        "encrypted": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_tags",
                       "ss_flash_attention_fwd"),
     },
 }
@@ -258,14 +270,18 @@ def timed_row(torch, row, run, plain, nbytes, ops, **shown):
     return row
 
 
-def time_mac2(torch, row, run, plain):
-    """Add the whole mac2 wrapper's times (kernel + its torch fold) to a
-    CW-MAC kernel's ``row`` and print them."""
-    row.update(mac2_ms=device_ms(torch, run, 50),
-               mac2_eager_ms=eager_ms(torch, run, 200),
-               mac2_plain_ms=device_ms(torch, plain, 2, reps=3))
-    phase("kernel", name=f"{row['name']}_mac2_wrapper", ms=row["mac2_ms"],
-          eager_ms=row["mac2_eager_ms"], plain_ms=row["mac2_plain_ms"])
+def time_tag_shapes(torch, row, cases):
+    """Device and eager ms of the tag call at more shapes than the row's
+    own: ``cases`` is [(label, call, plain call, words)], each checked bit
+    for bit first; the numbers go into ``row["shapes"]``."""
+    row["shapes"] = {}
+    for label, run, plain, n_words in cases:
+        require_equal(f"{row['name']} {label}", run(), plain())
+        ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
+        b, by = bound(n_words * 4, 2 * n_words * CWMAC_OPS_PER_WORD)
+        row["shapes"][label] = dict(ms=ms, eager_ms=eager, bound_ms=b)
+        phase("kernel_shape", name=row["name"], shape=label, bit_equal=True,
+              ms=ms, eager_ms=eager, bound_ms=b, bound_by=by)
     return row
 
 
@@ -304,7 +320,7 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.chacha20 import ops as chacha_ops
     from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
     from repro_torch.kernels.cwmac import ops as cwmac_ops
-    from repro_torch.kernels.cwmac.ref import mac_partials_batch_ref
+    from repro_torch.kernels.cwmac.ref import mac_tags_ref
     from repro_torch.kernels.enclave_map import ops as em_ops
     from repro_torch.kernels.enclave_map.ref import enclave_apply_rows_ref
     from repro_torch.u32 import from_numpy, repeat_rows
@@ -355,40 +371,36 @@ def phase_kernels(torch, dev):
     require_equal("chacha20 mac-key rows", chacha_ops.xor_rows(*args),
                   chacha20_xor_rows_ref(*args))
 
-    # ---- CW-MAC: mac2 of a window, 2 keys x 8 rows x 16384 words
+    # ---- CW-MAC: mac2 of a window, 2 keys x 8 rows x 16384 words, the
+    # keys as the AEAD holds them (strided columns of (B, 4) rows)
     words = T(u32(rng, (B, n_words)))
     mk = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, (B, 4)),
                          dtype=torch.int32, device=dev)
     r1, s1, r2, s2 = (mk[:, i] for i in range(4))
-    require_equal("cwmac mac2 tags", cwmac_ops.mac2_batch(
-        words, r1, s1, r2, s2), cwmac.mac2_batch(words, r1, s1, r2, s2))
-    rr = torch.cat([r1, r2])
-    got = cwmac_ops.mac_partials_batch(words, rr)
-    want = mac_partials_batch_ref(words, rr, cwmac_ops.TILE_WORDS)
-    require_equal("cwmac partials", got, want)
-    err = max_abs_err(got, want)
-    wr = T(u32(rng, (3, 5003)))              # ragged: a partial last tile
-    kr = mk[:3]
-    require_equal("cwmac ragged", cwmac_ops.mac2_batch(
-        wr, kr[:, 0], kr[:, 1], kr[:, 2], kr[:, 3]), cwmac.mac2_batch(
-        wr, kr[:, 0], kr[:, 1], kr[:, 2], kr[:, 3]))
-    # the kernel alone, then the whole mac2 wrapper (kernel + torch fold)
-    T_tiles = got.shape[1]
-    row = timed_row(
-        torch, dict(name="cwmac_partials", route="cuda",
+
+    def tags_case(w, k):
+        cols = [k[:, i] for i in range(4)]
+        return (lambda: cwmac_ops.mac2_batch(w, *cols),
+                lambda: mac_tags_ref(w, k[:, 0::2], k[:, 1::2],
+                                     cwmac_ops.block_words(*w.shape[::-1])))
+    run, plain = tags_case(words, mk)
+    got = run()
+    require_equal("cwmac tags", got, plain())
+    require_equal("cwmac tags vs crypto.cwmac", got, cwmac.mac2_batch(
+        words, r1, s1, r2, s2))
+    err = max_abs_err(got, plain())
+    rows_out.append(time_tag_shapes(torch, timed_row(
+        torch, dict(name="cwmac_tags", route="cuda",
                     source="src/repro_torch/csrc/cwmac.cu",
                     replaces="src/repro/kernels/cwmac/cwmac.py:59",
-                    symbol="ss_cwmac_partials", max_abs_err=err,
-                    shape=f"2 keys x {B} rows x {n_words} words -> (16, "
-                          f"{T_tiles}) partials; mac2_* = the wrapper with "
-                          f"its fold"),
-        lambda: cwmac_ops.mac_partials_batch(words, rr),
-        lambda: mac_partials_batch_ref(words, rr, cwmac_ops.TILE_WORDS),
-        B * n_words * 4 + 2 * B * 4 + 2 * B * T_tiles * 4,
-        2 * B * n_words * CWMAC_OPS_PER_WORD, rows=2 * B, words=n_words)
-    rows_out.append(time_mac2(
-        torch, row, lambda: cwmac_ops.mac2_batch(words, r1, s1, r2, s2),
-        lambda: cwmac.mac2_batch(words, r1, s1, r2, s2)))
+                    symbol="ss_cwmac_tags", max_abs_err=err,
+                    shape=f"mac2_batch: 2 keys x {B} rows x {n_words} "
+                          f"words -> ({B}, 2) tags, one launch"),
+        run, plain, B * n_words * 4 + 4 * B * 4 + 2 * B * 4,
+        2 * B * n_words * CWMAC_OPS_PER_WORD, rows=2 * B, words=n_words,
+        plan=cwmac_ops.plan(n_words, B)), [
+            (f"{r}x{n}", *tags_case(T(u32(rng, (r, n))), mk[:r]), r * n)
+            for r, n in ((3, 5003), (3, 37), (2, 140000))]))
 
     # ---- enclave map: one enclave hop of a window (8 x 1024 rows)
     R = B * n_blocks
@@ -454,7 +466,7 @@ def phase_kernels_stage8_shapes(torch, dev, rng, chunk_words=4096):
     from repro_torch.kernels.chacha20 import ops as chacha_ops
     from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
     from repro_torch.kernels.cwmac import ops as cwmac_ops
-    from repro_torch.kernels.cwmac.ref import mac_partials_batch_ref
+    from repro_torch.kernels.cwmac.ref import mac_tags_ref
     from repro_torch.kernels.enclave_map import ops as em_ops
     from repro_torch.kernels.enclave_map.ref import enclave_apply_rows_ref
     from repro_torch.u32 import from_numpy, repeat_rows
@@ -480,10 +492,10 @@ def phase_kernels_stage8_shapes(torch, dev, rng, chunk_words=4096):
     mk = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, (B, 4)),
                          dtype=torch.int32, device=dev)
     r1, s1, r2, s2 = (mk[:, i] for i in range(4))
-    rr = torch.cat([r1, r2])
-    require_equal(f"cwmac partials {2 * B}x{chunk_words}",
-                  cwmac_ops.mac_partials_batch(words, rr),
-                  mac_partials_batch_ref(words, rr, cwmac_ops.TILE_WORDS))
+    require_equal(f"cwmac tags {2 * B}x{chunk_words}",
+                  cwmac_ops.mac2_batch(words, r1, s1, r2, s2),
+                  mac_tags_ref(words, mk[:, 0::2], mk[:, 1::2],
+                               cwmac_ops.block_words(chunk_words, B)))
     require_equal(f"cwmac mac2 {2 * B}x{chunk_words}", cwmac_ops.mac2_batch(
         words, r1, s1, r2, s2), cwmac.mac2_batch(words, r1, s1, r2, s2))
     checked.append(f"cwmac:{2 * B}x{chunk_words}")
@@ -524,7 +536,7 @@ def phase_kernels_oracle(torch, dev, rng):
     from repro_torch.kernels.chacha20 import ops as chacha_ops
     from repro_torch.kernels.chacha20.ref import chacha20_xor_blocks_ref
     from repro_torch.kernels.cwmac import ops as cwmac_ops
-    from repro_torch.kernels.cwmac.ref import mac_partials_ref
+    from repro_torch.kernels.cwmac.ref import mac_tags_ref
     from repro_torch.kernels.enclave_map import ops as em_ops
     from repro_torch.kernels.enclave_map.ref import enclave_apply_ref
     from repro_torch.u32 import from_numpy
@@ -553,36 +565,38 @@ def phase_kernels_oracle(torch, dev, rng):
         N * 64 * 2 + 32 + 12, N * CHACHA_OPS_PER_ROW,
         blocks=N, wrapped_counter0=wrap, ragged="37,1"))
 
-    # ---- CW-MAC, one message: mac2 of one chunk, 16384 words x 2 keys
+    # ---- CW-MAC, one message: mac2 of one chunk, 16384 words x 2 keys,
+    # the keys as (4,) views
     n_words = n_blocks * 16
-    words = T(u32(rng, n_words))
+    words = T(u32(rng, 140000))
     mk = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, 4), dtype=torch.int32,
                          device=dev)
-    r = mk[0::2].contiguous()
-    for n in (n_words, 5003, 1):
-        require_equal(f"cwmac message partials n={n}",
-                      cwmac_ops.mac_partials(words[:n], r),
-                      mac_partials_ref(words[:n], r, cwmac_ops.TILE_WORDS))
-        require_equal(f"cwmac message mac2 n={n}",
-                      cwmac_ops.mac2(words[:n], *mk),
+
+    def tag_case(n):
+        w = words[:n]
+        keys = mk.reshape(1, 4)
+        return (lambda: cwmac_ops.mac2(w, *mk),
+                lambda: mac_tags_ref(w.reshape(1, -1), keys[:, 0::2],
+                                     keys[:, 1::2],
+                                     cwmac_ops.block_words(n, 1))[0])
+    for n in (n_words, 5003, 37, 1, 140000):
+        run, plain = tag_case(n)
+        require_equal(f"cwmac message tags n={n}", run(), plain())
+        require_equal(f"cwmac message mac2 n={n}", run(),
                       cwmac.mac2(words[:n], *mk))
-    got = cwmac_ops.mac_partials(words, r)
-    err = max_abs_err(got, mac_partials_ref(words, r, cwmac_ops.TILE_WORDS))
-    row = timed_row(
-        torch, dict(name="cwmac_mac_partials", route="cuda",
+    run, plain = tag_case(n_words)
+    err = max_abs_err(run(), plain())
+    rows_out.append(time_tag_shapes(torch, timed_row(
+        torch, dict(name="cwmac_mac_tags", route="cuda",
                     source="src/repro_torch/csrc/cwmac.cu",
                     replaces="src/repro/kernels/cwmac/cwmac.py:47",
-                    symbol="ss_cwmac_mac_partials", max_abs_err=err,
-                    shape=f"1 message x {n_words} words x 2 keys -> "
-                          f"(2, {got.shape[1]}) partials; mac2_* = the "
-                          f"wrapper with its fold"),
-        lambda: cwmac_ops.mac_partials(words, r),
-        lambda: mac_partials_ref(words, r, cwmac_ops.TILE_WORDS),
-        n_words * 4 + 2 * 4 + 2 * got.shape[1] * 4,
-        2 * n_words * CWMAC_OPS_PER_WORD, words=n_words, ragged="5003,1")
-    rows_out.append(time_mac2(torch, row,
-                              lambda: cwmac_ops.mac2(words, *mk),
-                              lambda: cwmac.mac2(words, *mk)))
+                    symbol="ss_cwmac_mac_tags", max_abs_err=err,
+                    shape=f"mac2: 1 message x {n_words} words x 2 keys -> "
+                          f"(2,) tags, one launch"),
+        run, plain, n_words * 4 + 4 * 4 + 2 * 4,
+        2 * n_words * CWMAC_OPS_PER_WORD, words=n_words,
+        plan=cwmac_ops.plan(n_words, 1)), [
+            (f"{n}", *tag_case(n), n) for n in (5003, 37, 140000)]))
 
     # ---- enclave map blocks: the per-chunk enclave hop, 1024 blocks
     kin, kout = T(u32(rng, 8)), T(u32(rng, 8))
@@ -1071,19 +1085,22 @@ def phase_chunk_copy(torch, dev, mixes):
           sass_fma=mix["fma"], bit_equal_slices=3)
     flat = data.reshape(-1)
     mk = words(4) & 0x3FFFFFFF
-    r = mk[0::2].contiguous()
-    if not torch.equal(cwmac_ops.mac2(flat, *mk), cwmac.mac2(flat, *mk)):
-        raise AssertionError("cwmac 100 MB: tag differs from the plain "
-                             "version")
-    T = -(-flat.numel() // cwmac_ops.TILE_WORDS)
-    ms = device_ms(torch, lambda: cwmac_ops.mac_partials(flat, r), 5,
-                   reps=3)
-    b, by = bound(flat.numel() * 4 + 8 + 2 * T * 4,
+    run = lambda: cwmac_ops.mac2(flat, *mk)                  # noqa: E731
+    for _ in range(2):             # the ticket path leaves its tickets at 0
+        if not torch.equal(run(), cwmac.mac2(flat, *mk)):
+            raise AssertionError("cwmac 100 MB: tag differs from the plain "
+                                 "version")
+    ms = device_ms(torch, run, 5, reps=3)
+    b, by = bound(flat.numel() * 4 + 16 + 8,
                   2 * flat.numel() * CWMAC_OPS_PER_WORD)
+    G, m, cluster = cwmac_ops.plan(flat.numel(), 1,
+                                   torch.cuda.get_device_properties(
+                                       dev).multi_processor_count)
     k5 = dict(ms_100mb=ms, bound_ms_100mb=b, bound_by_100mb=by)
-    phase("kernel_100mb", name="cwmac_mac_partials", ms=ms, bound_ms=b,
-          bound_by=by, tag_equal=True)
-    return {"ss_chacha20_xor_blocks": k4, "ss_cwmac_mac_partials": k5,
+    phase("kernel_100mb", name="cwmac_mac_tags", ms=ms, bound_ms=b,
+          bound_by=by, share_of_bound=b / ms, blocks=G, groups_per_thread=m,
+          cluster=cluster, tag_equal=True, calls_checked=2)
+    return {"ss_chacha20_xor_blocks": k4, "ss_cwmac_mac_tags": k5,
             "ss_enclave_map_blocks": {"chunk_copy_100mb": sizes}}
 
 
@@ -1108,15 +1125,21 @@ SERVE_LOGIT_TOL = 0.125
 SERVE_CACHE_RTOL = 0.05
 
 
-def flash_flops(B, H, Sq, Skv, D, causal):
-    """FLOPs kernel 7 needs: 2*D for q.k and 2*D for p*v per attended
-    (query, key) pair; causal (top-left) row i attends min(i+1, Skv)."""
+def flash_pairs(B, H, Sq, Skv, causal):
+    """Attended (query, key) pairs: causal (top-left) row i attends
+    min(i+1, Skv) keys; each costs one exp2 in the softmax."""
     if causal:
         full = min(Sq, Skv)
         pairs = full * (full + 1) // 2 + max(Sq - Skv, 0) * Skv
     else:
         pairs = Sq * Skv
-    return 4 * B * H * D * pairs
+    return B * H * pairs
+
+
+def flash_flops(B, H, Sq, Skv, D, causal):
+    """FLOPs kernel 7 needs: 2*D for q.k and 2*D for p*v per attended
+    (query, key) pair."""
+    return 4 * D * flash_pairs(B, H, Sq, Skv, causal)
 
 
 def _plain_bshd(torch, keep=None):
@@ -1139,6 +1162,67 @@ def _plain_bshd(torch, keep=None):
     return plain
 
 
+#: kernel 7 with parts of its work taken out, for timing only (their
+#: results are wrong on purpose): (source text, replacement, count) edits
+#: of ``csrc/flash_attention.cu``.  Their times against the whole kernel's
+#: say what sets its pace: the tensor cores and the special-function
+#: units, the softmax's other arithmetic, or the loads alone.
+_NO_MMA = ('"wgmma.mma_async.sync.aligned', '"// wgmma.mma_async.sync.aligned',
+           2)
+_NO_EXP2 = ('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+            'y = x * 0.25f;', 1)
+_NO_SOFTMAX = ("  const int col2 = 2 * (lane & 3);\n",
+               "  if (k0 >= 0) return make_float2(1.f, 1.f);\n"
+               "  const int col2 = 2 * (lane & 3);\n", 1)
+FLASH_PACE = {"no_mma_no_exp2": (_NO_MMA, _NO_EXP2),
+              "loads_only": (_NO_MMA, _NO_EXP2, _NO_SOFTMAX)}
+
+
+def flash_pace(torch, run, full_ms):
+    """Build FLASH_PACE's variants of kernel 7 (one nvcc each, in
+    parallel, into the ignored build directory), time each in place of the
+    kernel on the same inputs, and print what each part of the work costs.
+    -> {variant: ms}"""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    out = build.BUILD_ROOT / f"flash-pace-{build._digest()}"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in FLASH_PACE.items():
+        text = src
+        for old, new, count in edits:
+            if text.count(old) != count:
+                raise AssertionError(f"flash pace {name}: {old!r} occurs "
+                                     f"{text.count(old)} times, not {count}")
+            text = text.replace(old, new)
+        (out / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    times = {}
+    kernel = flash_ops.KERNEL
+    real = kernel._fn                       # bound by the kernel's timing
+    try:
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"flash pace {name}: nvcc failed\n{log}")
+            fn = ctypes.CDLL(str(out / f"{name}.so")).ss_flash_attention_fwd
+            fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+            kernel._fn = fn
+            times[name] = eager_ms(torch, run, 20)
+    finally:
+        kernel._fn = real
+    phase("flash_pace", full_ms=full_ms, **{f"{k}_ms": v
+                                            for k, v in times.items()},
+          exp2_and_mma_ms=full_ms - times["no_mma_no_exp2"],
+          softmax_other_ms=times["no_mma_no_exp2"] - times["loads_only"])
+    return times
+
+
 def phase_flash(torch, dev):
     """Kernel 7 against its plain version on the card at FLASH_SHAPES,
     bf16 and f32, causal and not; then its time at the serving path's
@@ -1147,10 +1231,12 @@ def phase_flash(torch, dev):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
         BF16_ROW_RTOL, attention_ref, bf16_mismatch)
+    ptxas = {}
     for k in build.ptxas_kernels(build.ptxas_report()):
-        if "flash" in k["name"] and (k["spill_stores"] != 0
-                                     or k["spill_loads"] != 0):
-            raise AssertionError(f"{k['name']} spills registers")
+        if "flash" in k["name"]:
+            ptxas["bf16" if "bf16" in k["name"] else "f32"] = k
+            if k["spill_stores"] != 0 or k["spill_loads"] != 0:
+                raise AssertionError(f"{k['name']} spills registers")
     g = torch.Generator(device=dev).manual_seed(9)
     D = flash_ops.HEAD_DIM
 
@@ -1196,11 +1282,14 @@ def phase_flash(torch, dev):
                                                         is_causal=True), 20)
     flops = flash_flops(B, H, S, S, D, True)
     b, by = bound(4 * q.numel() * q.element_size(), flops, BF16_TC_FLOPS)
+    exp2 = flash_pairs(B, H, S, S, True)
+    exp2_ms = exp2 / SFU_EXP2_PER_S * 1e3
     qf, kf, vf = q.float(), k.float(), v.float()
     f32_ms = eager_ms(torch, lambda: flash_ops.flash_attention_bhsd(
         qf, kf, vf), 2)
     f32_b, f32_by = bound(4 * qf.numel() * 4, flops, F32_FLOPS)
     del qf, kf, vf
+    pace = flash_pace(torch, run, ms)
     row = dict(name="flash_attention_fwd", route="cuda",
                source="src/repro_torch/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention/"
@@ -1210,12 +1299,19 @@ def phase_flash(torch, dev):
                library_ms=library_ms,
                library_call="torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True)",
-               tflops=flops / ms / 1e9, f32_ms=f32_ms, f32_bound_ms=f32_b,
+               tflops=flops / ms / 1e9, share_of_bound=b / ms,
+               exp2=exp2, exp2_ms=exp2_ms, pace_ms=pace,
+               registers=ptxas["bf16"]["registers"],
+               smem_bytes=flash_ops.smem_bytes(),
+               f32_ms=f32_ms, f32_bound_ms=f32_b,
                shape=f"B={B} H={H} S={S} D={D} bf16 causal")
     phase("kernel", name=row["name"], ms=ms, plain_ms=plain_ms,
           library_ms=library_ms, bound_ms=b, bound_by=by,
           tflops=round(row["tflops"], 1), share_of_bound=round(b / ms, 4),
-          f32_ms=f32_ms, f32_bound_ms=f32_b, f32_bound_by=f32_by)
+          vs_library=round(ms / library_ms, 4), exp2=exp2,
+          exp2_sfu_ms=exp2_ms, registers=row["registers"],
+          smem_bytes=row["smem_bytes"], f32_ms=f32_ms, f32_bound_ms=f32_b,
+          f32_bound_by=f32_by)
     return row
 
 

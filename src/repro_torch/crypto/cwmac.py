@@ -1,7 +1,7 @@
 """Carter-Wegman polynomial MAC over GF(2^31 - 1), plain torch.
 
 Port of ``repro/crypto/cwmac.py``: the plain version behind the
-hand-written ``cwmac_partials`` CUDA kernel (``repro_torch/csrc/cwmac.cu``).
+hand-written CW-MAC tags kernel (``repro_torch/csrc/cwmac.cu``).
 
     tag = ( sum_i limb_i * r^(n-i) + s ) mod p,   p = 2^31 - 1
 

@@ -5,12 +5,13 @@ Replaces the reference's ``repro/kernels/flash_attention/ops.py`` and the
 Pallas ``_flash_kernel`` behind it.  A CPU tensor runs the plain torch
 version (:func:`.ref.attention_ref`); a CUDA tensor launches
 ``ss_flash_attention_fwd`` (``repro_torch/csrc/flash_attention.cu``) or
-raises.  The kernel reads q, k and v through their (batch, sequence,
-head) strides, so the (B, S, H, D) entry makes no transposed copy (the
-reference swaps axes to (B, H, S, D) for its BlockSpecs), and it masks
-its own ragged tail, so any S is taken (the reference needs S to be a
-multiple of its chunk); its tiles are fixed, so there are no chunk
-arguments.  K and V come already repeated to the H query heads.
+raises.  The kernel reads q, k and v through tensor maps over their
+(batch, sequence, head) strides (16-byte multiples, unit D stride), so
+the (B, S, H, D) entry makes no transposed copy (the reference swaps
+axes to (B, H, S, D) for its BlockSpecs), and rows past the end read as
+zeros, so any S is taken (the reference needs S to be a multiple of its
+chunk); its tiles are fixed, so there are no chunk arguments.  K and V
+come already repeated to the H query heads.
 """
 from __future__ import annotations
 
@@ -30,6 +31,11 @@ KERNEL = build.Kernel("ss_flash_attention_fwd", [
 DTYPES = (torch.bfloat16, torch.float32)
 #: the one head dim ``csrc/flash_attention.cu`` instantiates
 HEAD_DIM = 64
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one bf16 block of the kernel, bytes."""
+    return int(build.library().ss_flash_attention_smem_bytes())
 
 
 def _check(q, k, v, seq: int, head: int) -> None:
@@ -56,7 +62,7 @@ def _launch(q, k, v, out, causal: bool, seq: int, head: int) -> None:
     if D != HEAD_DIM:
         raise ValueError(f"flash attention kernel: head dim {D}, the "
                          f"kernel is built for {HEAD_DIM}")
-    align = 16 // q.element_size()           # 16-byte rows for cp.async
+    align = 16 // q.element_size()           # tensor maps: 16-byte strides
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(3) != 1 or any(t.stride(i) % align for i in range(3)) \
                 or t.data_ptr() % 16:

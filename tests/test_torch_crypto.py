@@ -159,16 +159,38 @@ def test_field_helpers_and_single_message_mac_match_reference():
                             cwmac.mac_reference(words, 7654322, 6)]
 
 
-def test_mac_partials_sum_to_the_tag():
-    """The kernel's plain version writes per-tile partials already scaled
-    by their absolute power of r: their sum plus s is the tag."""
-    words = _u32((2, 5003), seed=11)
-    r = torch.tensor([12345, 2 ** 31 - 2], dtype=torch.int32)
-    s = torch.tensor([7, 0], dtype=torch.int32)
-    parts = cwmac_ops.mac_partials_batch(_t(words), r)
-    assert parts.shape == (2, 3)
-    tags = (parts.long().sum(1) + s.long()) % cwmac.P31
-    assert tags.tolist() == cwmac.mac_batch(_t(words), r, s).tolist()
+@pytest.mark.parametrize("B,n,strided", [
+    (2, 5003, False),      # ragged: n % 4 != 0, a partial last block
+    (3, 37, False),        # under one block
+    (8, 16384, True),      # a window's rows, keys as (B, 4) columns
+    (1, 140000, True),     # more than 8 blocks: the ticket path
+    (4, 2500, True),
+])
+def test_mac_partials_sum_to_the_tag(B, n, strided):
+    """The kernel writes finished tags: its plain version, split into the
+    kernel's blocks (partials folded by Horner, s added), gives the
+    reference's mac2_batch tags bit for bit, with the keys passed as the
+    AEAD holds them (strided columns of the (B, 4) mac-key rows)."""
+    words = _u32((B, n), seed=11)
+    mk = np.random.default_rng(n).integers(0, 2 ** 31 - 1, (B, 4))
+    mk[0, :2] = [2 ** 31 - 2, 0]                       # largest r, zero s
+    mk_t = _t(mk.astype(np.int32))
+    cols = [mk_t[:, i] if strided else mk_t[:, i].contiguous()
+            for i in range(4)]
+    assert cols[0].is_contiguous() is (not strided or B == 1)
+    G, m, cluster = cwmac_ops.plan(n, B)
+    assert cluster is (n <= 131072) and (G > 8) is (not cluster)
+    tags = cwmac_ops.mac2_batch(_t(words), *cols)
+    if not strided:  # the reference's kernel path (Pallas interpret)
+        want = np.asarray(j_cwmac_ops.mac2_batch(_j(words), *(
+            _j(mk[:, i].astype(np.uint32)) for i in range(4))))
+    else:            # its host oracle (its jnp forms compile per shape)
+        want = np.array([[j_cwmac.mac_reference(words[b], int(mk[b, 2 * k]),
+                                                int(mk[b, 2 * k + 1]))
+                          for k in range(2)] for b in range(B)])
+    assert np.array_equal(to_numpy(tags), want)
+    single = cwmac_ops.mac_batch(_t(words), cols[2], cols[3])
+    assert np.array_equal(to_numpy(single), want[:, 1])
 
 
 # ------------------------------------------------------------------- aead

@@ -13,8 +13,7 @@ from repro_torch.kernels.chacha20 import ops as chacha_ops
 from repro_torch.kernels.chacha20.ref import (chacha20_xor_blocks_ref,
                                               chacha20_xor_rows_ref)
 from repro_torch.kernels.cwmac import ops as cwmac_ops
-from repro_torch.kernels.cwmac.ref import (mac_partials_batch_ref,
-                                           mac_partials_ref)
+from repro_torch.kernels.cwmac.ref import mac_tags_ref
 from repro_torch.kernels.enclave_map import ops as em_ops
 from repro_torch.kernels.enclave_map.enclave_map import OPS
 from repro_torch.kernels.enclave_map.ref import (enclave_apply_ref,
@@ -67,18 +66,26 @@ def test_chacha20_rows_kernel_equals_plain(cuda, R, per_row):
     assert chacha_ops.KERNEL.launches == before + 1
 
 
-@pytest.mark.parametrize("B,n", [(8, 16384), (3, 5003), (2, 1)])
+@pytest.mark.parametrize("B,n", [(8, 16384), (8, 4096), (3, 5003), (2, 1),
+                                 (3, 37), (2, 140000), (1, 0)])
 def test_cwmac_kernel_equals_plain(cuda, B, n):
+    """Tags bit-equal to the plain versions at the window shapes, a
+    ragged n, n under one block and n over more than 8 blocks (the ticket
+    path), with the keys as strided (B, 4) columns; called twice in a row
+    (the tickets are zero again after each launch)."""
     words = from_numpy(_u32((B, n), 5), cuda)
     mk = torch.as_tensor(np.random.default_rng(6).integers(
         0, 2 ** 31 - 1, (B, 4)), dtype=torch.int32, device=cuda)
     keys = [mk[:, i] for i in range(4)]
-    assert torch.equal(cwmac_ops.mac2_batch(words, *keys),
-                       cwmac.mac2_batch(words, *keys))
-    r = torch.cat([keys[0], keys[2]])
-    assert torch.equal(cwmac_ops.mac_partials_batch(words, r),
-                       mac_partials_batch_ref(words, r,
-                                              cwmac_ops.TILE_WORDS))
+    want = cwmac.mac2_batch(words, *keys)
+    assert torch.equal(want, mac_tags_ref(words, mk[:, 0::2], mk[:, 1::2],
+                                          cwmac_ops.block_words(n, B)))
+    before = cwmac_ops.KERNEL.launches
+    for _ in range(2):
+        assert torch.equal(cwmac_ops.mac2_batch(words, *keys), want)
+    assert torch.equal(cwmac_ops.mac_batch(words, keys[2], keys[3]),
+                       want[:, 1])
+    assert cwmac_ops.KERNEL.launches == before + 3
 
 
 @pytest.mark.parametrize("op", list(OPS))
@@ -135,7 +142,7 @@ def test_pipeline_on_the_card_goes_through_the_kernels(cuda):
     out = p.run(flight_chunks(4096, 256, seed=1))
     counts = build.launch_counts()
     assert all(counts[k] > 0 for k in ("ss_chacha20_xor_rows",
-                                       "ss_cwmac_partials",
+                                       "ss_cwmac_tags",
                                        "ss_enclave_map_rows")), counts
     recs = flight_records(4096, seed=1)
     keep = recs[:, 1] > 15
@@ -174,17 +181,17 @@ def test_chacha20_blocks_kernel_equals_plain(cuda, N, counter0):
     assert chacha_ops.BLOCKS_KERNEL.launches == before + 1
 
 
-@pytest.mark.parametrize("n", [16384, 5003, 1])
+@pytest.mark.parametrize("n", [16384, 5003, 1, 37, 140000])
 def test_cwmac_message_kernel_equals_plain(cuda, n):
     words = from_numpy(_u32(n, 5), cuda)
     mk = torch.as_tensor(np.random.default_rng(6).integers(
         0, 2 ** 31 - 1, 4), dtype=torch.int32, device=cuda)
-    r = mk[0::2].contiguous()
+    want = cwmac.mac2(words, *mk)
     before = cwmac_ops.MESSAGE_KERNEL.launches
-    assert torch.equal(cwmac_ops.mac_partials(words, r),
-                       mac_partials_ref(words, r, cwmac_ops.TILE_WORDS))
-    assert torch.equal(cwmac_ops.mac2(words, *mk), cwmac.mac2(words, *mk))
-    assert cwmac_ops.MESSAGE_KERNEL.launches == before + 2
+    for _ in range(2):             # the ticket path resets its tickets
+        assert torch.equal(cwmac_ops.mac2(words, *mk), want)
+    assert torch.equal(cwmac_ops.mac(words, mk[0], mk[1]), want[0])
+    assert cwmac_ops.MESSAGE_KERNEL.launches == before + 3
 
 
 @pytest.mark.parametrize("op", list(OPS))
@@ -232,7 +239,7 @@ def test_oracle_engine_on_the_card_goes_through_kernels_4_to_6(cuda, mode):
     out = sb.run(flight_chunks(4096, 256, seed=1), mode=mode)
     torch.cuda.synchronize()
     counts = build.launch_counts()
-    want = {"ss_chacha20_xor_blocks", "ss_cwmac_mac_partials"}
+    want = {"ss_chacha20_xor_blocks", "ss_cwmac_mac_tags"}
     if mode == "enclave":
         want.add("ss_enclave_map_blocks")
     assert {k for k, v in counts.items() if v} == want, counts
@@ -275,6 +282,10 @@ FLASH_CASES = [   # (B, H, Sq, Skv, dtype, causal)
     (2, 32, 128, 128, torch.bfloat16, True),
     (1, 32, 100, 300, torch.bfloat16, True),     # Sq < Skv, top-left mask
     (1, 32, 100, 300, torch.float32, False),
+    (1, 32, 4097, 4097, torch.bfloat16, True),   # decode's prefill(S + 1)
+    (2, 8, 200, 200, torch.bfloat16, True),      # Sq not a multiple of 128
+    (1, 4, 130, 700, torch.bfloat16, True),      # Sq < Skv, ragged both
+    (1, 4, 130, 700, torch.bfloat16, False),
 ]
 #: f32 (the algorithm check) within max-abs 2e-5; bf16 within the bound
 #: that scales with the values, ``ref.bf16_mismatch``

@@ -17,7 +17,7 @@ from repro.kernels.enclave_map import ops as j_em_ops
 from repro_torch.crypto import aead, cwmac
 from repro_torch.kernels.chacha20 import ops as chacha_ops
 from repro_torch.kernels.cwmac import ops as cwmac_ops
-from repro_torch.kernels.cwmac.ref import mac_partials_ref
+from repro_torch.kernels.cwmac.ref import mac_tags_ref
 from repro_torch.kernels.enclave_map import ops as em_ops
 from repro_torch.kernels.enclave_map.enclave_map import OPS
 from repro_torch.obs.metrics import REGISTRY
@@ -98,13 +98,22 @@ def test_mac_and_mac2_equal_reference_at_its_tiles(n):
 
 @pytest.mark.parametrize("tile_words", [8, 512, 2048, 4096])
 def test_mac_partials_fold_to_the_same_tag_at_any_tile(tile_words):
-    words = _t(_u32(9000, 5))
-    r = torch.tensor([123456789, 987654321], dtype=torch.int32)
-    tags = (mac_partials_ref(words, r, tile_words).to(torch.int64).sum(1)
-            + 42) % P31
-    want = [cwmac.mac_reference(to_numpy(words), int(k), 42) for k in r]
-    assert tags.tolist() == want
-    assert tuple(cwmac_ops.mac_partials(words, r).shape) == (2, 5)
+    """The plain version of the tags kernel, split into blocks of any size,
+    gives the reference's (kernel-path) tags bit for bit: the split
+    changes no bit."""
+    words = _u32(9000, 5)
+    r = [123456789, 987654321]
+    keys = torch.tensor([[r[0], 42, r[1], 7]], dtype=torch.int32)
+    tags = mac_tags_ref(_t(words)[None], keys[:, 0::2], keys[:, 1::2],
+                        tile_words)
+    want = np.array([int(j_cwmac_ops.mac(jnp.asarray(words), jnp.uint32(k),
+                                         jnp.uint32(sk)))
+                     for k, sk in ((r[0], 42), (r[1], 7))])
+    assert to_numpy(tags[0]).tolist() == want.tolist() == [
+        cwmac.mac_reference(words, r[0], 42),
+        cwmac.mac_reference(words, r[1], 7)]
+    assert to_numpy(cwmac_ops.mac2(_t(words), *keys[0])).tolist() == \
+        want.tolist()
 
 
 # ------------------------------------------------- enclave map (kernel 6)
