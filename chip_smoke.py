@@ -4,26 +4,39 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, the time to build
-   the seven CUDA kernels from ``src/repro_torch/csrc``, and their
-   ``-Xptxas -v`` register and spill lines (no enclave kernel may
-   spill: a spill would put plaintext in device memory), and each
-   kernel's SASS instruction mix by pipe (``cuobjdump -sass``);
+   the CUDA kernels from ``src/repro_torch/csrc`` (and, beside them,
+   the ChaCha20 probes of ``csrc/probes``), their ``-Xptxas -v``
+   register and spill lines (no enclave kernel may spill: a spill would
+   put plaintext in device memory), and each kernel's SASS instruction
+   mix by pipe (``cuobjdump -sass``);
 2. each kernel against its plain torch version on the card, bit for bit:
    kernels 1-3 (the window engine's) at the shapes of every window path
    below (DelayedFlights' 1024-record chunks and the 8-stage job's
    4096-word chunks) plus a ragged row count, per-row (mixed-epoch) keys
    and separate outbound nonces/counters; kernels 4-6 (the per-chunk
-   engine's) at one 64 KB chunk (1025 cipher blocks, 16384 words x 2
-   keys, 1024 enclave blocks), with a counter that wraps past 2^32, the
-   six enclave ops on adversarial words and ragged block counts.  The
-   CW-MAC kernels (2 and 5) write finished tags in one launch; their
-   call (``mac2_batch`` with the keys as strided columns, ``mac2`` with
-   scalar keys) is checked and timed at the window and chunk shapes and
-   at a ragged n, n under one block and n over more than 8 blocks (the
-   ticket path).  Each is timed beside its plain version and its bound:
-   device time per call from a replayed CUDA graph (``ms``,
-   ``plain_ms``) and the eager call's time, which the host's enqueue
-   sets for kernels this small (``eager_ms``);
+   engine's) at one 64 KB chunk (16384 words, 16384 words x 2 keys, 1024
+   enclave blocks), the six enclave ops on adversarial words and ragged
+   block counts.  Rows 1 and 4 are the AEAD's cipher pass, one launch
+   that writes the ciphertext and the clamped MAC keys: the batched
+   entry at a window's seal (8 x 16384 words), the MAC keys alone
+   (B = 8) and ragged and unaligned n (1, 15, 17, 37, 5003 at B = 1 and
+   3), shared and per-item keys; the single-message entry at a chunk's
+   seal, ``derive_mac_keys`` and the same ragged n.  Each is timed
+   beside the old composition (glue around the general-coordinate row
+   and block entries, written out here, which are still checked, a
+   wrapping counter included), an empty kernel over the same grid (the
+   launch floor) and the pass with a block split over 4 lanes (a
+   probe).  Then the device kernels of each AEAD call (seal_many,
+   open_many, derive_mac_keys_many, seal, open_, derive_mac_keys),
+   before and after, by torch.profiler: one ChaCha20 kernel each and no
+   glue.  The CW-MAC kernels (2 and 5) write finished tags in one
+   launch; their call (``mac2_batch`` with the keys as strided columns,
+   ``mac2`` with scalar keys) is checked and timed at the window and
+   chunk shapes and at a ragged n, n under one block and n over more
+   than 8 blocks (the ticket path).  Each is timed beside its plain
+   version and its bound: device time per call from a replayed CUDA
+   graph (``ms``, ``plain_ms``) and the eager call's time, which the
+   host's enqueue sets for kernels this small (``eager_ms``);
 3. DelayedFlights (paper §5.2), built through the port's DSL (fluent
    form, fusion off, so its stage list equals the hand-built one), in
    enclave mode over the full 28 M-record stream in 64 KB chunks (1024
@@ -49,8 +62,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    revocation over 64 chunks equal to the static-key run;
 8. the paper's §5.1 chunk-copy experiment: a 100 MB payload on the card
    through the enclave kernel in chunks of 16 KB .. 1 MB, in and in-out,
-   MB/s beside the bound; then kernels 4 and 5 over one 100 MB message
-   (kernel 5's tags called twice: its tickets are zero again after each);
+   MB/s beside the bound; then kernels 4 (the general blocks entry and
+   the cipher pass) and 5 over one 100 MB message (kernel 5's tags
+   called twice: its tickets are zero again after each); then the
+   cipher pass at a window, a chunk and 100 MB with its payload loads
+   always before and always after the rounds (copies of the kernel
+   built for timing, ``[chacha_loads]``) beside the shipped choice;
 9. kernel 7 (causal flash attention forward) against its plain torch
    version, bf16 (within a bound that scales with the values, see
    ``ref.bf16_mismatch``) and f32 (max-abs 2e-5), causal and not, at the
@@ -82,14 +99,15 @@ Phases, each printed on its own line; any failure exits non-zero:
 Every pipeline run of phases 3-7 and the serving run of phase 10 sets the
 kernels' launch counts to 0 just before it and reads them just after: it
 fails unless exactly the kernels of its mode's path on its engine were
-launched (window engine: kernels 1-3 in enclave mode, 1 and 2 in
-encrypted mode; per-chunk engine: kernels 4-6 and 4-5; plain mode none;
-serving: kernels 4, 5 and 7, kernel 7 once per layer in the prefill and
-never in decode).
+launched (window engine: the cipher pass and kernels 2-3 in enclave
+mode, the pass and 2 in encrypted mode; per-chunk engine: the pass and
+kernels 5-6, and the pass and 5; plain mode none; serving: the pass, 5
+and 7, kernel 7 once per layer in the prefill and never in decode).
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 main run of its path: phase 3 for kernels 1-3, phase 7's timed run for
-kernels 4-6, phase 10's serving run for kernel 7), and as the last line
+kernels 4-6, phase 10's serving run for kernel 7; rows 1 and 4 both
+count the cipher pass, each on its own path), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is available.
 
@@ -131,33 +149,37 @@ ENCLAVE_OPS_PER_ROW = 2 * CHACHA_OPS_PER_ROW  # decrypt + re-encrypt
 CWMAC_OPS_PER_WORD = 16                       # 2 limbs x (add, mul, fold)
 
 #: the kernels each engine's path launches in each mode (plain mode
-#: seals nothing): the window engine the per-row kernels 1-3, the
-#: per-chunk oracle engine the shared-key kernels 4-6
+#: seals nothing): the window engine the batched cipher pass (kernel 1's
+#: entry) and kernels 2-3, the per-chunk oracle engine the single-message
+#: cipher pass (kernel 4's: the same entry at B = 1) and kernels 5-6
 KERNELS = {
     "window": {
         "plain": (),
-        "encrypted": ("ss_chacha20_xor_rows", "ss_cwmac_tags"),
-        "enclave": ("ss_chacha20_xor_rows", "ss_cwmac_tags",
+        "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_tags"),
+        "enclave": ("ss_chacha20_cipher_pass", "ss_cwmac_tags",
                     "ss_enclave_map_rows"),
     },
     "chunk": {
         "plain": (),
-        "encrypted": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_tags"),
-        "enclave": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_tags",
+        "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags"),
+        "enclave": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
                     "ss_enclave_map_blocks"),
     },
     # secure LM serving: the prompts are sealed and opened with the scalar
     # AEAD (kernels 4 and 5), the prefill runs kernel 7 in every layer
     "serve": {
-        "encrypted": ("ss_chacha20_xor_blocks", "ss_cwmac_mac_tags",
+        "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
                       "ss_flash_attention_fwd"),
     },
 }
-#: the run whose launch counts go into each kernel's row of the JSON line
+#: the run whose launch counts go into each row of the JSON line (rows
+#: 1 and 4 share the cipher pass's symbol: each takes its own path's)
 LAUNCHES_FROM = {
-    **{sym: "window" for sym in KERNELS["window"]["enclave"]},
-    **{sym: "chunk" for sym in KERNELS["chunk"]["enclave"]},
-    "ss_flash_attention_fwd": "serve",
+    "chacha20_cipher_pass_batch": "window", "cwmac_tags": "window",
+    "enclave_map_rows": "window",
+    "chacha20_cipher_pass_message": "chunk", "cwmac_mac_tags": "chunk",
+    "enclave_map_blocks": "chunk",
+    "flash_attention_fwd": "serve",
 }
 
 RECORDS = 28_000_000        # the paper's DelayedFlights dataset
@@ -206,11 +228,16 @@ def _events_ms(torch, run, calls: int) -> float:
 
 def eager_ms(torch, fn, iters: int) -> float:
     """Mean ms per eager call of ``fn()`` (warm), by CUDA events: for a
-    small kernel this is the host's enqueue time, not the device's."""
+    small kernel this is the host's enqueue time, not the device's.  Each
+    call's result is dropped before the next, as a caller's would be (had
+    they been kept, the allocator would grow its pool inside the timing)."""
+    def calls():
+        for _ in range(iters):
+            fn()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    return _events_ms(torch, lambda: [fn() for _ in range(iters)], iters)
+    return _events_ms(torch, calls, iters)
 
 
 def device_ms(torch, fn, iters: int, reps: int = 5) -> float:
@@ -285,6 +312,284 @@ def time_tag_shapes(torch, row, cases):
     return row
 
 
+# ------------------------------------- the cipher pass (kernels 1 and 4)
+
+
+def pass_work(B: int, n: int, item_keys: bool = False):
+    """(bytes, int32 operations) one cipher pass of B items of n words
+    needs: the payload read and the ciphertext written, the keys, nonces
+    and MAC keys; 20 rounds and the feed-forward of every block, the XOR
+    of every word and the clamp of every MAC key."""
+    blocks = B * (1 + (n + 15) // 16)
+    nbytes = 2 * B * n * 4 + 32 * (B if item_keys else 1) + 12 * B + 16 * B
+    return nbytes, blocks * (10 * 8 * 12 + 16) + B * n + 8 * B
+
+
+def _clamp31(torch, w):
+    return torch.clamp_max(w & 0x7FFFFFFF, 0x7FFFFFFE)
+
+
+# The AEAD's cipher passes as the port composed them before the one-launch
+# entry (written out here for the before/after: glue around the general
+# row and block kernels).
+def old_cipher_pass(torch, key, nonces, payload):
+    """Batched: pad, per-row counters, nonces and keys, the rows kernel,
+    clamp and the copy of the ciphertext back to (B, n)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    from repro_torch.u32 import repeat_rows
+    B, n = payload.shape
+    R = (n + 15) // 16 + 1
+    rows = F.pad(payload, (16, (R - 1) * 16 - n)).reshape(B * R, 16)
+    ctrs = torch.arange(R, dtype=torch.int32, device=payload.device).repeat(B)
+    keys = key if key.dim() == 1 else repeat_rows(key, R)
+    out = chacha_ops.xor_rows(keys, repeat_rows(nonces, R), ctrs, rows)
+    out = out.reshape(B, R, 16)
+    return (_clamp31(torch, out[:, 0, :4]),
+            out[:, 1:, :].reshape(B, -1)[:, :n].contiguous())
+
+
+def old_mac_keys_many(torch, key, nonces):
+    """Batched derivation: B zero rows at counter 0 through the rows
+    kernel, then the clamp."""
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    B = nonces.shape[0]
+    zeros = torch.zeros((B, 16), dtype=torch.int32, device=nonces.device)
+    ctr0 = torch.zeros((B,), dtype=torch.int32, device=nonces.device)
+    return _clamp31(torch, chacha_ops.xor_rows(key, nonces, ctr0,
+                                               zeros)[:, :4])
+
+
+def old_message_pass(torch, key, nonce, words):
+    """One message: [zero block | padded words] through the blocks kernel
+    at counter 0, the clamp and the slice."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    n = words.shape[0]
+    nb = (n + 15) // 16
+    out = chacha_ops.xor_blocks(key, nonce, 0, F.pad(
+        words, (16, nb * 16 - n)).reshape(nb + 1, 16))
+    return _clamp31(torch, out[0, :4]), out[1:].reshape(-1)[:n]
+
+
+def old_mac_keys(torch, key, nonce):
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    zero = torch.zeros((1, 16), dtype=torch.int32, device=nonce.device)
+    return _clamp31(torch, chacha_ops.xor_blocks(key, nonce, 0,
+                                                 zero)[0, :4])
+
+
+def start_probe_build():
+    """nvcc on ``csrc/probes/chacha20_probes.cu`` (the empty kernel over
+    the cipher pass's grid, and the pass with a block over 4 lanes),
+    started beside the library's build -> (process, library path)."""
+    from repro_torch.kernels import build
+    out = build.BUILD_ROOT / f"probes-{build._digest()}"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libchacha20_probes.so"
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib),
+         str(build.CSRC / "probes" / "chacha20_probes.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+class Probes:
+    """The ChaCha20 probes, bound with ctypes; launched on the current
+    stream (inside a graph capture, the capture's)."""
+
+    def __init__(self, torch, proc, lib):
+        import ctypes
+        from repro_torch.kernels.chacha20 import ops as chacha_ops
+        self.log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"chacha20 probes: nvcc failed\n{self.log}")
+        self.torch = torch
+        self.lib = ctypes.CDLL(str(lib))
+        self.lib.ss_probe_empty.argtypes = [ctypes.c_longlong,
+                                            ctypes.c_void_p]
+        self.lib.ss_probe_cipher_pass_4lane.argtypes = \
+            chacha_ops.PASS_KERNEL.argtypes
+        for fn in (self.lib.ss_probe_empty,
+                   self.lib.ss_probe_cipher_pass_4lane):
+            fn.restype = ctypes.c_int
+
+    def _stream(self):
+        return self.torch.cuda.current_stream().cuda_stream
+
+    def _check(self, err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+    def empty(self, blocks: int) -> None:
+        """An empty kernel over the grid of a pass of ``blocks`` blocks."""
+        self._check(self.lib.ss_probe_empty(blocks, self._stream()),
+                    "ss_probe_empty")
+
+    def pass_4lane(self, key, nonces, payload):
+        """The cipher pass with 4 lanes a block -> (mac_keys, ct)."""
+        torch = self.torch
+        B, n = payload.shape
+        mk = torch.empty((B, 4), dtype=torch.int32, device=payload.device)
+        ct = torch.empty_like(payload)
+        self._check(self.lib.ss_probe_cipher_pass_4lane(
+            key.data_ptr(), 8 if key.dim() == 2 else 0, nonces.data_ptr(),
+            payload.data_ptr(), 0, ct.data_ptr(), mk.data_ptr(), B, n,
+            self._stream()), "ss_probe_cipher_pass_4lane")
+        return mk, ct
+
+
+def require_pass_equal(what, got, want):
+    require_equal(f"{what} mac keys", got[0], want[0])
+    if want[1] is not None:
+        require_equal(f"{what} ciphertext", got[1], want[1])
+
+
+def check_pass_shapes(torch, dev, rng, probes, label, shapes):
+    """The batched cipher pass (and the 4-lane probe) against the plain
+    version at ``shapes`` [(B, n)], shared and per-item keys, on an
+    aligned payload and on one that starts a word into its buffer (the
+    word-wise path), and with no payload (the MAC keys alone)."""
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    from repro_torch.kernels.chacha20.ref import cipher_pass_ref
+    from repro_torch.u32 import from_numpy
+    T = lambda a: from_numpy(a, dev)         # noqa: E731
+    for B, n in shapes:
+        nonces = T(u32(rng, (B, 3)))
+        buf = T(u32(rng, B * n + 1))
+        for key in (T(u32(rng, 8)), T(u32(rng, (B, 8)))):
+            for payload in (buf[:B * n].reshape(B, n),
+                            buf[1:].reshape(B, n)):
+                want = cipher_pass_ref(key, nonces, payload)
+                what = f"cipher pass {label} {B}x{n} keys={tuple(key.shape)}"
+                require_pass_equal(what, chacha_ops.cipher_pass(
+                    key, nonces, payload), want)
+                require_pass_equal(f"{what} 4-lane probe",
+                                   probes.pass_4lane(key, nonces, payload),
+                                   want)
+            require_pass_equal(f"{what} no payload", chacha_ops.cipher_pass(
+                key, nonces), (want[0], None))
+    phase("cipher_pass_shapes", job=label, bit_equal=True,
+          shapes=",".join(f"{B}x{n}" for B, n in shapes),
+          keys="shared,per_item", layouts="aligned,word_offset")
+
+
+def time_cipher_pass(torch, row, run, plain, old, four_lane, probes,
+                     B, n, item_keys, **shown):
+    """Time one whole cipher pass (``run``) beside its plain version, its
+    bound, the old composition (``old``: glue + the general-coordinate
+    kernel), the 4-lane probe and an empty kernel over the same grid (the
+    launch floor); fill ``row`` and print the lines."""
+    nbytes, ops = pass_work(B, n, item_keys)
+    timed_row(torch, row, run, plain, nbytes, ops, **shown)
+    blocks = B * (1 + (n + 15) // 16)
+    more = dict(
+        old_ms=device_ms(torch, old, 50), old_eager_ms=eager_ms(torch, old,
+                                                                200),
+        empty_kernel_ms=device_ms(torch, lambda: probes.empty(blocks), 50),
+        empty_kernel_eager_ms=eager_ms(torch, lambda: probes.empty(blocks),
+                                       200),
+        lanes4_ms=device_ms(torch, four_lane, 50))
+    row.update(more)
+    phase("cipher_pass", name=row["name"], blocks=blocks, ms=row["ms"],
+          eager_ms=row["eager_ms"], bound_ms=row["bound_ms"], **more,
+          old_over_new=more["old_ms"] / row["ms"],
+          new_over_empty=row["ms"] / more["empty_kernel_ms"])
+    return row
+
+
+def device_kernels(torch, fn):
+    """Names of the kernels one warm call of ``fn()`` runs on the card,
+    from torch.profiler's device-side events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _short(name: str) -> str:
+    """A device kernel's name without its namespaces and arguments."""
+    for noise in ("(anonymous namespace)::", "at::native::", "void "):
+        name = name.replace(noise, "")
+    return name.split("(")[0][:72]
+
+
+def phase_aead_kernels(torch, dev, rng):
+    """Device kernels per AEAD call, before (the old composition, written
+    out above) and after, with torch.profiler at the main paths' shapes:
+    a window (8 x 16384 words) for the batched calls, a 64 KB chunk for
+    the scalar ones; the eager host ms of each whole call, both ways.
+    Fails unless each call runs exactly one ChaCha20 kernel and nothing
+    but it, its MAC's kernel and (for the opens) the verdict's compare
+    and reduce, or if before and after differ in a bit."""
+    from repro_torch.crypto import aead
+    from repro_torch.kernels.cwmac import ops as cwmac_ops
+    from repro_torch.u32 import from_numpy
+    T = lambda a: from_numpy(a, dev)         # noqa: E731
+    B, n = WINDOW, CHUNK_RECORDS * 16
+    key, nonces, words = T(u32(rng, 8)), T(u32(rng, (B, 3))), T(u32(
+        rng, (B, n)))
+    ct, tags = aead.seal_many(key, nonces, words)
+    ct1, tag1 = aead.seal(key, nonces[0], words[0])
+
+    def old_seal_many():
+        mk, c = old_cipher_pass(torch, key, nonces, words)
+        return c, cwmac_ops.mac2_batch(c, *(mk[:, i] for i in range(4)))
+
+    def old_open_many():
+        mk, p = old_cipher_pass(torch, key, nonces, ct)
+        want = cwmac_ops.mac2_batch(ct, *(mk[:, i] for i in range(4)))
+        return p, (want == tags).all(dim=-1)
+
+    def old_seal():
+        mk, c = old_message_pass(torch, key, nonces[0], words[0])
+        return c, cwmac_ops.mac2(c, *mk)
+
+    def old_open():
+        mk, p = old_message_pass(torch, key, nonces[0], ct1)
+        return p, (cwmac_ops.mac2(ct1, *mk) == tag1).all()
+    calls = {   # name: (new, old, kernels besides ChaCha20 and the MAC's)
+        "seal_many": (lambda: aead.seal_many(key, nonces, words),
+                      old_seal_many, 0),
+        "open_many": (lambda: aead.open_many(key, nonces, ct, tags),
+                      old_open_many, 2),
+        "derive_mac_keys_many": (
+            lambda: aead.derive_mac_keys_many(key, nonces),
+            lambda: old_mac_keys_many(torch, key, nonces), 0),
+        "seal": (lambda: aead.seal(key, nonces[0], words[0]), old_seal, 0),
+        "open_": (lambda: aead.open_(key, nonces[0], ct1, tag1), old_open,
+                  2),
+        "derive_mac_keys": (
+            lambda: aead.derive_mac_keys(key, nonces[0]),
+            lambda: tuple(old_mac_keys(torch, key, nonces[0])), 0),
+    }
+    out = {}
+    for name, (new, old, verdict) in calls.items():
+        got, was = new(), old()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        was if isinstance(was, tuple) else (was,),
+                        strict=True):
+            require_equal(f"{name}: new vs old composition", g, w)
+        after, before = device_kernels(torch, new), device_kernels(torch, old)
+        cha = sum("chacha20" in k for k in after)
+        other = [k for k in after if "chacha20" not in k and "cwmac" not in k]
+        out[name] = dict(kernels=len(after), kernels_before=len(before),
+                         eager_ms=eager_ms(torch, new, 100),
+                         eager_ms_before=eager_ms(torch, old, 100))
+        phase("aead_kernels", call=name, **out[name], chacha20=cha,
+              after="|".join(_short(k) for k in after),
+              before="|".join(_short(k) for k in before))
+        if cha != 1 or len(other) > verdict:
+            raise AssertionError(f"{name}: expected one ChaCha20 kernel and "
+                                 f"no glue around it, ran {after}")
+    return out
+
+
 def phase_card_and_build(torch):
     from repro_torch.kernels import build
     smi = subprocess.run(
@@ -293,11 +598,14 @@ def phase_card_and_build(torch):
         check=True).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
+    probe_build = start_probe_build()        # beside the library's nvccs
     build.library()
     dt = time.perf_counter() - t0
+    probes = Probes(torch, *probe_build)
     phase("build", seconds=round(dt, 3),
-          built=build.build_seconds is not None, nvcc_flags=" ".join(
-              build.NVCC_FLAGS))
+          built=build.build_seconds is not None,
+          with_probes_s=round(time.perf_counter() - t0, 3),
+          nvcc_flags=" ".join(build.NVCC_FLAGS))
     for k in build.ptxas_kernels(build.ptxas_report()):
         phase("ptxas", kernel=k["name"], registers=k["registers"],
               spill_stores=k["spill_stores"], spill_loads=k["spill_loads"])
@@ -312,13 +620,19 @@ def phase_card_and_build(torch):
         phase("sass", kernel=m["name"], alu=m["alu"], fma=m["fma"],
               uniform=m["uniform"], mem=m["mem"], control=m["control"],
               loops=m["loops"], top=",".join(f"{o}:{n}" for o, n in top))
-    return mixes
+    for k in build.ptxas_kernels(probes.log):
+        if "4lane" in k["name"] or "empty" in k["name"]:
+            phase("ptxas_probe", kernel=k["name"], registers=k["registers"],
+                  spill_stores=k["spill_stores"],
+                  spill_loads=k["spill_loads"])
+    return mixes, probes
 
 
-def phase_kernels(torch, dev):
+def phase_kernels(torch, dev, probes):
     from repro_torch.crypto import cwmac
     from repro_torch.kernels.chacha20 import ops as chacha_ops
-    from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
+    from repro_torch.kernels.chacha20.ref import (chacha20_xor_rows_ref,
+                                                  cipher_pass_ref)
     from repro_torch.kernels.cwmac import ops as cwmac_ops
     from repro_torch.kernels.cwmac.ref import mac_tags_ref
     from repro_torch.kernels.enclave_map import ops as em_ops
@@ -332,44 +646,72 @@ def phase_kernels(torch, dev):
     T = lambda a: from_numpy(a, dev)         # noqa: E731
     rows_out = []
 
-    # ---- ChaCha20 rows: one seal_many of a window (8 x (1 + 1024) rows)
+    # ---- the general-coordinate rows entry (the old composition's): a
+    # window's 8 x (1 + 1024) rows, ragged per-row keys, per-row keys,
+    # the mac-key rows
     R = B * (n_blocks + 1)
     key = T(u32(rng, 8))
     nonces = repeat_rows(T(u32(rng, (B, 3))), n_blocks + 1)
     ctrs = torch.arange(n_blocks + 1, dtype=torch.int32,
                         device=dev).repeat(B)
     data = T(u32(rng, (R, 16)))
-    got = chacha_ops.xor_rows(key, nonces, ctrs, data)
-    want = chacha20_xor_rows_ref(key, nonces, ctrs, data)
-    require_equal("chacha20 shared key", got, want)
-    err = max_abs_err(got, want)
+    require_equal("chacha20 rows shared key",
+                  chacha_ops.xor_rows(key, nonces, ctrs, data),
+                  chacha20_xor_rows_ref(key, nonces, ctrs, data))
+    xor_rows_ms = device_ms(
+        torch, lambda: chacha_ops.xor_rows(key, nonces, ctrs, data), 50)
     Rr = 1037                                # ragged, per-row keys
     args = (T(u32(rng, (Rr, 8))), T(u32(rng, (Rr, 3))), T(u32(rng, Rr)),
             T(u32(rng, (Rr, 16))))
-    require_equal("chacha20 ragged per-row keys",
+    require_equal("chacha20 rows ragged per-row keys",
                   chacha_ops.xor_rows(*args), chacha20_xor_rows_ref(*args))
-    rows_out.append(timed_row(
-        torch, dict(name="chacha20_xor_rows", route="cuda",
-                    source="src/repro_torch/csrc/chacha20.cu",
-                    replaces="src/repro/kernels/chacha20/chacha20.py:37",
-                    symbol="ss_chacha20_xor_rows", max_abs_err=err,
-                    shape=f"R={R} rows x 16 words, shared key"),
-        lambda: chacha_ops.xor_rows(key, nonces, ctrs, data),
-        lambda: chacha20_xor_rows_ref(key, nonces, ctrs, data),
-        R * (64 + 64 + 12 + 4) + 32, R * CHACHA_OPS_PER_ROW,
-        rows=R, ragged_rows=Rr))
-
-    # per-row (mixed-epoch) keys at the same shape, and the mac-key
-    # derivation's launch: B zero rows at counter 0 under per-row keys
     row_keys = repeat_rows(T(u32(rng, (B, 8))), n_blocks + 1)
-    require_equal("chacha20 per-row keys", chacha_ops.xor_rows(
+    require_equal("chacha20 rows per-row keys", chacha_ops.xor_rows(
         row_keys, nonces, ctrs, data), chacha20_xor_rows_ref(
         row_keys, nonces, ctrs, data))
     args = (T(u32(rng, (B, 8))), T(u32(rng, (B, 3))),
             torch.zeros(B, dtype=torch.int32, device=dev),
             torch.zeros((B, 16), dtype=torch.int32, device=dev))
-    require_equal("chacha20 mac-key rows", chacha_ops.xor_rows(*args),
+    require_equal("chacha20 rows mac-key rows", chacha_ops.xor_rows(*args),
                   chacha20_xor_rows_ref(*args))
+
+    # ---- the cipher pass of a window (kernel 1's entry): seal_many's and
+    # open_many's at 8 x 16384 words, the MAC keys alone at B = 8
+    # (derive_mac_keys_many), ragged and unaligned n at B = 1 and 3
+    key, nonces = T(u32(rng, 8)), T(u32(rng, (B, 3)))
+    words = T(u32(rng, (B, n_words)))
+    check_pass_shapes(torch, dev, rng, probes, "window",
+                      [(B, n_words), (B, 0)] + [
+                          (b, n) for b in (1, 3)
+                          for n in (1, 15, 17, 37, 5003)])
+    got = chacha_ops.cipher_pass(key, nonces, words)
+    want = cipher_pass_ref(key, nonces, words)
+    require_pass_equal("cipher pass window", got, want)
+    require_pass_equal("cipher pass window vs old composition", got,
+                       old_cipher_pass(torch, key, nonces, words))
+    require_equal("derive_mac_keys_many vs old composition",
+                  chacha_ops.cipher_pass(key, nonces)[0],
+                  old_mac_keys_many(torch, key, nonces))
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    rows_out.append(time_cipher_pass(
+        torch, dict(name="chacha20_cipher_pass_batch", route="cuda",
+                    source="src/repro_torch/csrc/chacha20.cu",
+                    replaces="src/repro/kernels/chacha20/chacha20.py:37",
+                    symbol="ss_chacha20_cipher_pass", max_abs_err=err,
+                    shape=f"seal_many's cipher pass: {B} x {n_words} words, "
+                          f"shared key -> ct and ({B}, 4) MAC keys",
+                    xor_rows_ms=xor_rows_ms),
+        lambda: chacha_ops.cipher_pass(key, nonces, words),
+        lambda: cipher_pass_ref(key, nonces, words),
+        lambda: old_cipher_pass(torch, key, nonces, words),
+        lambda: probes.pass_4lane(key, nonces, words), probes,
+        B, n_words, False, xor_rows_ms=xor_rows_ms))
+    derive = dict(ms=device_ms(torch, lambda: chacha_ops.cipher_pass(
+        key, nonces), 50), old_ms=device_ms(
+        torch, lambda: old_mac_keys_many(torch, key, nonces), 50),
+        empty_kernel_ms=device_ms(torch, lambda: probes.empty(B), 50))
+    rows_out[-1]["derive_mac_keys_many"] = derive
+    phase("cipher_pass", name="derive_mac_keys_many", blocks=B, **derive)
 
     # ---- CW-MAC: mac2 of a window, 2 keys x 8 rows x 16384 words, the
     # keys as the AEAD holds them (strided columns of (B, 4) rows)
@@ -455,6 +797,7 @@ def phase_kernels(torch, dev):
                   em_ops.enclave_map_rows(*args, **kw),
                   enclave_apply_rows_ref(*args, **kw))
     phase_kernels_stage8_shapes(torch, dev, rng)
+    check_pass_shapes(torch, dev, rng, probes, "stage8", [(B, 4096)])
     return rows_out
 
 
@@ -525,16 +868,19 @@ def phase_kernels_stage8_shapes(torch, dev, rng, chunk_words=4096):
           checked=",".join(checked))
 
 
-def phase_kernels_oracle(torch, dev, rng):
+def phase_kernels_oracle(torch, dev, rng, probes):
     """Kernels 4-6 (the per-chunk engine's) against their plain versions
     at the shapes phase 7 gives them: one 64 KB chunk of 1024 records is
-    1025 cipher blocks (zero block + payload) for the shared-key ChaCha20
-    kernel, 16384 words x 2 keys for the single-message MAC and 1024
-    blocks for the shared-key enclave map; plus a counter that wraps, the
-    six enclave ops on adversarial words, and ragged block counts."""
+    one message of 16384 words (1025 blocks with its MAC-key block) for
+    the single-message cipher pass, 16384 words x 2 keys for the
+    single-message MAC and 1024 blocks for the shared-key enclave map;
+    plus ragged and unaligned messages, a counter that wraps (the
+    general blocks entry), the six enclave ops on adversarial words, and
+    ragged block counts."""
     from repro_torch.crypto import cwmac
     from repro_torch.kernels.chacha20 import ops as chacha_ops
-    from repro_torch.kernels.chacha20.ref import chacha20_xor_blocks_ref
+    from repro_torch.kernels.chacha20.ref import (chacha20_xor_blocks_ref,
+                                                  cipher_pass_ref)
     from repro_torch.kernels.cwmac import ops as cwmac_ops
     from repro_torch.kernels.cwmac.ref import mac_tags_ref
     from repro_torch.kernels.enclave_map import ops as em_ops
@@ -545,25 +891,58 @@ def phase_kernels_oracle(torch, dev, rng):
     n_blocks = CHUNK_RECORDS                 # one 64 KB chunk
     wrap = 2 ** 32 - 3
 
-    # ---- ChaCha20 blocks: the scalar seal/open of one chunk, counter0 0
+    # ---- the general blocks entry (the old composition's): a chunk's
+    # 1025 blocks at counter0 0, a counter that wraps, ragged counts
     N = n_blocks + 1
     key, nonce, data = T(u32(rng, 8)), T(u32(rng, 3)), T(u32(rng, (N, 16)))
     for c0, n in ((0, N), (wrap, N), (5, 37), (wrap, 1)):
         require_equal(f"chacha20 blocks N={n} counter0={c0}",
                       chacha_ops.xor_blocks(key, nonce, c0, data[:n]),
                       chacha20_xor_blocks_ref(key, nonce, c0, data[:n]))
-    err = max_abs_err(chacha_ops.xor_blocks(key, nonce, 0, data),
-                      chacha20_xor_blocks_ref(key, nonce, 0, data))
-    rows_out.append(timed_row(
-        torch, dict(name="chacha20_xor_blocks", route="cuda",
+    xor_blocks_ms = device_ms(
+        torch, lambda: chacha_ops.xor_blocks(key, nonce, 0, data), 50)
+
+    # ---- the cipher pass of one message (kernel 4's entry): the scalar
+    # seal/open of a chunk (16384 words), derive_mac_keys (no payload),
+    # ragged and unaligned messages
+    buf = T(u32(rng, 16384 + 1))
+    for n in (16384, 0, 1, 15, 17, 37, 5003):
+        for words in (buf[:n], buf[1:n + 1]):    # aligned, a word in
+            want = cipher_pass_ref(key, nonce[None], words[None])
+            require_pass_equal(
+                f"cipher pass message n={n} offset={words.storage_offset()}",
+                chacha_ops.cipher_pass_message(key, nonce, words),
+                (want[0][0], want[1][0]))
+    words = buf[:16384]
+    got = chacha_ops.cipher_pass_message(key, nonce, words)
+    want = cipher_pass_ref(key, nonce[None], words[None])
+    require_pass_equal("cipher pass message vs old composition", got,
+                       old_message_pass(torch, key, nonce, words))
+    require_equal("derive_mac_keys vs old composition",
+                  chacha_ops.cipher_pass_message(key, nonce)[0],
+                  old_mac_keys(torch, key, nonce))
+    err = max(max_abs_err(got[0], want[0][0]),
+              max_abs_err(got[1], want[1][0]))
+    phase("cipher_pass_shapes", job="message", bit_equal=True,
+          words="16384,0,1,15,17,37,5003", layouts="aligned,word_offset")
+    rows_out.append(time_cipher_pass(
+        torch, dict(name="chacha20_cipher_pass_message", route="cuda",
                     source="src/repro_torch/csrc/chacha20.cu",
                     replaces="src/repro/kernels/chacha20/chacha20.py:24",
-                    symbol="ss_chacha20_xor_blocks", max_abs_err=err,
-                    shape=f"N={N} blocks x 16 words, shared key, counter0=0"),
-        lambda: chacha_ops.xor_blocks(key, nonce, 0, data),
-        lambda: chacha20_xor_blocks_ref(key, nonce, 0, data),
-        N * 64 * 2 + 32 + 12, N * CHACHA_OPS_PER_ROW,
-        blocks=N, wrapped_counter0=wrap, ragged="37,1"))
+                    symbol="ss_chacha20_cipher_pass", max_abs_err=err,
+                    shape="seal's cipher pass: one message of 16384 words "
+                          "(a 64 KB chunk) -> ct and (4,) MAC keys",
+                    xor_blocks_ms=xor_blocks_ms),
+        lambda: chacha_ops.cipher_pass_message(key, nonce, words),
+        lambda: cipher_pass_ref(key, nonce[None], words[None]),
+        lambda: old_message_pass(torch, key, nonce, words),
+        lambda: probes.pass_4lane(key, nonce[None], words[None]), probes,
+        1, 16384, False, xor_blocks_ms=xor_blocks_ms))
+    derive = dict(ms=device_ms(torch, lambda: chacha_ops.cipher_pass_message(
+        key, nonce), 50), old_ms=device_ms(
+        torch, lambda: old_mac_keys(torch, key, nonce), 50))
+    rows_out[-1]["derive_mac_keys"] = derive
+    phase("cipher_pass", name="derive_mac_keys", blocks=1, **derive)
 
     # ---- CW-MAC, one message: mac2 of one chunk, 16384 words x 2 keys,
     # the keys as (4,) views
@@ -986,6 +1365,60 @@ def phase_oracle(torch, dev, window_results):
     return launches
 
 
+#: the cipher pass with its payload loads always before the rounds
+#: ("early") or always after them ("late"), whatever the call's size:
+#: edits of ``csrc/chacha20.cu``'s one-wave threshold, for timing only
+_ONE_WAVE = "constexpr long long kOneWave = 132 * 1024;"
+CHACHA_LOADS = {"early": "constexpr long long kOneWave = 1LL << 62;",
+                "late": "constexpr long long kOneWave = 0;"}
+
+
+def chacha_loads(torch, runs):
+    """Build CHACHA_LOADS's variants of the ChaCha20 source (one nvcc
+    each, in parallel, into the ignored build directory) and time each
+    of ``runs`` ({case: (call, iterations)}) through them in place of the
+    shipped cipher pass, which chooses by the call's size.
+    -> {variant: {case: [device ms, device ms]}}"""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    src = (build.CSRC / "chacha20.cu").read_text()
+    if src.count(_ONE_WAVE) != 1:
+        raise AssertionError(f"chacha loads: {_ONE_WAVE!r} occurs "
+                             f"{src.count(_ONE_WAVE)} times, not once")
+    out = build.BUILD_ROOT / f"chacha-loads-{build._digest()}"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, line in CHACHA_LOADS.items():
+        (out / f"{name}.cu").write_text(src.replace(_ONE_WAVE, line))
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+             "-shared", "-o", str(out / f"{name}.so"),
+             str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    kernel = chacha_ops.PASS_KERNEL
+    fns = {"shipped": kernel._fn}           # bound by the 100 MB timing
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"chacha loads {name}: nvcc failed\n{log}")
+        fn = ctypes.CDLL(str(out / f"{name}.so")).ss_chacha20_cipher_pass
+        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        fns[name] = fn
+    times = {name: {case: [] for case in runs} for name in fns}
+    try:            # in turns, A B C C B A: a drift shows on both sides
+        for name in [*fns, *reversed(fns)]:
+            kernel._fn = fns[name]
+            for case, (run, iters) in runs.items():
+                times[name][case].append(device_ms(torch, run, iters))
+    finally:
+        kernel._fn = fns["shipped"]
+    phase("chacha_loads", **{f"{v}_{c}_ms": "/".join(f"{x:.6f}" for x in t)
+                             for v, d in times.items() for c, t in d.items()})
+    return times
+
+
 def _wall_ms(torch, fn, iters=3):
     """Mean ms of ``fn()`` to its end on the card, host launches
     included (one warm-up call first)."""
@@ -1006,10 +1439,11 @@ def phase_chunk_copy(torch, dev, mixes):
     ``benchmarks/bench_chunk_copy.py`` does; then kernels 4 and 5 over
     one 100 MB message each.  Every time is beside its bound; kernel 4's
     also beside the issue bound of its SASS mix (``mixes``, phase 1).
-    -> {kernel symbol: extra numbers for the kernels line}."""
+    -> {row name: extra numbers for the kernels line}."""
     from repro_torch.crypto import cwmac
     from repro_torch.kernels.chacha20 import ops as chacha_ops
-    from repro_torch.kernels.chacha20.ref import chacha20_xor_blocks_ref
+    from repro_torch.kernels.chacha20.ref import (chacha20_xor_blocks_ref,
+                                                  cipher_pass_ref)
     from repro_torch.kernels.cwmac import ops as cwmac_ops
     from repro_torch.kernels.enclave_map import ops as em_ops
     from repro_torch.kernels.enclave_map.ref import enclave_apply_ref
@@ -1073,17 +1507,48 @@ def phase_chunk_copy(torch, dev, mixes):
     # allocator's fresh 100 MB outputs
     ms = device_ms(torch, run, 5, reps=3)
     b, by = bound(total * 128 + 44, total * CHACHA_OPS_PER_ROW)
-    mix = next(m for m in mixes if "chacha20_xor_blocks" in m["name"])
-    if mix["loops"]:
-        raise AssertionError("chacha20_xor_blocks_kernel has a loop: its "
-                             "static SASS count is not its dynamic one")
+    # the blocks entry at 100 MB (many waves: payload loaded after the
+    # rounds): chacha20_kernel<Blocks, vec, shared key, !early>
+    mix = [m for m in mixes if "chacha20_kernel" in m["name"]
+           and "BlocksELb1ELb1ELb0E" in m["name"]]
+    if len(mix) != 1 or mix[0]["loops"]:
+        raise AssertionError(f"the blocks entry's SASS: want one loop-free "
+                             f"kernel, found {[m['name'] for m in mix]}")
+    mix = mix[0]
     issue = issue_bound_ms(mix, total)
-    k4 = dict(ms_100mb=ms, bound_ms_100mb=b, bound_by_100mb=by,
-              issue_bound_ms_100mb=issue)
     phase("kernel_100mb", name="chacha20_xor_blocks", ms=ms, bound_ms=b,
           bound_by=by, issue_bound_ms=issue, sass_alu=mix["alu"],
           sass_fma=mix["fma"], bit_equal_slices=3)
+    # the same 100 MB as one message through the cipher pass (kernel 4's
+    # entry): payload blocks from counter 1, as above, plus its MAC keys
     flat = data.reshape(-1)
+    mk, ct = chacha_ops.cipher_pass_message(k1, nonce, flat)
+    require_equal("cipher pass 100 MB mac keys", mk, cipher_pass_ref(
+        k1, nonce[None])[0][0])
+    for off in (0, total // 2, total - 16384):
+        require_equal(f"cipher pass 100 MB @ {off}",
+                      ct.reshape(-1, 16)[off:off + 16384],
+                      out[off:off + 16384])
+    del mk, ct
+    pass_ms = device_ms(torch, lambda: chacha_ops.cipher_pass_message(
+        k1, nonce, flat), 5, reps=3)
+    pb, pby = bound(*pass_work(1, flat.numel()))
+    phase("kernel_100mb", name="chacha20_cipher_pass_message", ms=pass_ms,
+          bound_ms=pb, bound_by=pby, xor_blocks_ms=ms,
+          over_xor_blocks=pass_ms / ms, bit_equal_slices=3)
+    # where the payload loads go: before the rounds (calls within a wave:
+    # a window's and a chunk's pass) or after them (100 MB)
+    win, nonces8 = words(WINDOW, CHUNK_RECORDS * 16), words(WINDOW, 3)
+    chunk = win[0]
+    loads = chacha_loads(torch, {
+        "window": (lambda: chacha_ops.cipher_pass(k1, nonces8, win), 50),
+        "chunk": (lambda: chacha_ops.cipher_pass_message(k1, nonce, chunk),
+                  50),
+        "100mb": (lambda: chacha_ops.cipher_pass_message(k1, nonce, flat),
+                  5)})
+    k4 = dict(ms_100mb=pass_ms, bound_ms_100mb=pb, bound_by_100mb=pby,
+              xor_blocks_ms_100mb=ms, xor_blocks_bound_ms_100mb=b,
+              xor_blocks_issue_bound_ms_100mb=issue, loads_ms=loads)
     mk = words(4) & 0x3FFFFFFF
     run = lambda: cwmac_ops.mac2(flat, *mk)                  # noqa: E731
     for _ in range(2):             # the ticket path leaves its tickets at 0
@@ -1100,8 +1565,8 @@ def phase_chunk_copy(torch, dev, mixes):
     phase("kernel_100mb", name="cwmac_mac_tags", ms=ms, bound_ms=b,
           bound_by=by, share_of_bound=b / ms, blocks=G, groups_per_thread=m,
           cluster=cluster, tag_equal=True, calls_checked=2)
-    return {"ss_chacha20_xor_blocks": k4, "ss_cwmac_mac_tags": k5,
-            "ss_enclave_map_blocks": {"chunk_copy_100mb": sizes}}
+    return {"chacha20_cipher_pass_message": k4, "cwmac_mac_tags": k5,
+            "enclave_map_blocks": {"chunk_copy_100mb": sizes}}
 
 
 # ------------------------------------------- phases 9 and 10: LM serving
@@ -1555,12 +2020,13 @@ def main() -> int:
     phase("start", torch=torch.__version__, cuda=torch.version.cuda,
           python=sys.version.split()[0],
           device=torch.cuda.get_device_name(0))
-    mixes = phase_card_and_build(torch)
+    mixes, probes = phase_card_and_build(torch)
     kernels = []
     if 2 in phases:
-        kernels = phase_kernels(torch, dev)
+        kernels = phase_kernels(torch, dev, probes)
         kernels += phase_kernels_oracle(torch, dev,
-                                        np.random.default_rng(1))
+                                        np.random.default_rng(1), probes)
+        phase_aead_kernels(torch, dev, np.random.default_rng(2))
     # launches on each engine's main path: the window engine's DelayedFlights
     # run (phase 3) for kernels 1-3, the oracle engine's timed enclave run
     # (phase 7) for kernels 4-6
@@ -1583,9 +2049,9 @@ def main() -> int:
         launches["serve"] = phase_serve(torch, dev)
     for k in kernels:
         sym = k.pop("symbol")
-        run = LAUNCHES_FROM[sym]
+        run = LAUNCHES_FROM[k["name"]]
         k["launches"] = launches[run][sym] if run in launches else None
-        k.update(extra.get(sym, {}))
+        k.update(extra.get(k["name"], {}))
     phase("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,18 @@
 
 Port of ``repro/crypto/aead.py``.  As in ChaCha20-Poly1305, the MAC keys
 (r1, s1, r2, s2) of an item come from its keystream block 0 (counter 0)
-and the payload is encrypted from counter 1.  The scalar :func:`seal` /
-:func:`open_` (the per-chunk oracle engine's) cover one flat message with
-ONE cipher pass over counters 0..N (the shared-key blocks kernel over
-[zero block | padded payload] at counter 0) plus ONE dual-key MAC pass
-(the single-message MAC kernel, both keys in one launch);
-:func:`seal_many` / :func:`open_many` cover a whole (B, n_words) batch
-with ONE row-parallel cipher pass over counters 0..N of every item plus
-ONE dual-key MAC pass.
+and the payload is encrypted from counter 1.  Every cipher pass is ONE
+launch of the cipher-pass kernel (``ss_chacha20_cipher_pass``, through
+:mod:`repro_torch.kernels.chacha20.ops`), which reads the caller's key,
+nonces and words as they are and writes the ciphertext in the words'
+layout and the clamped MAC keys.  The scalar :func:`seal` /
+:func:`open_` (the per-chunk oracle engine's and the serving front's)
+are one cipher launch over counters 0..N of one message plus ONE
+dual-key MAC launch; :func:`seal_many` / :func:`open_many` the same over
+a whole (B, n_words) batch; :func:`derive_mac_keys` /
+:func:`derive_mac_keys_many` the pass with no payload (block 0 alone).
+No padded, zero, counter or per-row copy is built around the kernel,
+where the reference builds them inside its one jitted program.
 
 Backends:
 
@@ -20,9 +24,10 @@ their plain versions for CPU tensors.  The batched path has two backends:
   (:mod:`repro_torch.kernels.chacha20.ops`,
   :mod:`repro_torch.kernels.cwmac.ops`).  For CPU tensors those wrappers
   run their plain versions, so the default works on both devices.
-* ``"torch"`` — the plain torch crypto (:mod:`.chacha20`, :mod:`.cwmac`)
-  directly.  On CUDA tensors this is only ever used when a caller names
-  it (the kernel-vs-plain comparisons).
+* ``"torch"`` — the plain torch crypto (the cipher pass's plain version
+  over :mod:`.chacha20`, and :mod:`.cwmac`) directly.  On CUDA tensors
+  this is only ever used when a caller names it (the kernel-vs-plain
+  comparisons).
 
 Words are int32-carried (:mod:`repro_torch.u32`).  There is no compile
 cache (PyTorch runs eagerly), so the reference's ``fastpath_stats`` has
@@ -39,13 +44,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.crypto import chacha20, cwmac
+from repro_torch.crypto import cwmac
 from repro_torch.kernels.chacha20 import ops as chacha_ops
+from repro_torch.kernels.chacha20.ref import cipher_pass_ref
 from repro_torch.kernels.cwmac import ops as cwmac_ops
 from repro_torch.obs.metrics import REGISTRY as _METRICS
-from repro_torch.u32 import repeat_rows
 
-P31 = 0x7FFFFFFF
 BACKENDS = ("kernel", "torch")
 
 _DISPATCHES = _METRICS.counter("device.dispatches")
@@ -55,29 +59,19 @@ _DISP_MACKEYS = _METRICS.counter("device.dispatches.aead.mac_keys_many")
 _DISP_MAC2 = _METRICS.counter("device.dispatches.aead.mac2_many")
 
 
-def _clamp(w: torch.Tensor) -> torch.Tensor:
-    """MAC key words: low 31 bits, clamped below p (reference ``_clamp``)."""
-    return torch.clamp_max(w & P31, P31 - 1)
-
-
 def derive_mac_keys(key: torch.Tensor, nonce: torch.Tensor
                     ) -> Tuple[torch.Tensor, ...]:
     """(r1, s1, r2, s2) from keystream block 0, clamped below 2^31 - 1:
     key (8,), nonce (3,) -> four () int32 tensors.  One launch of the
-    blocks kernel over one zero block at counter 0."""
-    zero = torch.zeros((1, 16), dtype=torch.int32, device=nonce.device)
-    mk = _clamp(chacha_ops.xor_blocks(key, nonce, 0, zero)[0, :4])
+    cipher pass with no payload (its MAC-key block alone)."""
+    mk, _ = chacha_ops.cipher_pass_message(key, nonce)
     return mk[0], mk[1], mk[2], mk[3]
 
 
 def _fused_stream(key, nonce, words) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (mac keys (4,) clamped, words ^ payload keystream): MAC keys
-    and keystream from ONE cipher pass over counters 0..N."""
-    n = words.shape[0]
-    n_blocks = (n + 15) // 16
-    blocks = F.pad(words, (16, n_blocks * 16 - n)).reshape(n_blocks + 1, 16)
-    out = chacha_ops.xor_blocks(key, nonce, 0, blocks)
-    return _clamp(out[0, :4]), out[1:].reshape(-1)[:n]
+    and ciphertext from ONE cipher launch over counters 0..N."""
+    return chacha_ops.cipher_pass_message(key, nonce, words.contiguous())
 
 
 def _check_message(key, nonce, words, what):
@@ -122,37 +116,13 @@ def _resolve_backend(backend: Optional[str]) -> str:
     return backend
 
 
-def _batch_rows(key, nonces, payload):
-    """Flatten a (B, n) batch into per-block rows covering counters 0..N.
-
-    Row (b, 0) carries zeros (its XOR output is raw keystream block 0,
-    the MAC-key block); rows (b, 1..N) carry the payload blocks, so the
-    whole batch is ONE row-parallel cipher invocation."""
-    B, n = payload.shape
-    n_blocks = (n + 15) // 16
-    R = n_blocks + 1
-    rows = F.pad(payload, (16, n_blocks * 16 - n)).reshape(B * R, 16)
-    counters = torch.arange(R, dtype=torch.int32,
-                            device=payload.device).repeat(B)
-    row_nonces = repeat_rows(nonces, R)
-    row_keys = key if key.dim() == 1 else repeat_rows(key, R)
-    return row_keys, row_nonces, rows, counters
-
-
-def _xor_rows(keys, nonces, counters, rows, backend):
-    if backend == "kernel":
-        return chacha_ops.xor_rows(keys, nonces, counters, rows)
-    return rows ^ chacha20.chacha20_block_rows(keys, nonces, counters)
-
-
 def _cipher_pass(key, nonces, payload, backend):
-    """-> (mac_keys (B, 4) clamped, payload ^ keystream (B, n))."""
-    B, n = payload.shape
-    row_keys, row_nonces, rows, counters = _batch_rows(key, nonces, payload)
-    out = _xor_rows(row_keys, row_nonces, counters, rows, backend)
-    out = out.reshape(B, -1, 16)
-    mk = _clamp(out[:, 0, :4])
-    return mk, out[:, 1:, :].reshape(B, -1)[:, :n].contiguous()
+    """-> (mac_keys (B, 4) clamped, payload ^ keystream (B, n); None
+    without a payload): ONE cipher-pass launch on the kernel backend, its
+    plain version on the torch backend."""
+    if backend == "kernel":
+        return chacha_ops.cipher_pass(key, nonces, payload)
+    return cipher_pass_ref(key, nonces, payload)
 
 
 def _mac2_batch(words, mk, backend):
@@ -196,7 +166,7 @@ def seal_many(key: torch.Tensor, nonces: torch.Tensor, words: torch.Tensor,
     _DISPATCHES.inc()
     _DISP_SEAL.inc()
     mk, ct = _cipher_pass(key.contiguous(), nonces.contiguous(),
-                          words, backend)
+                          words.contiguous(), backend)
     return ct, _mac2_batch(ct, mk, backend)
 
 
@@ -224,20 +194,17 @@ def derive_mac_keys_many(key: torch.Tensor, nonces: torch.Tensor, *,
     from keystream block 0 of each item.
 
     ``key``: (8,) shared or (B, 8) per-item; ``nonces``: (B, 3).  The
-    kernel backend runs the ChaCha20 rows kernel on B zero rows at
-    counter 0 (the reference runs its jnp block function here)."""
+    kernel backend is one launch of the cipher pass with no payload, B
+    blocks at counter 0 (the reference runs its jnp block function
+    here)."""
     backend = _resolve_backend(backend)
     if nonces.dim() != 2 or nonces.shape[1] != 3:
         raise ValueError(f"derive_mac_keys_many expects nonces (B, 3), "
                          f"got {tuple(nonces.shape)}")
     _DISPATCHES.inc()
     _DISP_MACKEYS.inc()
-    B = nonces.shape[0]
-    zeros = torch.zeros((B, 16), dtype=torch.int32, device=nonces.device)
-    ctr0 = torch.zeros((B,), dtype=torch.int32, device=nonces.device)
-    blk = _xor_rows(key.contiguous(), nonces.contiguous(), ctr0, zeros,
-                    backend)
-    return _clamp(blk[:, :4])
+    return _cipher_pass(key.contiguous(), nonces.contiguous(), None,
+                        backend)[0]
 
 
 def mac2_many(words: torch.Tensor, mac_keys: torch.Tensor, *,

@@ -1,10 +1,11 @@
 """ChaCha20 in plain torch (port of ``repro/crypto/chacha20.py``).
 
-The plain version behind the hand-written ``chacha20_xor_rows`` CUDA
-kernel (``repro_torch/csrc/chacha20.cu``): the same per-row block
-function, written on int64-lifted u32 words (every add and rotate is
-masked to 32 bits).  Inputs and outputs are int32-carried words
-(:mod:`repro_torch.u32`).  RFC 7539 vectors are checked in the tests.
+The plain version behind the hand-written ChaCha20 CUDA kernels
+(``repro_torch/csrc/chacha20.cu``: the AEAD's cipher pass and the row and
+block entries): the same per-row block function, written on int64-lifted
+u32 words (every add and rotate is masked to 32 bits).  Inputs and
+outputs are int32-carried words (:mod:`repro_torch.u32`).  RFC 7539
+vectors are checked in the tests.
 """
 from __future__ import annotations
 

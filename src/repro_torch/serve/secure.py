@@ -5,7 +5,8 @@ A client attests the serving enclave (its measurement is allowlisted in
 a :class:`~repro_torch.attest.directory.KeyDirectory`), establishes a
 session key through the quote-checked handshake, and seals its prompts
 (``ingress("encrypted", ...)``: ChaCha20 + CW-MAC, kernels
-``ss_chacha20_xor_blocks`` and ``ss_cwmac_mac_tags`` on the card);
+``ss_chacha20_cipher_pass`` and ``ss_cwmac_mac_tags`` on the card, one
+launch each a seal or open);
 the server opens them (``egress``) and refuses the batch unless the MAC
 verifies.  Prefill and greedy decode then run on the opened tokens
 (:mod:`repro_torch.serve.engine`).

@@ -11,7 +11,8 @@ from repro_torch.crypto import aead, cwmac
 from repro_torch.kernels import build
 from repro_torch.kernels.chacha20 import ops as chacha_ops
 from repro_torch.kernels.chacha20.ref import (chacha20_xor_blocks_ref,
-                                              chacha20_xor_rows_ref)
+                                              chacha20_xor_rows_ref,
+                                              cipher_pass_ref)
 from repro_torch.kernels.cwmac import ops as cwmac_ops
 from repro_torch.kernels.cwmac.ref import mac_tags_ref
 from repro_torch.kernels.enclave_map import ops as em_ops
@@ -141,7 +142,7 @@ def test_pipeline_on_the_card_goes_through_the_kernels(cuda):
     build.reset_launch_counts()
     out = p.run(flight_chunks(4096, 256, seed=1))
     counts = build.launch_counts()
-    assert all(counts[k] > 0 for k in ("ss_chacha20_xor_rows",
+    assert all(counts[k] > 0 for k in ("ss_chacha20_cipher_pass",
                                        "ss_cwmac_tags",
                                        "ss_enclave_map_rows")), counts
     recs = flight_records(4096, seed=1)
@@ -239,7 +240,7 @@ def test_oracle_engine_on_the_card_goes_through_kernels_4_to_6(cuda, mode):
     out = sb.run(flight_chunks(4096, 256, seed=1), mode=mode)
     torch.cuda.synchronize()
     counts = build.launch_counts()
-    want = {"ss_chacha20_xor_blocks", "ss_cwmac_mac_tags"}
+    want = {"ss_chacha20_cipher_pass", "ss_cwmac_mac_tags"}
     if mode == "enclave":
         want.add("ss_enclave_map_blocks")
     assert {k for k, v in counts.items() if v} == want, counts
@@ -270,6 +271,105 @@ def test_failed_build_raises_for_the_oracle_kernels(cuda, monkeypatch):
         monkeypatch.setattr(kernel, "_fn", None)
         with pytest.raises(build.BuildError):
             call()
+
+
+# ------------------------ the AEAD's cipher pass (kernels 1 and 4's entry)
+
+PASS_WORDS = [0, 1, 15, 16, 17, 37, 5003, 16384]
+
+
+@pytest.mark.parametrize("per_item", [False, True])
+@pytest.mark.parametrize("n", PASS_WORDS)
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_cipher_pass_kernel_equals_plain(cuda, B, n, per_item):
+    """One launch a call, bit-equal to the plain version: the window's
+    seal (8 x 16384), ragged and unaligned n, n = 0 (MAC keys alone)."""
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    key = t(_u32((B, 8) if per_item else 8, n + 1))
+    nonces, payload = t(_u32((B, 3), n + 2)), t(_u32((B, n), n + 3))
+    before = chacha_ops.PASS_KERNEL.launches
+    mk, ct = chacha_ops.cipher_pass(key, nonces, payload)
+    want_mk, want_ct = cipher_pass_ref(key, nonces, payload)
+    assert torch.equal(mk, want_mk) and torch.equal(ct, want_ct)
+    mk0, none = chacha_ops.cipher_pass(key, nonces)
+    assert none is None and torch.equal(mk0, want_mk)
+    assert chacha_ops.PASS_KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("n", PASS_WORDS)
+def test_cipher_pass_message_kernel_equals_plain(cuda, n):
+    """The single-message entry, on an aligned message and on one that
+    starts 4 bytes into its buffer (the word-wise path)."""
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    key, nonce, buf = t(_u32(8, n + 4)), t(_u32(3, n + 5)), t(_u32(n + 1,
+                                                                  n + 6))
+    for words in (buf[:n], buf[1:]):
+        mk, ct = chacha_ops.cipher_pass_message(key, nonce, words)
+        want_mk, want_ct = cipher_pass_ref(key, nonce[None], words[None])
+        assert torch.equal(mk, want_mk[0]) and torch.equal(ct, want_ct[0])
+    mk0, none = chacha_ops.cipher_pass_message(key, nonce)
+    assert none is None and torch.equal(mk0, want_mk[0])
+
+
+def test_cipher_pass_message_of_100_mb_equals_plain(cuda):
+    """100 MB under one key: the words at three offsets against the plain
+    blocks version from the same counters (block j at counter j)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    words = torch.randint(-2 ** 31, 2 ** 31, ((100 << 20) // 4,),
+                          dtype=torch.int32, device=cuda, generator=g)
+    key, nonce = from_numpy(_u32(8, 1), cuda), from_numpy(_u32(3, 2), cuda)
+    mk, ct = chacha_ops.cipher_pass_message(key, nonce, words)
+    assert torch.equal(mk, cipher_pass_ref(key, nonce[None])[0][0])
+    blocks = words.reshape(-1, 16)
+    for off in (0, blocks.shape[0] // 2, blocks.shape[0] - 4096):
+        want = chacha20_xor_blocks_ref(key, nonce, 1 + off,
+                                       blocks[off:off + 4096])
+        assert torch.equal(ct.reshape(-1, 16)[off:off + 4096], want), off
+
+
+def _device_kernels(fn):
+    """Names of the kernels ``fn()`` runs on the card (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                    # warm: build, load, pools
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def test_aead_calls_run_one_chacha20_kernel_and_no_glue(cuda):
+    """seal_many, derive_mac_keys_many and the scalar seal each run ONE
+    ChaCha20 kernel on the card, and nothing else but the MAC's kernel:
+    no pad, arange, repeat, zeros, clamp or copy kernel around it."""
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    key, nonces, words = t(_u32(8, 1)), t(_u32((8, 3), 2)), t(_u32(
+        (8, 16384), 3))
+    for what, fn, mac in (
+            ("seal_many", lambda: aead.seal_many(key, nonces, words), 1),
+            ("derive_mac_keys_many",
+             lambda: aead.derive_mac_keys_many(key, nonces), 0),
+            ("seal", lambda: aead.seal(key, nonces[0], words[0]), 1)):
+        names = _device_kernels(fn)
+        assert sum("chacha20" in k for k in names) == 1, (what, names)
+        assert sum("cwmac" in k for k in names) == mac, (what, names)
+        assert len(names) == 1 + mac, (what, names)
+
+
+def test_failed_build_raises_for_the_cipher_pass(cuda, monkeypatch):
+    """No fallback: the cipher pass on a CUDA tensor launches or raises."""
+    def broken():
+        raise build.BuildError("simulated failed build")
+    monkeypatch.setattr(build, "library", broken)
+    monkeypatch.setattr(chacha_ops.PASS_KERNEL, "_fn", None)
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    with pytest.raises(build.BuildError):
+        chacha_ops.cipher_pass(t(_u32(8, 1)), t(_u32((4, 3), 2)),
+                               t(_u32((4, 40), 3)))
+    with pytest.raises(build.BuildError):
+        aead.derive_mac_keys(t(_u32(8, 1)), t(_u32(3, 2)))
 
 
 # ----------------------- kernel 7 (flash attention) and the serving path
