@@ -5,10 +5,10 @@ Phases, each printed on its own line; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, the time to build
    the CUDA kernels from ``src/repro_torch/csrc`` (and, beside them,
-   the ChaCha20 probes of ``csrc/probes``), their ``-Xptxas -v``
-   register and spill lines (no enclave kernel may spill: a spill would
-   put plaintext in device memory), and each kernel's SASS instruction
-   mix by pipe (``cuobjdump -sass``);
+   the ChaCha20 and enclave-map probes of ``csrc/probes``), their
+   ``-Xptxas -v`` register and spill lines (no enclave kernel, probes
+   included, may spill: a spill would put plaintext in device memory),
+   and each kernel's SASS instruction mix by pipe (``cuobjdump -sass``);
 2. each kernel against its plain torch version on the card, bit for bit:
    kernels 1-3 (the window engine's) at the shapes of every window path
    below (DelayedFlights' 1024-record chunks and the 8-stage job's
@@ -33,10 +33,24 @@ Phases, each printed on its own line; any failure exits non-zero:
    launch; their call (``mac2_batch`` with the keys as strided columns,
    ``mac2`` with scalar keys) is checked and timed at the window and
    chunk shapes and at a ragged n, n under one block and n over more
-   than 8 blocks (the ticket path).  Each is timed beside its plain
+   than 8 blocks (the ticket path).  Row 3 is the window engine's enclave
+   hop, one launch over the window's (B, n) words
+   (``ss_enclave_map_window``): checked at B = 1, 3, 8 and n = 16384,
+   4096, 1, 15, 17, 37, 5003, aligned and word-offset, the six ops,
+   shared and per-item keys, with and without outbound nonces, and timed
+   at DelayedFlights' and the 8-stage job's hop beside the old
+   composition (glue around the rows kernel as it was, written out
+   here), an empty kernel over the same grid and the interleaved-
+   keystream probe (``[enclave_window]``); row 6 beside its design
+   before this one and the probe (``[enclave_blocks]``); the general
+   rows entry is still checked.  Each is timed beside its plain
    version and its bound: device time per call from a replayed CUDA
    graph (``ms``, ``plain_ms``) and the eager call's time, which the
-   host's enqueue sets for kernels this small (``eager_ms``);
+   host's enqueue sets for kernels this small (``eager_ms``).  Then the
+   device kernels of one enclave ``run_static_window`` hop, before and
+   after (``[enclave_kernels]``: one enclave kernel, no glue), and one
+   chunk's fold of the reducer before and after: device and eager ms
+   and host syncs (``[reducer]``: none);
 3. DelayedFlights (paper §5.2), built through the port's DSL (fluent
    form, fusion off, so its stage list equals the hand-built one), in
    enclave mode over the full 28 M-record stream in 64 KB chunks (1024
@@ -46,7 +60,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    (``source_h2d_s``) and outside records/s.  The result must equal a
    numpy computation over the same records; then a short run of the
    same job (256 chunks) under torch.profiler gives the device's busy
-   share and the kernels that take its time;
+   share and the kernels that take its time; then the job over 8 M
+   records with the enclave hop and the reducer's fold each in its new
+   or old form, in turns (``[attribution]``: what each change is worth);
 4. the three modes (plain, encrypted, enclave) at 1 M records, each
    built by hand, through the DSL's fluent form (fused) and from the
    TOML spec ``examples/flight_delay.toml``: all equal numpy;
@@ -67,7 +83,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    called twice: its tickets are zero again after each); then the
    cipher pass at a window, a chunk and 100 MB with its payload loads
    always before and always after the rounds (copies of the kernel
-   built for timing, ``[chacha_loads]``) beside the shipped choice;
+   built for timing, ``[chacha_loads]``) beside the shipped choice; then
+   kernel 6 over the 100 MB as one call beside its earlier design, the
+   interleaved probe and its bound;
 9. kernel 7 (causal flash attention forward) against its plain torch
    version, bf16 (within a bound that scales with the values, see
    ``ref.bf16_mismatch``) and f32 (max-abs 2e-5), causal and not, at the
@@ -103,6 +121,8 @@ launched (window engine: the cipher pass and kernels 2-3 in enclave
 mode, the pass and 2 in encrypted mode; per-chunk engine: the pass and
 kernels 5-6, and the pass and 5; plain mode none; serving: the pass, 5
 and 7, kernel 7 once per layer in the prefill and never in decode).
+Kernel 3 is ``ss_enclave_map_window`` there; the rows entry runs on no
+path.
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 main run of its path: phase 3 for kernels 1-3, phase 7's timed run for
@@ -157,7 +177,7 @@ KERNELS = {
         "plain": (),
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_tags"),
         "enclave": ("ss_chacha20_cipher_pass", "ss_cwmac_tags",
-                    "ss_enclave_map_rows"),
+                    "ss_enclave_map_window"),
     },
     "chunk": {
         "plain": (),
@@ -176,11 +196,22 @@ KERNELS = {
 #: 1 and 4 share the cipher pass's symbol: each takes its own path's)
 LAUNCHES_FROM = {
     "chacha20_cipher_pass_batch": "window", "cwmac_tags": "window",
-    "enclave_map_rows": "window",
+    "enclave_map_window": "window",
     "chacha20_cipher_pass_message": "chunk", "cwmac_mac_tags": "chunk",
     "enclave_map_blocks": "chunk",
     "flash_attention_fwd": "serve",
 }
+
+#: the enclave kernels' adversarial plaintext words: NaNs, +-0,
+#: subnormals, squares that underflow, +-inf, words >= 2^31
+SPECIAL_WORDS = np.array([0x7FC00000, 0x7F800001, 0xFFC00001, 0x80000000,
+                          0, 1, 0x00400000, 0x80000001, 0x1FFFFFFF,
+                          0x20000000, 0x7F7FFFFF, 0xFF800000, 0x7F800000,
+                          0x00800000, 0x80000010, 0xFFFFFFFF], np.uint32)
+#: the six enclave ops, each with a constant
+ENCLAVE_CASES = (("identity", 0.0), ("scale_f32", 0.1), ("relu_f32", 0.0),
+                 ("square_f32", 0.0), ("threshold_mask", -0.5),
+                 ("delay_filter_u32", 15.0))
 
 RECORDS = 28_000_000        # the paper's DelayedFlights dataset
 CHUNK_RECORDS = 1024        # 64 KB chunks: the paper's Fig. 4 knee
@@ -379,40 +410,63 @@ def old_mac_keys(torch, key, nonce):
                                                  zero)[0, :4])
 
 
+#: the probe sources of ``csrc/probes``, each built into its own library
+PROBE_SOURCES = ("chacha20_probes", "enclave_map_probes")
+
+
 def start_probe_build():
-    """nvcc on ``csrc/probes/chacha20_probes.cu`` (the empty kernel over
-    the cipher pass's grid, and the pass with a block over 4 lanes),
-    started beside the library's build -> (process, library path)."""
+    """nvcc on each of ``csrc/probes``' sources (the ChaCha20 probes: an
+    empty kernel over the cipher pass's grid, the pass with a block over
+    4 lanes; the enclave-map probes: an empty kernel over the enclave
+    kernel's grid, one thread a block interleaving both keystreams, the
+    kernels before the lane-pair design), all started beside the
+    library's build -> {name: (process, library path)}."""
     from repro_torch.kernels import build
     out = build.BUILD_ROOT / f"probes-{build._digest()}"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libchacha20_probes.so"
-    proc = subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib),
-         str(build.CSRC / "probes" / "chacha20_probes.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, lib
+    procs = {}
+    for name in PROBE_SOURCES:
+        lib = out / f"lib{name}.so"
+        procs[name] = (subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib),
+             str(build.CSRC / "probes" / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return procs
 
 
 class Probes:
-    """The ChaCha20 probes, bound with ctypes; launched on the current
-    stream (inside a graph capture, the capture's)."""
+    """The probes, bound with ctypes; launched on the current stream
+    (inside a graph capture, the capture's)."""
 
-    def __init__(self, torch, proc, lib):
+    def __init__(self, torch, procs):
         import ctypes
         from repro_torch.kernels.chacha20 import ops as chacha_ops
-        self.log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"chacha20 probes: nvcc failed\n{self.log}")
+        from repro_torch.kernels.enclave_map import ops as em_ops
+        self.logs, libs = {}, {}
+        for name, (proc, lib) in procs.items():
+            self.logs[name], _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"{name}: nvcc failed\n"
+                                     f"{self.logs[name]}")
+            libs[name] = ctypes.CDLL(str(lib))
         self.torch = torch
-        self.lib = ctypes.CDLL(str(lib))
-        self.lib.ss_probe_empty.argtypes = [ctypes.c_longlong,
-                                            ctypes.c_void_p]
-        self.lib.ss_probe_cipher_pass_4lane.argtypes = \
-            chacha_ops.PASS_KERNEL.argtypes
-        for fn in (self.lib.ss_probe_empty,
-                   self.lib.ss_probe_cipher_pass_4lane):
-            fn.restype = ctypes.c_int
+        self.lib, self.em = libs["chacha20_probes"], \
+            libs["enclave_map_probes"]
+        binds = (
+            (self.lib.ss_probe_empty, [ctypes.c_longlong, ctypes.c_void_p]),
+            (self.lib.ss_probe_cipher_pass_4lane,
+             chacha_ops.PASS_KERNEL.argtypes),
+            (self.em.ss_probe_enclave_empty,
+             [ctypes.c_longlong, ctypes.c_void_p]),
+            (self.em.ss_probe_enclave_map_window_interleaved,
+             em_ops.WINDOW_KERNEL.argtypes),
+            (self.em.ss_probe_enclave_map_blocks_interleaved,
+             em_ops.BLOCKS_KERNEL.argtypes),
+            (self.em.ss_probe_enclave_map_rows_v1, em_ops.KERNEL.argtypes),
+            (self.em.ss_probe_enclave_map_blocks_v1,
+             em_ops.BLOCKS_KERNEL.argtypes))
+        for fn, argtypes in binds:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
     def _stream(self):
         return self.torch.cuda.current_stream().cuda_stream
@@ -426,6 +480,12 @@ class Probes:
         self._check(self.lib.ss_probe_empty(blocks, self._stream()),
                     "ss_probe_empty")
 
+    def enclave_empty(self, blocks: int) -> None:
+        """An empty kernel over the enclave kernel's grid for ``blocks``
+        blocks (a lane pair each)."""
+        self._check(self.em.ss_probe_enclave_empty(blocks, self._stream()),
+                    "ss_probe_enclave_empty")
+
     def pass_4lane(self, key, nonces, payload):
         """The cipher pass with 4 lanes a block -> (mac_keys, ct)."""
         torch = self.torch
@@ -437,6 +497,70 @@ class Probes:
             payload.data_ptr(), 0, ct.data_ptr(), mk.data_ptr(), B, n,
             self._stream()), "ss_probe_cipher_pass_4lane")
         return mk, ct
+
+    def window_interleaved(self, kin, kout, nonces, words, *, op, const=0.0,
+                           nonces_out=None):
+        """The window entry with one thread a block interleaving both
+        keystreams (arguments of ``em_ops.enclave_map_window``)."""
+        from repro_torch.kernels.enclave_map import ops as em_ops
+        B, n = words.shape
+        out = self.torch.empty_like(words)
+        self._check(self.em.ss_probe_enclave_map_window_interleaved(
+            em_ops.OP_IDS[op], kin.data_ptr(), 8 if kin.dim() == 2 else 0,
+            kout.data_ptr(), 8 if kout.dim() == 2 else 0, nonces.data_ptr(),
+            (nonces if nonces_out is None else nonces_out).data_ptr(),
+            words.data_ptr(), out.data_ptr(), B, n,
+            em_ops.const_bits(const) & 0xFFFFFFFF, _const_int(op, const),
+            self._stream()), "ss_probe_enclave_map_window_interleaved")
+        return out
+
+    def _blocks(self, fn, what, kin, kout, nonce, counter0, blocks, op,
+                const):
+        from repro_torch.kernels.enclave_map import ops as em_ops
+        out = self.torch.empty_like(blocks)
+        self._check(fn(em_ops.OP_IDS[op], kin.data_ptr(), kout.data_ptr(),
+                       nonce.data_ptr(), counter0 & 0xFFFFFFFF,
+                       blocks.data_ptr(), out.data_ptr(), blocks.shape[0],
+                       em_ops.const_bits(const) & 0xFFFFFFFF,
+                       _const_int(op, const), self._stream()), what)
+        return out
+
+    def blocks_interleaved(self, kin, kout, nonce, counter0, blocks, *, op,
+                           const=0.0):
+        """Kernel 6 with one thread a block interleaving both keystreams
+        (arguments of ``em_ops.enclave_map``)."""
+        return self._blocks(self.em.ss_probe_enclave_map_blocks_interleaved,
+                            "ss_probe_enclave_map_blocks_interleaved", kin,
+                            kout, nonce, counter0, blocks, op, const)
+
+    def blocks_v1(self, kin, kout, nonce, counter0, blocks, *, op,
+                  const=0.0):
+        """Kernel 6 as it was before the lane-pair design."""
+        return self._blocks(self.em.ss_probe_enclave_map_blocks_v1,
+                            "ss_probe_enclave_map_blocks_v1", kin, kout,
+                            nonce, counter0, blocks, op, const)
+
+    def rows_v1(self, kin, kout, nonces, counters, rows, *, op, const=0.0,
+                nonces_out=None, counters_out=None):
+        """The rows entry as it was before the lane-pair design (arguments
+        of ``em_ops.enclave_map_rows``)."""
+        from repro_torch.kernels.enclave_map import ops as em_ops
+        out = self.torch.empty_like(rows)
+        self._check(self.em.ss_probe_enclave_map_rows_v1(
+            em_ops.OP_IDS[op], kin.data_ptr(), 8 if kin.dim() == 2 else 0,
+            kout.data_ptr(), 8 if kout.dim() == 2 else 0, nonces.data_ptr(),
+            counters.data_ptr(),
+            (nonces if nonces_out is None else nonces_out).data_ptr(),
+            (counters if counters_out is None else counters_out).data_ptr(),
+            rows.data_ptr(), out.data_ptr(), rows.shape[0],
+            em_ops.const_bits(const) & 0xFFFFFFFF, _const_int(op, const),
+            self._stream()), "ss_probe_enclave_map_rows_v1")
+        return out
+
+
+def _const_int(op, const):
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    return em_ops.const_int(const) if op == "delay_filter_u32" else 0
 
 
 def require_pass_equal(what, got, want):
@@ -590,6 +714,301 @@ def phase_aead_kernels(torch, dev, rng):
     return out
 
 
+# ------------------------------ the enclave hop of a window (kernel 3)
+
+
+def window_work(B: int, n: int, item_keys: bool = False,
+                nonces_out: bool = False):
+    """(bytes, int32 operations) one enclave hop of B items of n words
+    needs: the words read and written, both keys and the nonces; two
+    keystreams and two XORs a block."""
+    nbytes = 2 * B * n * 4 + 2 * 32 * (B if item_keys else 1) \
+        + 12 * B * (2 if nonces_out else 1)
+    return nbytes, B * ((n + 15) // 16) * ENCLAVE_OPS_PER_ROW
+
+
+def old_window_hop(torch, kin, kout, nonces, words, *, op, const=0.0,
+                   nonces_out=None, rows_fn=None):
+    """The window engine's enclave hop as the port composed it before the
+    one-launch entry (written out here for the before/after): pad, per-row
+    nonces, counters and keys, the rows kernel (``rows_fn``, the rows
+    entry by default), the copy back to (B, n)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    from repro_torch.u32 import repeat_rows
+    B, n = words.shape
+    nb = (n + 15) // 16
+    rows = F.pad(words, (0, nb * 16 - n)).reshape(B, nb, 16).reshape(-1, 16)
+    ctrs = torch.arange(1, nb + 1, dtype=torch.int32,
+                        device=words.device).repeat(B)
+    kw = {} if nonces_out is None else dict(
+        nonces_out=repeat_rows(nonces_out, nb))
+    out = (rows_fn or em_ops.enclave_map_rows)(
+        kin if kin.dim() == 1 else repeat_rows(kin, nb),
+        kout if kout.dim() == 1 else repeat_rows(kout, nb),
+        repeat_rows(nonces, nb), ctrs, rows, op=op, const=const, **kw)
+    return out.reshape(B, -1)[:, :n].contiguous()
+
+
+#: the window entry's checks: B items x n words (DelayedFlights' 16384,
+#: the 8-stage job's 4096, ragged n)
+WINDOW_SHAPES = [(B, n) for B in (1, 3, 8)
+                 for n in (16384, 4096, 1, 15, 17, 37, 5003)]
+
+
+def phase_enclave_window(torch, dev, rng, probes, rows):
+    """Kernel 3's entry (``enclave_map_window``) and the interleaved probe
+    against the plain version at WINDOW_SHAPES, aligned payloads and
+    payloads a word into their buffer, the six ops on ciphertext that
+    decrypts to adversarial words, shared and per-item keys, with and
+    without outbound nonces; then timed at DelayedFlights' hop (8 x 16384,
+    delay_filter_u32) and the 8-stage job's (8 x 4096, scale_f32) beside
+    the old composition (with the rows kernel before the lane-pair
+    design), an empty kernel over the same grid and the probe.  ``rows``:
+    the rows entry's times (phase 2).  -> the kernel's row."""
+    from repro_torch.kernels.chacha20.ref import cipher_pass_ref
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    from repro_torch.kernels.enclave_map.ref import enclave_map_window_ref
+    from repro_torch.u32 import from_numpy
+    T = lambda a: from_numpy(a, dev)         # noqa: E731
+    checked = 0
+    for B, n in WINDOW_SHAPES:
+        pt = u32(rng, B * n)
+        pt[1::16] = rng.integers(0, 64, len(pt[1::16]))   # delay words
+        pt[:16] = SPECIAL_WORDS[:B * n]
+        pt = T(pt).view(B, n)
+        nonces, nout = T(u32(rng, (B, 3))), T(u32(rng, (B, 3)))
+        for kin, kout in ((T(u32(rng, 8)), T(u32(rng, 8))),
+                          (T(u32(rng, (B, 8))), T(u32(rng, (B, 8))))):
+            # ciphertext that decrypts to pt, aligned and a word into
+            # its buffer (the word-wise path)
+            ct = cipher_pass_ref(kin, nonces, pt)[1].reshape(-1)
+            store = torch.zeros(B * n + 1, dtype=torch.int32, device=dev)
+            for off in (0, 1):
+                store[off:off + B * n] = ct
+                words = store[off:off + B * n].view(B, n)
+                for op, c in ENCLAVE_CASES:
+                    for no in (None, nout):
+                        kw = dict(op=op, const=c, nonces_out=no)
+                        want = enclave_map_window_ref(kin, kout, nonces,
+                                                      words, **kw)
+                        what = (f"enclave window {B}x{n} offset={off} "
+                                f"keys={tuple(kin.shape)} {op} "
+                                f"nonces_out={no is not None}")
+                        require_equal(what, em_ops.enclave_map_window(
+                            kin, kout, nonces, words, **kw), want)
+                        require_equal(f"{what} interleaved probe",
+                                      probes.window_interleaved(
+                                          kin, kout, nonces, words, **kw),
+                                      want)
+                        checked += 1
+    phase("enclave_window_shapes", bit_equal=True, cases=checked,
+          shapes=",".join(f"{B}x{n}" for B, n in WINDOW_SHAPES),
+          ops=len(ENCLAVE_CASES), keys="shared,per_item",
+          layouts="aligned,word_offset", nonces_out="none,given")
+
+    timed = {}
+    for label, B, n, op, c in (("flights", WINDOW, CHUNK_RECORDS * 16,
+                                "delay_filter_u32", 15.0),
+                               ("stage8", WINDOW, 4096, "scale_f32", 1.0625)):
+        kin, kout, nonces = T(u32(rng, 8)), T(u32(rng, 8)), T(u32(
+            rng, (B, 3)))
+        words = T(u32(rng, (B, n)))
+        kw = dict(op=op, const=c)
+        run = lambda: em_ops.enclave_map_window(  # noqa: E731
+            kin, kout, nonces, words, **kw)
+        plain = lambda: enclave_map_window_ref(  # noqa: E731
+            kin, kout, nonces, words, **kw)
+        old = lambda: old_window_hop(  # noqa: E731
+            torch, kin, kout, nonces, words, rows_fn=probes.rows_v1, **kw)
+        got = run()
+        require_equal(f"enclave window {label}", got, plain())
+        require_equal(f"enclave window {label} vs old composition", got,
+                      old())
+        blocks = B * ((n + 15) // 16)
+        if label == "flights":
+            row = timed_row(
+                torch, dict(name="enclave_map_window", route="cuda",
+                            source="src/repro_torch/csrc/enclave_map.cu",
+                            replaces="src/repro/kernels/enclave_map/"
+                                     "enclave_map.py:84",
+                            symbol="ss_enclave_map_window",
+                            max_abs_err=max_abs_err(got, plain()),
+                            shape=f"the window's enclave hop: {B} x {n} "
+                                  f"words, {op}, shared keys -> ({B}, {n})",
+                            rows_ms=rows["ms"], rows_v1_ms=rows["v1_ms"]),
+                run, plain, *window_work(B, n), blocks=blocks)
+            ms, eager = row["ms"], row["eager_ms"]
+        else:
+            ms, eager = device_ms(torch, run, 50), eager_ms(torch, run, 200)
+        more = dict(
+            ms=ms, eager_ms=eager,
+            bound_ms=bound(*window_work(B, n))[0],
+            old_ms=device_ms(torch, old, 50),
+            old_eager_ms=eager_ms(torch, old, 200),
+            empty_kernel_ms=device_ms(
+                torch, lambda: probes.enclave_empty(blocks), 50),
+            interleaved_ms=device_ms(
+                torch, lambda: probes.window_interleaved(
+                    kin, kout, nonces, words, **kw), 50))
+        timed[label] = more
+        phase("enclave_window", hop=label, items=B, words=n, blocks=blocks,
+              op=op, **more, old_over_new=more["old_ms"] / ms,
+              new_over_empty=ms / more["empty_kernel_ms"])
+    row["hops"] = timed
+    return row
+
+
+def phase_enclave_kernels(torch, dev, rng, probes):
+    """The device kernels of one enclave-mode ``run_static_window`` hop
+    of a DelayedFlights window (8 x 16384 words), after and before (the
+    old composition, written out above, in place of the window entry),
+    by torch.profiler, and the eager host ms of the whole hop both ways.
+    Fails unless the hop runs exactly one enclave kernel and no pad,
+    arange, repeat or copy kernel around it (besides the ChaCha20 and
+    CW-MAC kernels of its MAC check and re-tag, the verdict's compare and
+    reduce and the host->device copies of its keys and nonces), or if
+    before and after differ in a bit."""
+    from repro_torch.core import enclave
+    from repro_torch.crypto.keys import StageKey
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    key_in, key_out = (StageKey(key=u32(rng, 8).view(np.int32), stage_id=i)
+                       for i in (1, 2))
+    xs = [torch.from_numpy(flight_like(rng, CHUNK_RECORDS)).to(dev)
+          for _ in range(WINDOW)]
+    win = enclave.seal_tensors_window(key_in, range(WINDOW), xs)
+    ex = enclave.EnclaveExecutor("enclave", key_in, key_out)
+
+    def hop():
+        return ex.run_static_window("delay_filter_u32", 15.0, win)
+
+    def old_hop():
+        new = em_ops.enclave_map_window
+        em_ops.enclave_map_window = lambda *a, **kw: old_window_hop(
+            torch, *a, rows_fn=probes.rows_v1, **kw)
+        try:
+            return hop()
+        finally:
+            em_ops.enclave_map_window = new
+    (got, ok), (was, ok_was) = hop(), old_hop()
+    require_equal("enclave hop words: new vs old composition", got.words,
+                  was.words)
+    require_equal("enclave hop tags: new vs old composition", got.tags,
+                  was.tags)
+    if not (bool(ok.all()) and bool(ok_was.all())):
+        raise AssertionError("enclave hop: a MAC verdict failed")
+    after, before = device_kernels(torch, hop), device_kernels(torch,
+                                                               old_hop)
+    enc = sum("enclave" in k for k in after)
+    other = [k for k in after if not any(
+        w in k for w in ("enclave", "chacha20", "cwmac", "Memcpy HtoD"))]
+    out = dict(kernels=len(after), kernels_before=len(before),
+               enclave_kernels=enc, eager_ms=eager_ms(torch, hop, 100),
+               eager_ms_before=eager_ms(torch, old_hop, 100))
+    phase("enclave_kernels", hop="run_static_window enclave "
+          f"{WINDOW}x{CHUNK_RECORDS * 16}", **out,
+          after="|".join(_short(k) for k in after),
+          before="|".join(_short(k) for k in before))
+    if enc != 1 or len(other) > 2:
+        raise AssertionError(f"enclave hop: expected one enclave kernel and "
+                             f"no glue around it, ran {after}")
+    return out
+
+
+def flight_like(rng, rows):
+    """(rows, 16) int32-carried DelayedFlights records from ``rng``."""
+    from repro_torch.data.synthetic import flight_records
+    return flight_records(rows, seed=int(rng.integers(1 << 30))).view(
+        np.int32)
+
+
+# -------------------------------------------------- the reducer's fold
+
+
+def old_carrier_fold(torch, num_carriers=20):
+    """``carrier_delay_stats``' fold as the port had it before: one
+    weighted ``bincount`` each for the count and the sum (each sizes its
+    output from a device max: a host sync), every row's carrier."""
+    from repro_torch.u32 import lift
+
+    def fn(acc, chunk):
+        carrier, delay = lift(chunk[:, 0]), lift(chunk[:, 1])
+        valid = (delay > 0).to(torch.float64)
+        acc["count"] = acc["count"] + torch.bincount(
+            carrier, weights=valid, minlength=num_carriers)
+        acc["sum"] = acc["sum"] + torch.bincount(
+            carrier, weights=delay.to(torch.float64) * valid,
+            minlength=num_carriers)
+        return acc
+    return fn
+
+
+def host_syncs(torch, fn):
+    """Host syncs one call of ``fn()`` makes, as CUDA's sync debug mode
+    reports them -> (count, "file:line" of each)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in seen
+             if "called a synchronizing" in str(w.message)]
+    return len(sites), sites
+
+
+def profiled_device_ms(torch, fn, calls: int) -> float:
+    """Device ms per call of ``fn()`` from torch.profiler's device-side
+    events (for calls that sync the host, which a CUDA graph cannot
+    capture)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[1] for r in device_rows(prof)) / 1e3 / calls
+
+
+def phase_reducer(torch, dev, rng):
+    """One chunk's fold of ``carrier_delay_stats`` (1024 DelayedFlights
+    records, into a state that has folded one before) after and before
+    (``old_carrier_fold``): device ms, eager ms and host syncs a fold.
+    Fails unless the two agree or the new fold syncs the host."""
+    from repro_torch.dsl.reducers import resolve_reducer
+    chunk = torch.from_numpy(flight_like(rng, CHUNK_RECORDS)).to(dev)
+    fn, init = resolve_reducer("carrier_delay_stats", device=dev)
+    old = old_carrier_fold(torch)
+
+    def zeros():
+        return {k: torch.zeros_like(v) for k, v in init.items()}
+    got, was = fn.finish(fn(init, chunk)), old(zeros(), chunk)
+    for k in ("count", "sum"):
+        if not torch.equal(got[k], was[k]):
+            raise AssertionError(f"reducer fold: {k} differs from the old "
+                                 f"fold")
+    acc, acc_old = fn(init, chunk), old(zeros(), chunk)
+    syncs, sites = host_syncs(torch, lambda: fn(acc, chunk))
+    out = dict(
+        syncs=syncs, syncs_before=host_syncs(
+            torch, lambda: old(acc_old, chunk))[0],
+        device_ms=profiled_device_ms(torch, lambda: fn(acc, chunk), 20),
+        device_ms_before=profiled_device_ms(
+            torch, lambda: old(acc_old, chunk), 20),
+        eager_ms=eager_ms(torch, lambda: fn(acc, chunk), 200),
+        eager_ms_before=eager_ms(torch, lambda: old(acc_old, chunk), 200))
+    phase("reducer", fold="carrier_delay_stats", records=CHUNK_RECORDS,
+          **out, sync_sites=",".join(sites) or "none")
+    if out["syncs"] != 0:
+        raise AssertionError(f"reducer fold: {out['syncs']} host syncs a "
+                             f"chunk, expected 0")
+    return out
+
+
 def phase_card_and_build(torch):
     from repro_torch.kernels import build
     smi = subprocess.run(
@@ -601,7 +1020,7 @@ def phase_card_and_build(torch):
     probe_build = start_probe_build()        # beside the library's nvccs
     build.library()
     dt = time.perf_counter() - t0
-    probes = Probes(torch, *probe_build)
+    probes = Probes(torch, probe_build)
     phase("build", seconds=round(dt, 3),
           built=build.build_seconds is not None,
           with_probes_s=round(time.perf_counter() - t0, 3),
@@ -620,11 +1039,22 @@ def phase_card_and_build(torch):
         phase("sass", kernel=m["name"], alu=m["alu"], fma=m["fma"],
               uniform=m["uniform"], mem=m["mem"], control=m["control"],
               loops=m["loops"], top=",".join(f"{o}:{n}" for o, n in top))
-    for k in build.ptxas_kernels(probes.log):
-        if "4lane" in k["name"] or "empty" in k["name"]:
-            phase("ptxas_probe", kernel=k["name"], registers=k["registers"],
-                  spill_stores=k["spill_stores"],
-                  spill_loads=k["spill_loads"])
+    # each probe library also builds the library source it includes: its
+    # own kernels are printed, and no enclave kernel of it may spill
+    for name, log in probes.logs.items():
+        for k in build.ptxas_kernels(log):
+            own = any(w in k["name"] for w in ("4lane", "empty",
+                                               "interleaved", "v1"))
+            if own:
+                phase("ptxas_probe", kernel=k["name"],
+                      registers=k["registers"],
+                      spill_stores=k["spill_stores"],
+                      spill_loads=k["spill_loads"])
+            if (name == "enclave_map_probes" or "enclave" in k["name"]) \
+                    and (k["spill_stores"] != 0 or k["spill_loads"] != 0):
+                raise AssertionError(f"{name}: {k['name']} spills "
+                                     f"registers: plaintext would reach "
+                                     f"device memory")
     return mixes, probes
 
 
@@ -744,58 +1174,51 @@ def phase_kernels(torch, dev, probes):
             (f"{r}x{n}", *tags_case(T(u32(rng, (r, n))), mk[:r]), r * n)
             for r, n in ((3, 5003), (3, 37), (2, 140000))]))
 
-    # ---- enclave map: one enclave hop of a window (8 x 1024 rows)
+    # ---- the general rows entry of the enclave map (off every path; the
+    # window hop's before it had its own entry): a window's 8 x 1024
+    # rows, the six ops on adversarial words, ragged per-row keys with
+    # separate outbound coordinates, per-row keys; beside it the rows
+    # kernel as it was before the lane-pair design (a probe)
     R = B * n_blocks
     kin, kout = T(u32(rng, 8)), T(u32(rng, 8))
     nonces = repeat_rows(T(u32(rng, (B, 3))), n_blocks)
     ctrs = torch.arange(1, n_blocks + 1, dtype=torch.int32,
                         device=dev).repeat(B)
-    special = np.array([0x7FC00000, 0x7F800001, 0xFFC00001, 0x80000000, 0,
-                        1, 0x00400000, 0x80000001, 0x1FFFFFFF, 0x20000000,
-                        0x7F7FFFFF, 0xFF800000, 0x7F800000, 0x00800000,
-                        0x80000010, 0xFFFFFFFF], np.uint32)
     pt = u32(rng, (R, 16))
     pt[:, 1] = rng.integers(0, 64, R)        # delay word near the threshold
-    pt[: len(special)] = special
+    pt[: len(SPECIAL_WORDS)] = SPECIAL_WORDS
     data = T(pt)
-    for op, c in [("identity", 0.0), ("scale_f32", 0.1), ("relu_f32", 0.0),
-                  ("square_f32", 0.0), ("threshold_mask", -0.5),
-                  ("delay_filter_u32", 15.0)]:
-        got = em_ops.enclave_map_rows(kin, kout, nonces, ctrs, data, op=op,
-                                      const=c)
+    for op, c in ENCLAVE_CASES:
         want = enclave_apply_rows_ref(kin, kout, nonces, ctrs, data, op=op,
                                       const=c)
-        require_equal(f"enclave_map {op}", got, want)
+        require_equal(f"enclave_map rows {op}", em_ops.enclave_map_rows(
+            kin, kout, nonces, ctrs, data, op=op, const=c), want)
+        require_equal(f"enclave_map rows v1 probe {op}", probes.rows_v1(
+            kin, kout, nonces, ctrs, data, op=op, const=c), want)
     Rr = 777                                 # ragged, mixed epochs, reseal
     args = (T(u32(rng, (Rr, 8))), T(u32(rng, (Rr, 8))),
             T(u32(rng, (Rr, 3))), T(u32(rng, Rr)), T(u32(rng, (Rr, 16))))
     kw = dict(op="scale_f32", const=-2.5, nonces_out=T(u32(rng, (Rr, 3))),
               counters_out=T(u32(rng, Rr)))
-    require_equal("enclave_map ragged per-row keys + reseal coords",
+    require_equal("enclave_map rows ragged per-row keys + reseal coords",
                   em_ops.enclave_map_rows(*args, **kw),
                   enclave_apply_rows_ref(*args, **kw))
-    kw = dict(op="delay_filter_u32", const=15.0)
-    got = em_ops.enclave_map_rows(kin, kout, nonces, ctrs, data, **kw)
-    err = max_abs_err(got, enclave_apply_rows_ref(kin, kout, nonces, ctrs,
-                                                  data, **kw))
-    rows_out.append(timed_row(
-        torch, dict(name="enclave_map_rows", route="cuda",
-                    source="src/repro_torch/csrc/enclave_map.cu",
-                    replaces="src/repro/kernels/enclave_map/"
-                             "enclave_map.py:84",
-                    symbol="ss_enclave_map_rows", max_abs_err=err,
-                    shape=f"R={R} rows x 16 words, delay_filter_u32"),
-        lambda: em_ops.enclave_map_rows(kin, kout, nonces, ctrs, data, **kw),
-        lambda: enclave_apply_rows_ref(kin, kout, nonces, ctrs, data, **kw),
-        R * (64 + 64 + 2 * (12 + 4)) + 64, R * ENCLAVE_OPS_PER_ROW,
-        rows=R, enclave_ops=6, ragged_rows=Rr))
-    # per-row (mixed-epoch) keys at the same shape, as phase 5 gives them
     kw = dict(op="delay_filter_u32", const=15.0)
     args = (repeat_rows(T(u32(rng, (B, 8))), n_blocks),
             repeat_rows(T(u32(rng, (B, 8))), n_blocks), nonces, ctrs, data)
-    require_equal("enclave_map per-row keys",
+    require_equal("enclave_map rows per-row keys",
                   em_ops.enclave_map_rows(*args, **kw),
                   enclave_apply_rows_ref(*args, **kw))
+    rows = dict(
+        ms=device_ms(torch, lambda: em_ops.enclave_map_rows(
+            kin, kout, nonces, ctrs, data, **kw), 50),
+        v1_ms=device_ms(torch, lambda: probes.rows_v1(
+            kin, kout, nonces, ctrs, data, **kw), 50))
+    phase("enclave_rows", rows=R, bit_equal=True, **rows)
+
+    # ---- kernel 3's entry: the window engine's enclave hop, one launch
+    # over the window's (B, n) words
+    rows_out.append(phase_enclave_window(torch, dev, rng, probes, rows))
     phase_kernels_stage8_shapes(torch, dev, rng)
     check_pass_shapes(torch, dev, rng, probes, "stage8", [(B, 4096)])
     return rows_out
@@ -979,26 +1402,32 @@ def phase_kernels_oracle(torch, dev, rng, probes):
 
     # ---- enclave map blocks: the per-chunk enclave hop, 1024 blocks
     kin, kout = T(u32(rng, 8)), T(u32(rng, 8))
-    special = np.array([0x7FC00000, 0x7F800001, 0xFFC00001, 0x80000000, 0,
-                        1, 0x00400000, 0x80000001, 0x1FFFFFFF, 0x20000000,
-                        0x7F7FFFFF, 0xFF800000, 0x7F800000, 0x00800000,
-                        0x80000010, 0xFFFFFFFF], np.uint32)
     pt = u32(rng, (n_blocks, 16))
     pt[:, 1] = rng.integers(0, 64, n_blocks)  # delay word near threshold
-    pt[: len(special)] = special
+    pt[: len(SPECIAL_WORDS)] = SPECIAL_WORDS
     data = T(pt)
-    for op, c in [("identity", 0.0), ("scale_f32", 0.1), ("relu_f32", 0.0),
-                  ("square_f32", 0.0), ("threshold_mask", -0.5),
-                  ("delay_filter_u32", 15.0)]:
+    for op, c in ENCLAVE_CASES:
         for c0, n in ((1, n_blocks), (wrap, n_blocks), (9, 37)):
-            require_equal(f"enclave_map blocks {op} N={n} counter0={c0}",
-                          em_ops.enclave_map(kin, kout, nonce, c0, data[:n],
-                                             op=op, const=c),
-                          enclave_apply_ref(kin, kout, nonce, c0, data[:n],
-                                            op=op, const=c))
+            what = f"enclave_map blocks {op} N={n} counter0={c0}"
+            args = (kin, kout, nonce, c0, data[:n])
+            want = enclave_apply_ref(*args, op=op, const=c)
+            require_equal(what, em_ops.enclave_map(*args, op=op, const=c),
+                          want)
+            require_equal(f"{what} interleaved probe",
+                          probes.blocks_interleaved(*args, op=op, const=c),
+                          want)
+            require_equal(f"{what} v1 probe",
+                          probes.blocks_v1(*args, op=op, const=c), want)
     kw = dict(op="delay_filter_u32", const=15.0)
     err = max_abs_err(em_ops.enclave_map(kin, kout, nonce, 1, data, **kw),
                       enclave_apply_ref(kin, kout, nonce, 1, data, **kw))
+    more = dict(
+        v1_ms=device_ms(torch, lambda: probes.blocks_v1(
+            kin, kout, nonce, 1, data, **kw), 50),
+        interleaved_ms=device_ms(torch, lambda: probes.blocks_interleaved(
+            kin, kout, nonce, 1, data, **kw), 50),
+        empty_kernel_ms=device_ms(
+            torch, lambda: probes.enclave_empty(n_blocks), 50))
     rows_out.append(timed_row(
         torch, dict(name="enclave_map_blocks", route="cuda",
                     source="src/repro_torch/csrc/enclave_map.cu",
@@ -1011,6 +1440,12 @@ def phase_kernels_oracle(torch, dev, rng, probes):
         lambda: enclave_apply_ref(kin, kout, nonce, 1, data, **kw),
         n_blocks * 64 * 2 + 64 + 12, n_blocks * ENCLAVE_OPS_PER_ROW,
         blocks=n_blocks, enclave_ops=6, wrapped_counter0=wrap, ragged=37))
+    rows_out[-1].update(more)
+    phase("enclave_blocks", blocks=n_blocks, ms=rows_out[-1]["ms"],
+          eager_ms=rows_out[-1]["eager_ms"],
+          bound_ms=rows_out[-1]["bound_ms"], **more,
+          v1_over_new=more["v1_ms"] / rows_out[-1]["ms"],
+          new_over_empty=rows_out[-1]["ms"] / more["empty_kernel_ms"])
     return rows_out
 
 
@@ -1125,6 +1560,61 @@ def phase_delayed_flights(torch, dev, n_records):
     for name, r in rep.items():
         print(f"   report {name}: {json.dumps(r)}", flush=True)
     return launches
+
+
+#: phase 3's attribution: DelayedFlights records of each run
+ATTRIBUTION_RECORDS = 8 * 1024 * 1024
+
+
+def phase_attribution(torch, dev, n_records):
+    """What each of the two changes to DelayedFlights' window engine is
+    worth on its own: the job over ``n_records`` in four forms, the
+    enclave hop as one launch or as the old composition (written out
+    above, with the rows entry in place of the window entry) times the
+    reducer's fold without host syncs or the old ``bincount`` fold, run
+    in turns A B C D D C B A (a drift shows on both sides).  Each result
+    equals numpy.  -> {form: [records/s, records/s]}"""
+    from repro_torch.configs.base import SecureStreamConfig
+    from repro_torch.core.pipeline import Pipeline, Stage
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.dsl.reducers import resolve_reducer
+    from repro_torch.kernels.enclave_map import ops as em_ops
+    from repro_torch.u32 import from_numpy
+    n_chunks = n_records // CHUNK_RECORDS
+    recs = flight_records(n_chunks * CHUNK_RECORDS, seed=1)
+    ref = _numpy_flights(recs)
+    recs_dev = from_numpy(recs, dev)
+    new_hop = em_ops.enclave_map_window
+
+    def old_hop(*a, **kw):
+        return old_window_hop(torch, *a, **kw)
+
+    def pipeline(fold):
+        fn, init = resolve_reducer("carrier_delay_stats", device=dev)
+        if fold == "old":
+            fn = old_carrier_fold(torch)
+        return Pipeline([
+            Stage("sgx_mapper", op="identity"),
+            Stage("sgx_filter", op="delay_filter_u32", const=15),
+            Stage("reducer", op="custom", reduce_fn=fn, reduce_init=init),
+        ], SecureStreamConfig(mode="enclave"), window_chunks=WINDOW,
+            device=dev)
+    forms = [(h, f) for h in ("old", "new") for f in ("old", "new")]
+    rates = {f"hop_{h}_fold_{f}": [] for h, f in forms}
+    try:
+        for hop, fold in [*forms, *reversed(forms)]:
+            em_ops.enclave_map_window = new_hop if hop == "new" else old_hop
+            out, wall = _timed(torch, pipeline(fold),
+                               _chunks(recs_dev, n_chunks))()
+            _check_flights(f"attribution hop={hop} fold={fold}", out, ref)
+            rates[f"hop_{hop}_fold_{fold}"].append(
+                n_chunks * CHUNK_RECORDS / wall)
+    finally:
+        em_ops.enclave_map_window = new_hop
+    phase("attribution", records=n_chunks * CHUNK_RECORDS, order="ABCDDCBA",
+          **{f"{k}_records_per_s": "/".join(f"{r:.1f}" for r in v)
+             for k, v in rates.items()})
+    return rates
 
 
 def device_rows(prof):
@@ -1431,7 +1921,7 @@ def _wall_ms(torch, fn, iters=3):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def phase_chunk_copy(torch, dev, mixes):
+def phase_chunk_copy(torch, dev, mixes, probes):
     """The paper's §5.1 chunk-copy experiment (Fig. 4): a 100 MB payload
     resident on the card crosses the enclave kernel (kernel 6, identity
     op) in chunks of 16 KB .. 1 MB, one way (in) and there and back
@@ -1565,8 +2055,34 @@ def phase_chunk_copy(torch, dev, mixes):
     phase("kernel_100mb", name="cwmac_mac_tags", ms=ms, bound_ms=b,
           bound_by=by, share_of_bound=b / ms, blocks=G, groups_per_thread=m,
           cluster=cluster, tag_equal=True, calls_checked=2)
+    # kernel 6 over the 100 MB payload as one call, beside its design
+    # before the lane pairs and the interleaved probe
+    args = (k1, k2, nonce, 1, data)
+    out = em_ops.enclave_map(*args, op="identity")
+    for off in (0, total // 2, total - 16384):
+        require_equal(f"enclave_map blocks 100 MB @ {off}",
+                      out[off:off + 16384], enclave_apply_ref(
+                          k1, k2, nonce, 1 + off, data[off:off + 16384],
+                          op="identity"))
+    for name, fn in (("v1", probes.blocks_v1),
+                     ("interleaved", probes.blocks_interleaved)):
+        require_equal(f"enclave_map blocks 100 MB {name} probe",
+                      fn(*args, op="identity"), out)
+    del out
+    b, by = bound(total * 128 + 76, total * ENCLAVE_OPS_PER_ROW)
+    k6 = dict(
+        ms_100mb=device_ms(torch, lambda: em_ops.enclave_map(
+            *args, op="identity"), 5, reps=3),
+        v1_ms_100mb=device_ms(torch, lambda: probes.blocks_v1(
+            *args, op="identity"), 5, reps=3),
+        interleaved_ms_100mb=device_ms(
+            torch, lambda: probes.blocks_interleaved(*args, op="identity"),
+            5, reps=3),
+        bound_ms_100mb=b, bound_by_100mb=by)
+    phase("kernel_100mb", name="enclave_map_blocks", **k6,
+          share_of_bound=b / k6["ms_100mb"], bit_equal_slices=3)
     return {"chacha20_cipher_pass_message": k4, "cwmac_mac_tags": k5,
-            "enclave_map_blocks": {"chunk_copy_100mb": sizes}}
+            "enclave_map_blocks": {"chunk_copy_100mb": sizes, **k6}}
 
 
 # ------------------------------------------- phases 9 and 10: LM serving
@@ -2027,6 +2543,8 @@ def main() -> int:
         kernels += phase_kernels_oracle(torch, dev,
                                         np.random.default_rng(1), probes)
         phase_aead_kernels(torch, dev, np.random.default_rng(2))
+        phase_enclave_kernels(torch, dev, np.random.default_rng(3), probes)
+        phase_reducer(torch, dev, np.random.default_rng(4))
     # launches on each engine's main path: the window engine's DelayedFlights
     # run (phase 3) for kernels 1-3, the oracle engine's timed enclave run
     # (phase 7) for kernels 4-6
@@ -2034,6 +2552,7 @@ def main() -> int:
     if 3 in phases:
         launches["window"] = phase_delayed_flights(torch, dev, args.records)
         phase_profile(torch, dev, 256 * CHUNK_RECORDS)
+        phase_attribution(torch, dev, ATTRIBUTION_RECORDS)
     window_results = phase_modes(torch, dev, MODES_RECORDS) \
         if 4 in phases else None
     if 5 in phases:
@@ -2042,7 +2561,8 @@ def main() -> int:
         phase_stage8(torch, dev, 2048)
     if 7 in phases:
         launches["chunk"] = phase_oracle(torch, dev, window_results)
-    extra = phase_chunk_copy(torch, dev, mixes) if 8 in phases else {}
+    extra = phase_chunk_copy(torch, dev, mixes, probes) \
+        if 8 in phases else {}
     if 9 in phases:
         kernels.append(phase_flash(torch, dev))
     if 10 in phases:

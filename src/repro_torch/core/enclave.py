@@ -15,7 +15,7 @@ deployments; they map here to:
 
 Two units of device work.  The window engine moves a
 :class:`SealedWindow` of chunks (``run_window`` / ``run_static_window``,
-batched AEAD and the per-row enclave kernel); MAC verdicts are
+batched AEAD and the window enclave kernel); MAC verdicts are
 **deferred**: the window entry points return a per-row device verdict
 vector without a host sync, and the pipeline syncs once per window.
 Windows straddling a ``rekey_every_n`` flip carry mixed epochs and use
@@ -39,7 +39,7 @@ from repro_torch.crypto.keys import current_epoch as _cur_epoch, \
 from repro_torch.kernels.cwmac import ops as cwmac_ops
 from repro_torch.kernels.enclave_map import ops as enclave_ops
 from repro_torch.obs.metrics import REGISTRY as _METRICS
-from repro_torch.u32 import host_to_device, repeat_rows
+from repro_torch.u32 import host_to_device
 
 # the per-chunk enclave hop MACs ciphertext outside the fused kernel, one
 # mac2 each side; the reference counts those launches at the call sites
@@ -399,9 +399,10 @@ class EnclaveExecutor:
 
         encrypted: ``open_many`` -> the op once across all block rows ->
         ``seal_many`` (2 dispatches).  enclave: batched ciphertext MAC
-        check (mac-key derive + MAC) + one ``enclave_map_rows`` launch
-        (per-row nonce/counter, per-row keys when the window straddles a
-        rekey flip) + re-tag under the outbound keys (5 dispatches);
+        check (mac-key derive + MAC) + one ``enclave_map_window`` launch
+        over the window's (B, n) words (per-item keys when the window
+        straddles a rekey flip) + re-tag under the outbound keys (5
+        dispatches);
         plaintext stays in registers, also on the ``reseal_as`` path,
         where the kernel re-encrypts directly under the fresh
         coordinates."""
@@ -420,29 +421,15 @@ class EnclaveExecutor:
                            epochs=out_epochs), ok
         # enclave: the MAC check on ciphertext happens outside the enclave
         # (ciphertext is public data): one mac-key derivation + one MAC
-        B, n_words = len(win), win.n_words
-        n_blocks = (n_words + 15) // 16
         mk_in = aead.derive_mac_keys_many(keys_in, nonces_in)
         ok = (aead.mac2_many(win.words, mk_in) == win.tags).all(dim=-1)
-        # fused decrypt->op->encrypt over the window's block rows; the
-        # payload keystream of each chunk starts at counter 1
-        rows = _blocks_batch(win.words).reshape(-1, 16)
-        row_nonces = repeat_rows(nonces_in, n_blocks)
-        row_ctrs = torch.arange(1, n_blocks + 1, dtype=torch.int32,
-                                device=rows.device).repeat(B)
-        row_kin = keys_in if keys_in.dim() == 1 \
-            else repeat_rows(keys_in, n_blocks)
-        row_kout = keys_out if keys_out.dim() == 1 \
-            else repeat_rows(keys_out, n_blocks)
-        kw = {}
-        if reseal_as is not None:
-            # re-encrypt under the FRESH coordinates (per-block keystream
-            # counters stay 1..n_blocks: the chunk counter only enters
-            # through the nonce)
-            kw["nonces_out"] = repeat_rows(nonces_out, n_blocks)
-        out_words = enclave_ops.enclave_map_rows(
-            row_kin, row_kout, row_nonces, row_ctrs, rows, op=op,
-            const=const, **kw).reshape(B, -1)[:, :n_words].contiguous()
+        # fused decrypt->op->encrypt over the window's words as they are;
+        # each chunk's payload keystream starts at counter 1.  A
+        # re-execution re-encrypts under the FRESH nonces (the chunk
+        # counter only enters through the nonce)
+        out_words = enclave_ops.enclave_map_window(
+            keys_in, keys_out, nonces_in, win.words, op=op, const=const,
+            nonces_out=None if reseal_as is None else nonces_out)
         mk_out = aead.derive_mac_keys_many(keys_out, nonces_out)
         tags_out = aead.mac2_many(out_words, mk_out)
         return replace(win, words=out_words, tags=tags_out,

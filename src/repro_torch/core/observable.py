@@ -115,8 +115,12 @@ class Observable:
         return self._with(Op("filter", pred))
 
     def reduce(self, fn: Callable[[Any, Chunk, torch.Tensor], Any],
-               init: Any) -> "Observable":
-        return self._with(Op("reduce", fn, init=init))
+               init: Any, finish: Optional[Callable] = None
+               ) -> "Observable":
+        """Fold chunks into ``init``; ``finish(acc)``, when given, maps
+        the terminal state to the emitted value."""
+        return self._with(Op("reduce", fn, init=init,
+                             meta={"finish": finish}))
 
     def window(self, n_chunks: int) -> "Observable":
         return self._with(Op("window", meta={"n": n_chunks}))
@@ -146,6 +150,10 @@ class Observable:
             raise
         if state["reduce_init"]:
             final = state["reduce"]
+            finish = next(o for o in self._ops
+                          if o.kind == "reduce").meta.get("finish")
+            if finish is not None:
+                final = finish(final)
             if on_next is not None:
                 on_next(final)
         if on_complete is not None:

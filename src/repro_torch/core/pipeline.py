@@ -163,6 +163,13 @@ def reset_host_sync_count() -> None:
     _HOST_SYNCS.reset()
 
 
+def _finish(fn: Callable, acc: Any) -> Any:
+    """The terminal reduce value: ``fn.finish(acc)`` when the reducer
+    has one (see ``repro_torch.dsl.reducers``), else ``acc``."""
+    finish = getattr(fn, "finish", None)
+    return acc if finish is None else finish(acc)
+
+
 def _shape_runs(xs: List[torch.Tensor]):
     """Consecutive same-(shape, dtype) runs of a tensor list — each run
     frames as one batched window (ragged tails get their own)."""
@@ -592,7 +599,8 @@ class Pipeline:
                         m.bytes += int(win.n_words) * 4
                     off += len(win)
                 m.seconds += dt + (time.perf_counter() - t0)
-            return reduce_state if reduce_started else None
+            return _finish(st.reduce_fn, reduce_state) \
+                if reduce_started else None
 
         final = None
         for groups, verdicts, dt in self._egress_windows(
@@ -750,7 +758,8 @@ class Pipeline:
                 m.chunks += 1
                 m.bytes += int(chunk.n_words) * 4
                 m.seconds += time.perf_counter() - t0
-            return reduce_state if reduce_started else None
+            return _finish(st.reduce_fn, reduce_state) \
+                if reduce_started else None
 
         final = None
         for chunk in stream:

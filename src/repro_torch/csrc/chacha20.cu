@@ -55,9 +55,6 @@
 
 namespace {
 
-constexpr int kMaxThreads = 128;
-constexpr int kMinThreads = 32;
-constexpr long long kTargetCtas = 2 * 132;   // two CTAs on each H100 SM
 // About one wave of this kernel on an H100 (132 SMs x ~1,024 resident
 // threads at 40-48 registers): a call of at most this many blocks is
 // bound by one thread's latency, a larger one by the card's throughput.
@@ -124,43 +121,6 @@ struct Items {
   }
 };
 
-// Loads and stores name the global space: the pointers reach the kernel
-// through a struct, whose members nvcc would otherwise access as generic
-// addresses (LD/ST, not LDG/STG).  The inputs are read-only for the
-// kernel's life.
-template <bool kVec>
-__device__ __forceinline__ void load_words(const uint32_t* __restrict__ src,
-                                           int words, uint32_t x[16]) {
-  if (kVec) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (4 * q < words) v = __ldg(reinterpret_cast<const uint4*>(src) + q);
-      x[4 * q] = v.x; x[4 * q + 1] = v.y; x[4 * q + 2] = v.z;
-      x[4 * q + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) x[i] = i < words ? __ldg(src + i) : 0u;
-  }
-}
-
-template <bool kVec>
-__device__ __forceinline__ void store_words(uint32_t* __restrict__ dst,
-                                            int words, const uint32_t x[16]) {
-  if (kVec) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (4 * q < words)
-        __stwb(reinterpret_cast<uint4*>(dst) + q, make_uint4(
-            x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      if (i < words) __stwb(dst + i, x[i]);
-  }
-}
-
 __device__ __forceinline__ uint32_t clamp31(uint32_t w) {
   return min(w & 0x7FFFFFFFu, 0x7FFFFFFEu);
 }
@@ -171,7 +131,7 @@ __device__ __forceinline__ uint32_t clamp31(uint32_t w) {
 // call within one wave); otherwise after them, which keeps 8 registers
 // fewer live through the rounds (a call of many waves).
 template <class Coords, bool kVec, bool kShared, bool kEarly>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(ss::kMaxThreads)
 chacha20_kernel(Coords c, const uint32_t* __restrict__ shared_key,
                 long long count) {
   __shared__ uint32_t skey[8];
@@ -187,7 +147,7 @@ chacha20_kernel(Coords c, const uint32_t* __restrict__ shared_key,
     }
 #pragma unroll
     for (int i = 0; i < 3; ++i) n[i] = __ldg(blk.nonce + i);
-    if (kEarly) load_words<kVec>(blk.src, blk.words, x);
+    if (kEarly) ss::load_words<kVec>(blk.src, blk.words, x);
   }
   if (kShared) {
     if (threadIdx.x < 8) skey[threadIdx.x] = __ldg(shared_key + threadIdx.x);
@@ -202,23 +162,17 @@ chacha20_kernel(Coords c, const uint32_t* __restrict__ shared_key,
         clamp31(ks[0]), clamp31(ks[1]), clamp31(ks[2]), clamp31(ks[3])));
     return;
   }
-  if (!kEarly) load_words<kVec>(blk.src, blk.words, x);
+  if (!kEarly) ss::load_words<kVec>(blk.src, blk.words, x);
 #pragma unroll
   for (int i = 0; i < 16; ++i) x[i] ^= ks[i];
-  store_words<kVec>(blk.dst, blk.words, x);
-}
-
-int cta_threads(long long count) {
-  int t = kMaxThreads;
-  while (t > kMinThreads && (count + t - 1) / t < kTargetCtas) t /= 2;
-  return t;
+  ss::store_words<kVec>(blk.dst, blk.words, x);
 }
 
 template <class Coords, bool kVec, bool kShared>
 int launch(const Coords& c, const void* shared_key, long long count,
            void* stream) {
   if (count <= 0) return 0;
-  const int t = cta_threads(count);
+  const int t = ss::cta_threads(count);
   const unsigned grid = (unsigned)((count + t - 1) / t);
   const cudaStream_t s = (cudaStream_t)stream;
   const uint32_t* key = (const uint32_t*)shared_key;

@@ -50,39 +50,56 @@ __device__ __forceinline__ void block(const uint32_t k[8], uint32_t ctr,
   ks[13] = x13 + n[0]; ks[14] = x14 + n[1]; ks[15] = x15 + n[2];
 }
 
-// Row r's cipher coordinates: key (stride 0 = one shared key), nonce,
-// counter.
-__device__ __forceinline__ void load_coords(const uint32_t* __restrict__ keys,
-                                            int key_stride,
-                                            const uint32_t* __restrict__ nonces,
-                                            const uint32_t* __restrict__ ctrs,
-                                            long long r, uint32_t k[8],
-                                            uint32_t n[3], uint32_t& ctr) {
-  const uint32_t* kp = keys + r * key_stride;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) k[i] = kp[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) n[i] = nonces[r * 3 + i];
-  ctr = ctrs[r];
+// CTA size per call: 128 threads down to 32, so that a call of
+// `threads` threads spreads over about two CTAs an SM before any CTA
+// grows (a small call takes more SMs, each with fewer warps).
+constexpr int kMaxThreads = 128;
+constexpr int kMinThreads = 32;
+constexpr long long kTargetCtas = 2 * 132;   // two CTAs on each H100 SM
+
+inline int cta_threads(long long threads) {
+  int t = kMaxThreads;
+  while (t > kMinThreads && (threads + t - 1) / t < kTargetCtas) t /= 2;
+  return t;
 }
 
-// The 16 words of row r, as four 16-byte loads / stores.
-__device__ __forceinline__ void load_row(const uint4* __restrict__ data,
-                                         long long r, uint32_t x[16]) {
+// The `words` (0..16) words of one 64-byte block into x, absent words 0,
+// and back.  kVec: 16-byte aligned words, as uint4 loads and stores.
+// Loads and stores name the global space: the pointers reach the kernels
+// through structs, whose members nvcc would otherwise access as generic
+// addresses (LD/ST, not LDG/STG).  The inputs are read-only for the
+// kernel's life.
+template <bool kVec>
+__device__ __forceinline__ void load_words(const uint32_t* __restrict__ src,
+                                           int words, uint32_t x[16]) {
+  if (kVec) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    uint4 v = data[r * 4 + q];
-    x[4 * q] = v.x; x[4 * q + 1] = v.y; x[4 * q + 2] = v.z;
-    x[4 * q + 3] = v.w;
+    for (int q = 0; q < 4; ++q) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (4 * q < words) v = __ldg(reinterpret_cast<const uint4*>(src) + q);
+      x[4 * q] = v.x; x[4 * q + 1] = v.y; x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) x[i] = i < words ? __ldg(src + i) : 0u;
   }
 }
 
-__device__ __forceinline__ void store_row(uint4* __restrict__ out,
-                                          long long r, const uint32_t x[16]) {
+template <bool kVec>
+__device__ __forceinline__ void store_words(uint32_t* __restrict__ dst,
+                                            int words, const uint32_t x[16]) {
+  if (kVec) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    out[r * 4 + q] = make_uint4(x[4 * q], x[4 * q + 1], x[4 * q + 2],
-                                x[4 * q + 3]);
+    for (int q = 0; q < 4; ++q)
+      if (4 * q < words)
+        __stwb(reinterpret_cast<uint4*>(dst) + q, make_uint4(
+            x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i < words) __stwb(dst + i, x[i]);
+  }
 }
 
 }  // namespace ss

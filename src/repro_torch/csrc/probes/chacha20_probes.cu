@@ -24,7 +24,7 @@ __device__ __forceinline__ uint32_t column_constant(int l) {
 }
 
 template <bool kShared>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(ss::kMaxThreads)
 cipher_pass_4lane_kernel(Items c, const uint32_t* __restrict__ shared_key,
                          long long count) {
   __shared__ uint32_t skey[8];
@@ -75,7 +75,7 @@ cipher_pass_4lane_kernel(Items c, const uint32_t* __restrict__ shared_key,
 
 extern "C" int ss_probe_empty(long long count, void* stream) {
   if (count <= 0) return 0;
-  const int t = cta_threads(count);
+  const int t = ss::cta_threads(count);
   empty_kernel<<<(unsigned)((count + t - 1) / t), t, 0,
                  (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
@@ -93,7 +93,7 @@ extern "C" int ss_probe_cipher_pass_4lane(const void* key, int key_stride,
                 (uint32_t*)mac_keys, n, (uint32_t)(1 + (n + 15) / 16)};
   const long long count = B * c.per_item;
   if (count <= 0) return 0;
-  const int t = cta_threads(4 * count);
+  const int t = ss::cta_threads(4 * count);
   const unsigned grid = (unsigned)((4 * count + t - 1) / t);
   if (key_stride == 0)
     cipher_pass_4lane_kernel<true><<<grid, t, 0, (cudaStream_t)stream>>>(

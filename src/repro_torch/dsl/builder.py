@@ -266,7 +266,8 @@ class StreamBuilder:
                 fn, init = (o.fn, o.init) if o.fn is not None \
                     else resolve_reducer_on(o.meta["reducer"], dev)
                 obs = obs.reduce(lambda acc, c, m, _f=fn: _f(acc, c),
-                                 init=init)
+                                 init=init,
+                                 finish=getattr(fn, "finish", None))
         return obs
 
 

@@ -7,9 +7,10 @@ pipeline's device).  Built-ins:
 
 * ``carrier_delay_stats`` — the paper's DelayedFlights benchmark (§5.2):
   per-carrier delayed-flight counts + delay sums over packed records
-  (word 0 = carrier, word 1 = delay minutes), accumulated in float64 on
-  the device with ``torch.bincount`` (integers below 2^53 add exactly,
-  so the result equals the reference's numpy fold bit for bit).
+  (word 0 = carrier, word 1 = delay minutes), folded in float64 on the
+  device with one ``index_add_`` a chunk into fixed-size bins (integers
+  below 2^53 add exactly in any order, so the result equals the
+  reference's numpy fold bit for bit), without a host sync.
 * ``sum`` — elementwise running sum of chunks (the 8-stage job's fold).
 * ``count`` — number of chunks that reached the sink.
 
@@ -23,7 +24,10 @@ Register your own::
         return fn, init
 
 A factory that takes a ``device`` keyword gets the pipeline's device
-from the DSL compiler (:func:`resolve_reducer_on`).
+from the DSL compiler (:func:`resolve_reducer_on`).  A ``fn`` may carry
+a ``finish(acc) -> result`` attribute: ``Pipeline.run`` (both engines)
+and ``Observable.subscribe`` call it once on the terminal state, so a
+check that needs the host runs once a run instead of once a chunk.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import inspect
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.data.synthetic import CARRIER_WORD, DELAY_WORD
 from repro_torch.u32 import lift
@@ -38,6 +43,10 @@ from repro_torch.u32 import lift
 ReducerFactory = Callable[..., Tuple[Callable, Any]]
 
 REDUCERS: Dict[str, ReducerFactory] = {}
+
+#: carrier_delay_stats' private accumulator (its ``finish`` returns the
+#: reference's ``{"count", "sum"}``)
+BINS = "_bins"
 
 
 def register_reducer(name: str) -> Callable[[ReducerFactory],
@@ -78,19 +87,37 @@ def resolve_reducer_on(name: str, device) -> Tuple[Callable, Any]:
 @register_reducer("carrier_delay_stats")
 def _carrier_delay_stats(num_carriers: int = 20, device="cuda"):
     """Per-carrier delayed count + delay-minute sum (paper §5.2)."""
+    nc = num_carriers
+
     def fn(acc, chunk):
-        carrier = lift(chunk[:, CARRIER_WORD])
-        delay = lift(chunk[:, DELAY_WORD])
-        # rows with delay 0 weigh 0: no boolean mask, so no data-dependent
-        # shape on the device
-        valid = (delay > 0).to(torch.float64)
-        acc["count"] = acc["count"] + torch.bincount(
-            carrier, weights=valid, minlength=num_carriers)
-        acc["sum"] = acc["sum"] + torch.bincount(
-            carrier, weights=delay.to(torch.float64) * valid,
-            minlength=num_carriers)
+        if BINS not in acc:
+            # the first fold: a private accumulator, init left untouched.
+            # Row 0 counts, row 1 sums; bin nc takes the delayed records
+            # whose carrier is out of range, bin nc + 1 the undelayed ones
+            # (the reference folds carrier[delay > 0] only)
+            z = acc["count"].new_zeros(2)
+            acc = {BINS: torch.stack([torch.cat([acc["count"], z]),
+                                      torch.cat([acc["sum"], z])])}
+        carrier = lift(chunk[:, CARRIER_WORD]).clamp_(max=nc)
+        delay = chunk[:, DELAY_WORD]
+        idx = torch.where(delay != 0, carrier, nc + 1)
+        # (2, rows): ones over the u32 delays as float64
+        w = F.pad(torch.remainder(delay.to(torch.float64), 2.0 ** 32)
+                  .unsqueeze(0), (0, 0, 1, 0), value=1.0)
+        acc[BINS].index_add_(1, idx, w)
         return acc
-    zeros = torch.zeros(num_carriers, dtype=torch.float64, device=device)
+
+    def finish(acc):
+        # the reference's fold raises on a delayed carrier >= num_carriers
+        # (its histogram outgrows the accumulator): one host sync a run
+        bins = acc[BINS]
+        bad = int(bins[0, nc])
+        if bad:
+            raise ValueError(f"carrier_delay_stats: {bad} delayed records "
+                             f"carry a carrier >= num_carriers={nc}")
+        return {"count": bins[0, :nc], "sum": bins[1, :nc]}
+    fn.finish = finish
+    zeros = torch.zeros(nc, dtype=torch.float64, device=device)
     return fn, {"count": zeros, "sum": zeros.clone()}
 
 

@@ -18,7 +18,8 @@ from repro_torch.kernels.cwmac.ref import mac_tags_ref
 from repro_torch.kernels.enclave_map import ops as em_ops
 from repro_torch.kernels.enclave_map.enclave_map import OPS
 from repro_torch.kernels.enclave_map.ref import (enclave_apply_ref,
-                                                 enclave_apply_rows_ref)
+                                                 enclave_apply_rows_ref,
+                                                 enclave_map_window_ref)
 from repro_torch.u32 import from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -113,6 +114,39 @@ def test_enclave_kernel_equals_plain_on_adversarial_words(cuda, op):
                                                   const=c)), c
 
 
+@pytest.mark.parametrize("op", list(OPS))
+def test_enclave_window_kernel_equals_plain_on_adversarial_words(cuda, op):
+    """The window hop's entry on ciphertext that decrypts to adversarial
+    words, at the window shapes and ragged n, shared and per-item keys,
+    with and without outbound nonces, on aligned payloads and on payloads
+    a word into their buffer (the word-wise path); one launch a call."""
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    flat = _words(rows=2560).reshape(-1)
+    before, calls = em_ops.WINDOW_KERNEL.launches, 0
+    for B, n in ((8, 4096), (3, 37), (1, 1), (2, 17), (3, 5003), (2, 15)):
+        buf = t(flat[:B * n + 1])
+        nonces, nout = t(_u32((B, 3), n)), t(_u32((B, 3), n + 1))
+        for kin, kout in ((t(_u32(8, 7)), t(_u32(8, 8))),
+                          (t(_u32((B, 8), 9)), t(_u32((B, 8), 10)))):
+            for pt in (buf[:B * n].reshape(B, n), buf[1:].reshape(B, n)):
+                words = cipher_pass_ref(kin, nonces, pt)[1]
+                if pt.storage_offset():      # the same words, unaligned
+                    words = torch.cat([words.new_zeros(1),
+                                       words.reshape(-1)])[1:].view(B, n)
+                for c in (0.0, -2.5, float("nan"), 15.7):
+                    if op == "delay_filter_u32" and not np.isfinite(c):
+                        continue
+                    for no in (None, nout):
+                        kw = dict(op=op, const=c, nonces_out=no)
+                        assert torch.equal(
+                            em_ops.enclave_map_window(kin, kout, nonces,
+                                                      words, **kw),
+                            enclave_map_window_ref(kin, kout, nonces, words,
+                                                   **kw)), (B, n, c)
+                        calls += 1
+    assert em_ops.WINDOW_KERNEL.launches == before + calls
+
+
 @pytest.mark.parametrize("per_item", [False, True])
 def test_seal_open_kernel_backend_equals_plain_backend(cuda, per_item):
     B, n = 8, 16 * 1024 + 5
@@ -144,7 +178,8 @@ def test_pipeline_on_the_card_goes_through_the_kernels(cuda):
     counts = build.launch_counts()
     assert all(counts[k] > 0 for k in ("ss_chacha20_cipher_pass",
                                        "ss_cwmac_tags",
-                                       "ss_enclave_map_rows")), counts
+                                       "ss_enclave_map_window")), counts
+    assert counts["ss_enclave_map_rows"] == 0, counts
     recs = flight_records(4096, seed=1)
     keep = recs[:, 1] > 15
     assert np.array_equal(out["count"].cpu().numpy(), np.bincount(
