@@ -112,17 +112,45 @@ Phases, each printed on its own line; any failure exits non-zero:
    logits and on every layer's cached keys and values, and decode at
    position S against prefill(S+1); two wrong attentions put in the same
    place (no causal mask; each row's diagonal KV tile left out) must
-   fail both limits, which shows the check can fail.
+   fail both limits, which shows the check can fail;
+11. the stream engine's observability and fault tolerance.  (a)
+   DelayedFlights as phase 3 builds it through the DSL, over phase 3's
+   stream, with two workers a stage, ``rekey_every_n=3`` on a
+   ``KeyDirectory(epoch_history=64)``, ``.retry(RetryPolicy(
+   share_timeout_s=0.25))`` and ``.chaos(plan)``: a transient crash, a
+   fatal crash, a stall, a tamper, a dropped verdict and a failed spare
+   enrollment (a revocation of sgx_filter/w1 leaves the fatal crash
+   without a survivor, so a spare is enrolled live), beside the same job
+   without faults: both equal numpy and phase 3's result, every fault
+   fires and leaves its audit footprint once, and the window hop (kernel
+   3, re-encrypting under the fresh outbound nonces) runs once more than
+   fault-free for every launch the audit log shows a fault wasted;
+   ``ft.*`` counters, seconds and records/s.  (b) the 8-stage job
+   (phase 6's, 256 chunks) under ``ChaosPlan.seeded`` for 4 seeds,
+   encrypted and enclave: bit-equal to the fault-free sum and numpy.
+   (c) what observation and ft cost: DelayedFlights at 8 M records bare,
+   with a ``Tracer``, with a ``PipelineMonitor`` behind a
+   ``MetricsServer`` (scraped once over HTTP mid-run, the body validated
+   by ``scripts/check_prometheus.py`` with per-stage series), and with a
+   ``RetryPolicy`` (adaptive cutoff) and an empty ``ChaosPlan``, in
+   turns A B C D D C B A: records/s of each, host syncs per window and
+   dispatches per hop (equal in all four: a gate), and the backups the
+   adaptive cutoff started.  (d) a traced 32-window run exported as
+   Chrome JSON to ``build/phase11_trace.json``: host ms a window by span
+   name beside phase 3's profiled device-busy ms a window (spans are
+   host time; around a launch they measure its enqueue).
 
-Every pipeline run of phases 3-7 and the serving run of phase 10 sets the
-kernels' launch counts to 0 just before it and reads them just after: it
-fails unless exactly the kernels of its mode's path on its engine were
-launched (window engine: the cipher pass and kernels 2-3 in enclave
-mode, the pass and 2 in encrypted mode; per-chunk engine: the pass and
-kernels 5-6, and the pass and 5; plain mode none; serving: the pass, 5
-and 7, kernel 7 once per layer in the prefill and never in decode).
-Kernel 3 is ``ss_enclave_map_window`` there; the rows entry runs on no
-path.
+Every pipeline run of phases 3-7 and 11 and the serving run of phase 10
+sets the kernels' launch counts to 0 just before it and reads them just
+after: it fails unless exactly the kernels of its mode's path on its
+engine were launched (window engine: the cipher pass and kernels 2-3 in
+enclave mode, the pass and 2 in encrypted mode; per-chunk engine: the
+pass and kernels 5-6, and the pass and 5; plain mode none; serving: the
+pass, 5 and 7, kernel 7 once per layer in the prefill and never in
+decode).  Kernel 3 is ``ss_enclave_map_window`` there; the rows entry
+runs on no path.  The fault-tolerant engine (phase 11) is the window
+engine's path: retries, failovers, backups and replays re-execute a
+share through the same kernels, the window hop with ``nonces_out``.
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 main run of its path: phase 3 for kernels 1-3, phase 7's timed run for
@@ -1559,7 +1587,7 @@ def phase_delayed_flights(torch, dev, n_records):
     rep = p.report()
     for name, r in rep.items():
         print(f"   report {name}: {json.dumps(r)}", flush=True)
-    return launches
+    return launches, out
 
 
 #: phase 3's attribution: DelayedFlights records of each run
@@ -1631,7 +1659,8 @@ def device_rows(prof):
 def phase_profile(torch, dev, n_records):
     """Where the time of the enclave-mode job goes: a short steady run
     under torch.profiler — device busy share (kernel time over wall) and
-    the kernels that take it."""
+    the kernels that take it.  -> device-busy ms a window (None when the
+    trace has no device time)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import flight_records
     from repro_torch.u32 import from_numpy
@@ -1652,7 +1681,7 @@ def phase_profile(torch, dev, n_records):
     if not rows:
         phase("profile", device_busy="not measured (no device time in "
               "the trace)", wall_s=round(wall, 3))
-        return
+        return None
     rows.sort(key=lambda r: -r[1])
     phase("profile", records=n_chunks * CHUNK_RECORDS,
           windows=n_chunks // WINDOW, wall_s=round(wall, 4),
@@ -1662,6 +1691,7 @@ def phase_profile(torch, dev, n_records):
     for key, t, count in rows[:12]:
         print(f"   device {t / 1e3:10.3f} ms  {count:7d} calls  {key[:90]}",
               flush=True)
+    return busy / (n_chunks / WINDOW) * 1e3
 
 
 def _timed(torch, p, source, **kw):
@@ -2512,11 +2542,398 @@ def phase_serve_check(torch, cfg, params, prompts):
                                  f"not fail a wrong kernel 7")
 
 
+# ------------------------------------------------------------------ phase 11
+
+#: phase 11a: DelayedFlights as phase 3 builds it, with two workers a
+#: stage, ``rekey_every_n=3`` and one fault of each kind.  Addresses are
+#: (stage, round, worker) of the fault-tolerant engine's rounds (16 chunks
+#: a round with two live workers, 8 with one).  Every crash fires after
+#: its share ran, so each fault costs exactly one more launch of the
+#: window hop than the fault-free run.  Revoking sgx_filter/w1 at chunk
+#: FT_REVOKE_CHUNK leaves the fatal crash of its w0 without a survivor:
+#: the engine enrolls a spare live, and the plan's enrollment failure
+#: hits that admission.
+FT_WORKERS = 2
+FT_REKEY = 3
+FT_REVOKE_CHUNK = 2048
+FT_SHARE_TIMEOUT_S = 0.25             # pinned: injected stalls exceed it
+#: phase 11b: seeds of ChaosPlan.seeded over the 8-stage job
+FT_STAGE8_SEEDS = (0, 1, 2, 3)
+FT_STAGE8_CHUNKS = 256
+#: phase 11c: DelayedFlights records of each form's run, and the chunk at
+#: which form C scrapes its metrics endpoint
+OBS_RECORDS = 8 * 1024 * 1024
+OBS_SCRAPE_CHUNK = 4096
+#: phase 11d: the traced run's windows (as phase 3's profiled run)
+TRACE_WINDOWS = 32
+TRACE_PATH = Path(__file__).resolve().parent / "build" / \
+    "phase11_trace.json"
+
+
+def ft_plan():
+    """Phase 11a's plan: a transient crash, a fatal crash, a stall, a
+    tamper, a dropped verdict and a failed spare enrollment."""
+    from repro_torch.ft import ChaosPlan, FaultSpec
+    return ChaosPlan(faults=[
+        FaultSpec("crash", stage="sgx_mapper", round=3, worker=1,
+                  when="after"),
+        FaultSpec("stall", stage="sgx_mapper", round=40, worker=0,
+                  seconds=0.8),
+        FaultSpec("tamper", stage="sgx_filter", round=7, worker=0, rows=2),
+        FaultSpec("drop_verdict", stage="sgx_mapper", round=90, worker=1),
+        FaultSpec("crash", stage="sgx_filter", round=400, worker=0,
+                  when="after", fatal=True),
+        FaultSpec("enroll_fail"),
+    ])
+
+
+def check_footprint(what, plan, dump):
+    """Every fired fault's audit footprint exactly once, as
+    ``tests/test_chaos.py`` holds the reference to it; raises
+    otherwise.  -> the launches the faults wasted, read from the audit
+    log: a share that ran and whose result was lost to a crash (every
+    crash of these plans fires after its share ran), the slow original
+    of a share a backup replaced, and one launch a replay.  A failover
+    off a worker that is already dead wastes none."""
+    from collections import Counter
+    if plan.pending():
+        raise AssertionError(f"{what}: faults never fired: "
+                             f"{plan.pending()}")
+    fired = {}
+    for kind, stage, rnd, w in plan.events:
+        fired.setdefault(kind, []).append((stage, rnd, w))
+
+    def failed(reason, stage, rnd, w):
+        return [e for e in dump if e["kind"] == "worker_failed"
+                and e.get("reason") == reason and e.get("stage") == stage
+                and e.get("round") == rnd
+                and e.get("worker") == f"{stage}/w{w}"]
+
+    for stage, rnd, w in fired.get("crash", []):
+        follow = [e for e in dump
+                  if e["kind"] in ("share_retried", "share_failover")
+                  and e.get("stage") == stage and e.get("round") == rnd]
+        if len(failed("crash", stage, rnd, w)) != 1 or not follow:
+            raise AssertionError(f"{what}: crash at {(stage, rnd, w)} "
+                                 f"not audited once with its recovery")
+    for stage, rnd, w in fired.get("stall", []):
+        if len(failed("stall", stage, rnd, w)) != 1:
+            raise AssertionError(f"{what}: stall at {(stage, rnd, w)} "
+                                 f"not audited once")
+    for reason, kind in (("mac_failure", "tamper"),
+                         ("verdict_dropped", "drop_verdict")):
+        want = Counter((s, r) for s, r, _ in fired.get(kind, []))
+        got = Counter((e["stage"], e["round"]) for e in dump
+                      if e["kind"] == "window_replayed"
+                      and e.get("reason") == reason)
+        if got != want:
+            raise AssertionError(f"{what}: {kind} replays {dict(got)} != "
+                                 f"fired {dict(want)}")
+    if "enroll_fail" in fired:
+        rejected = [e for e in dump if e["kind"] == "quote_rejected"
+                    and "chaos" in str(e.get("reason"))]
+        if len(rejected) != len(fired["enroll_fail"]):
+            raise AssertionError(f"{what}: enrollment failures not "
+                                 f"audited once")
+    return sum(1 for e in dump
+               if (e["kind"] == "worker_failed" and e["reason"] == "crash")
+               or (e["kind"] == "share_failover"
+                   and e["reason"] == "backup")
+               or e["kind"] == "window_replayed")
+
+
+def ft_counters():
+    from repro_torch.obs.metrics import REGISTRY
+    return {name: int(REGISTRY.counter(f"ft.{name}").value)
+            for name in ("retries", "failovers", "backups", "replays",
+                         "worker_failures", "enroll_failures")}
+
+
+def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
+    """Phase 11a: DelayedFlights under chaos over phase 3's stream (see
+    ``ft_plan``), beside the same job and stream without faults.  Both
+    equal numpy (and phase 3's result when it ran); every fault fired
+    and left its audit footprint once; the launch gate admits the cipher
+    pass and kernels 2 and 3 only; the window hop ran once more than in
+    the fault-free run for every launch the audit log shows a fault
+    wasted (``check_footprint``)."""
+    from repro_torch.attest.directory import KeyDirectory
+    from repro_torch.core.pipeline import Pipeline
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.ft import RetryPolicy
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.u32 import from_numpy
+    n_chunks = n_records // CHUNK_RECORDS
+    recs = flight_records(n_records, seed=1)[:n_chunks * CHUNK_RECORDS]
+    ref = _numpy_flights(recs)
+    recs_dev = from_numpy(recs, dev)
+    n = n_chunks * CHUNK_RECORDS
+    runs = {}
+    for form in ("fault_free", "chaos"):
+        sb = _flights_fluent(dev, workers=FT_WORKERS).fuse(False) \
+            .directory(KeyDirectory(seed=0, epoch_history=64))
+        plan = None
+        if form == "chaos":
+            plan = ft_plan()
+            sb = sb.retry(RetryPolicy(share_timeout_s=FT_SHARE_TIMEOUT_S)) \
+                .chaos(plan)
+        p = sb.build("enclave")
+        revoke = (FT_REVOKE_CHUNK, lambda p=p: p.directory.revoke(
+            Pipeline.worker_id("sgx_filter", 1)))
+        REGISTRY.reset(prefix="ft.")
+        (out, wall), launches = counted_run(
+            torch, f"ft_flights_{form}", "enclave", _timed(
+                torch, p, _chunks(recs_dev, n_chunks, revoke),
+                rekey_every_n=FT_REKEY))
+        _check_flights(f"ft DelayedFlights {form}", out, ref)
+        if faultfree_ref is not None and not (
+                torch.equal(out["count"], faultfree_ref["count"])
+                and torch.equal(out["sum"], faultfree_ref["sum"])):
+            raise AssertionError(f"ft DelayedFlights {form}: differs from "
+                                 f"phase 3's result")
+        runs[form] = (p, plan, wall, launches, ft_counters())
+    p, plan, wall, launches, counters = runs["chaos"]
+    dump = p.directory.audit.dump()
+    reexec = check_footprint("ft DelayedFlights", plan, dump)
+    free_hops = runs["fault_free"][3]["ss_enclave_map_window"]
+    hops = launches["ss_enclave_map_window"]
+    if hops - free_hops != reexec:
+        raise AssertionError(
+            f"ft DelayedFlights: {hops} window-hop launches against "
+            f"{free_hops} fault-free, the audit shows {reexec} "
+            f"re-executions that cost a launch")
+    filt = next(s for s in p.stages if s.name == "sgx_filter")
+    if filt.workers != 3 or not p.directory.is_admitted("sgx_filter/w2"):
+        raise AssertionError("ft DelayedFlights: no spare was enrolled "
+                             "for sgx_filter")
+    free_wall = runs["fault_free"][2]
+    audit = p.directory.audit.summary()
+    phase("ft_flights", mode="enclave", records=n, chunks=n_chunks,
+          workers=FT_WORKERS, rekey_every_n=FT_REKEY,
+          share_timeout_s=FT_SHARE_TIMEOUT_S, faults=len(plan.faults),
+          fired=len(plan.events), pending=len(plan.pending()),
+          equal_numpy=True, equal_phase3=faultfree_ref is not None,
+          footprint_once=True, wall_s=round(wall, 3),
+          records_per_s=round(n / wall, 1),
+          faultfree_wall_s=round(free_wall, 3),
+          faultfree_records_per_s=round(n / free_wall, 1),
+          hop_launches=hops, faultfree_hop_launches=free_hops,
+          reexecutions=reexec, spare="sgx_filter/w2",
+          rekeys=audit.get("rekey", 0),
+          **{f"ft_{k}": v for k, v in counters.items()})
+    print(f"   events {plan.events}", flush=True)
+    return launches
+
+
+def phase_ft_stage8(torch, dev, n_chunks=FT_STAGE8_CHUNKS,
+                    chunk_words=4096):
+    """Phase 11b: the 8-stage scale_f32 job (phase 6's) under
+    ``ChaosPlan.seeded`` for a few seeds, encrypted and enclave: each
+    terminal sum bit-equal to the fault-free run's and numpy's."""
+    from repro_torch.attest.directory import KeyDirectory
+    from repro_torch.configs.base import SecureStreamConfig
+    from repro_torch.core.pipeline import Pipeline, Stage
+    from repro_torch.dsl.reducers import resolve_reducer
+    from repro_torch.ft import ChaosPlan, RetryPolicy
+    consts = [1.0 + 0.0625 * i for i in range(8)]
+    topology = [(f"s{i}", 2 if i == 2 else 1) for i in range(8)]
+    x = np.random.default_rng(7).standard_normal(
+        (n_chunks, chunk_words)).astype(np.float32)
+    y = x
+    for c in consts:
+        y = y * np.float32(c)
+    want = np.cumsum(y, axis=0, dtype=np.float32)[-1].view(np.uint32)
+    x_dev = torch.as_tensor(x, device=dev)
+
+    def pipeline(mode, **kw):
+        fn, init = resolve_reducer("sum")
+        stages = [Stage(f"s{i}", op="scale_f32", const=c,
+                        workers=2 if i == 2 else 1)
+                  for i, c in enumerate(consts)]
+        stages.append(Stage("sum", op="custom", reduce_fn=fn,
+                            reduce_init=init))
+        return Pipeline(stages, SecureStreamConfig(mode=mode),
+                        directory=KeyDirectory(seed=0, epoch_history=64),
+                        window_chunks=WINDOW, device=dev, **kw)
+
+    for mode in ("encrypted", "enclave"):
+        (free, _), _ = counted_run(torch, "ft_stage8_fault_free", mode,
+                                   _timed(torch, pipeline(mode), (
+                                       x_dev[i] for i in range(n_chunks))))
+        free = free.cpu().numpy().view(np.uint32)
+        if not np.array_equal(free, want):
+            raise AssertionError(f"ft 8-stage {mode}: the fault-free sum "
+                                 f"differs from numpy")
+        fired = []
+        for seed in FT_STAGE8_SEEDS:
+            plan = ChaosPlan.seeded(seed, topology, rounds=3, n_faults=3)
+            p = pipeline(mode, retry=RetryPolicy(
+                share_timeout_s=FT_SHARE_TIMEOUT_S), chaos=plan)
+            (out, _), _ = counted_run(
+                torch, f"ft_stage8_seed{seed}", mode, _timed(
+                    torch, p, (x_dev[i] for i in range(n_chunks))))
+            if not np.array_equal(out.cpu().numpy().view(np.uint32), free):
+                raise AssertionError(f"ft 8-stage {mode} seed {seed}: the "
+                                     f"sum differs from the fault-free run")
+            check_footprint(f"ft 8-stage {mode} seed {seed}", plan,
+                            p.directory.audit.dump())
+            fired.append("+".join(e[0] for e in plan.events))
+        phase("ft_stage8", mode=mode, chunks=n_chunks,
+              seeds=",".join(map(str, FT_STAGE8_SEEDS)),
+              faults="/".join(fired), bit_equal_fault_free=True,
+              bit_equal_numpy=True)
+
+
+def phase_observation_cost(torch, dev, n_records):
+    """Phase 11c: DelayedFlights (phase 3's job, one worker a stage) in
+    four forms run in turns A B C D D C B A: A bare, B with a Tracer, C
+    with a PipelineMonitor behind a MetricsServer (scraped once over
+    HTTP mid-run; the body passes ``scripts/check_prometheus.py``'s
+    ``validate`` with a per-stage series), D with a RetryPolicy (its
+    adaptive cutoff) and an empty ChaosPlan.  Each equals numpy; host
+    syncs per window and dispatches per hop are equal across the forms.
+    -> {form: [records/s, ...]}"""
+    import importlib.util
+    import urllib.request
+    from repro_torch.core import pipeline as pipeline_mod
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.ft import ChaosPlan, RetryPolicy
+    from repro_torch.obs import (PipelineMonitor, REGISTRY, Tracer,
+                                 serve_metrics)
+    from repro_torch.u32 import from_numpy
+    spec = importlib.util.spec_from_file_location(
+        "check_prometheus", Path(__file__).resolve().parent / "scripts"
+        / "check_prometheus.py")
+    check_prometheus = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_prometheus)
+    n_chunks = n_records // CHUNK_RECORDS
+    recs = flight_records(n_chunks * CHUNK_RECORDS, seed=1)
+    ref = _numpy_flights(recs)
+    recs_dev = from_numpy(recs, dev)
+    n = n_chunks * CHUNK_RECORDS
+    forms = ("bare", "tracer", "monitor", "ft")
+    rates = {f: [] for f in forms}
+    shape = {}
+    scraped = {}
+    for form in [*forms, *reversed(forms)]:
+        kw, server, policy = {}, None, None
+        if form == "tracer":
+            kw["tracer"] = Tracer()
+        elif form == "monitor":
+            kw["monitor"] = PipelineMonitor()
+            server = serve_metrics(0, monitor=kw["monitor"])
+        elif form == "ft":
+            policy = RetryPolicy()
+            kw.update(retry=policy, chaos=ChaosPlan())
+        p = _flights_pipeline("enclave", 1, dev)
+
+        def source():
+            for i, c in enumerate(_chunks(recs_dev, n_chunks)):
+                if server is not None and i == OBS_SCRAPE_CHUNK:
+                    body = urllib.request.urlopen(
+                        server.url + "/metrics", timeout=30).read().decode()
+                    scraped["problems"] = check_prometheus.validate(
+                        body, require_labels=(("stage", "sgx_mapper"),
+                                              ("stage", "sgx_filter")),
+                        min_samples=20)
+                    scraped["bytes"] = len(body)
+                yield c
+
+        REGISTRY.reset(prefix="ft.")
+        pipeline_mod.reset_host_sync_count()
+        try:
+            (out, wall), _ = counted_run(torch, f"obs_{form}", "enclave",
+                                         _timed(torch, p, source(), **kw))
+        finally:
+            if server is not None:
+                server.stop()
+        _check_flights(f"observation cost {form}", out, ref)
+        rep = p.report()
+        windows = rep["dispatch"]["ingress"]["windows"]
+        got = {"host_syncs_per_window":
+               pipeline_mod.host_sync_count() / windows,
+               "dispatches_per_hop": {
+                   "ingress": rep["dispatch"]["ingress"]["dispatches"]
+                   / windows,
+                   **{s: rep[s]["dispatches_per_window"]
+                      for s in ("sgx_mapper", "sgx_filter")},
+                   "egress": rep["dispatch"]["egress"]["dispatches"]
+                   / rep["dispatch"]["egress"]["windows"]}}
+        if shape and got != shape:
+            raise AssertionError(f"observation cost: form {form} has "
+                                 f"{got}, bare has {shape}")
+        shape = shape or got
+        rates[form].append(n / wall)
+        if form == "ft":
+            det = p._last_ft.detector("sgx_mapper")
+            scraped["ft_backups"] = ft_counters()["backups"]
+            scraped["ft_cutoff_s"] = policy.timeout_for(det)
+            scraped["ft_mean_share_ms"] = det.mean * 1e3
+        if form == "tracer":
+            scraped["spans"] = len(kw["tracer"].spans)
+    if scraped.get("problems"):
+        raise AssertionError(f"observation cost: the scraped body is not "
+                             f"valid: {scraped['problems'][:5]}")
+    phase("observation_cost", records=n, order="ABCDDCBA",
+          **{f"{f}_records_per_s": "/".join(f"{r:.1f}" for r in rates[f])
+             for f in forms},
+          host_syncs_per_window=shape["host_syncs_per_window"],
+          dispatches_per_hop=json.dumps(shape["dispatches_per_hop"],
+                                        separators=(",", ":")),
+          equal_across_forms=True, scrape_valid=True,
+          scrape_bytes=scraped["bytes"], tracer_spans=scraped["spans"],
+          ft_backups_adaptive=scraped["ft_backups"],
+          ft_adaptive_cutoff_s=scraped["ft_cutoff_s"],
+          ft_mean_share_enqueue_ms=round(scraped["ft_mean_share_ms"], 4))
+    return rates
+
+
+def phase_trace(torch, dev, busy_ms_per_window=None):
+    """Phase 11d: a traced DelayedFlights run of TRACE_WINDOWS windows
+    (phase 3's job and profiled length), exported as Chrome JSON to
+    TRACE_PATH: host ms a window by span name beside phase 3's profiled
+    device-busy ms a window.  Spans are host time: around a launch they
+    measure its enqueue; the device's time shows in ``sync.verdicts``,
+    where the host waits for the window's kernels."""
+    from collections import defaultdict
+    from repro_torch.data.synthetic import flight_records
+    from repro_torch.obs import Tracer
+    from repro_torch.u32 import from_numpy
+    n_chunks = TRACE_WINDOWS * WINDOW
+    recs = flight_records(n_chunks * CHUNK_RECORDS, seed=2)
+    recs_dev = from_numpy(recs, dev)
+    _flights_pipeline("enclave", 1, dev).run(_chunks(recs_dev, WINDOW * 2))
+    tr = Tracer()
+    p = _flights_pipeline("enclave", 1, dev)
+    (out, wall), _ = counted_run(torch, "traced", "enclave", _timed(
+        torch, p, _chunks(recs_dev, n_chunks), tracer=tr))
+    _check_flights("traced run", out, _numpy_flights(recs))
+    TRACE_PATH.parent.mkdir(parents=True, exist_ok=True)
+    doc = tr.export_chrome(str(TRACE_PATH))
+    json.loads(TRACE_PATH.read_text())
+    total = defaultdict(float)
+    count = defaultdict(int)
+    for s in tr.spans:
+        total[s.name] += s.dur
+        count[s.name] += 1
+    phase("trace", windows=TRACE_WINDOWS, records=n_chunks * CHUNK_RECORDS,
+          wall_ms_per_window=round(wall / TRACE_WINDOWS * 1e3, 4),
+          spans=len(tr.spans), events=len(doc["traceEvents"]),
+          spans_per_window=round(len(tr.spans) / TRACE_WINDOWS, 2),
+          device_busy_ms_per_window=(
+              "not measured" if busy_ms_per_window is None
+              else round(busy_ms_per_window, 4)),
+          chrome_json=str(TRACE_PATH.relative_to(TRACE_PATH.parents[1])))
+    for name in sorted(total, key=lambda k: -total[k]):
+        print(f"   host {total[name] / TRACE_WINDOWS * 1e3:9.4f} ms a window"
+              f"  {count[name]:6d} spans  {name}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2549,9 +2966,11 @@ def main() -> int:
     # run (phase 3) for kernels 1-3, the oracle engine's timed enclave run
     # (phase 7) for kernels 4-6
     launches = {}
+    flights_out = busy_ms = None
     if 3 in phases:
-        launches["window"] = phase_delayed_flights(torch, dev, args.records)
-        phase_profile(torch, dev, 256 * CHUNK_RECORDS)
+        launches["window"], flights_out = phase_delayed_flights(
+            torch, dev, args.records)
+        busy_ms = phase_profile(torch, dev, 256 * CHUNK_RECORDS)
         phase_attribution(torch, dev, ATTRIBUTION_RECORDS)
     window_results = phase_modes(torch, dev, MODES_RECORDS) \
         if 4 in phases else None
@@ -2567,6 +2986,11 @@ def main() -> int:
         kernels.append(phase_flash(torch, dev))
     if 10 in phases:
         launches["serve"] = phase_serve(torch, dev)
+    if 11 in phases:
+        phase_ft_flights(torch, dev, args.records, flights_out)
+        phase_ft_stage8(torch, dev)
+        phase_observation_cost(torch, dev, OBS_RECORDS)
+        phase_trace(torch, dev, busy_ms)
     for k in kernels:
         sym = k.pop("symbol")
         run = LAUNCHES_FROM[k["name"]]

@@ -39,6 +39,7 @@ from repro_torch.crypto.keys import current_epoch as _cur_epoch, \
 from repro_torch.kernels.cwmac import ops as cwmac_ops
 from repro_torch.kernels.enclave_map import ops as enclave_ops
 from repro_torch.obs.metrics import REGISTRY as _METRICS
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.u32 import host_to_device
 
 # the per-chunk enclave hop MACs ciphertext outside the fused kernel, one
@@ -297,6 +298,13 @@ class EnclaveExecutor:
         self.key_in = key_in
         self.key_out = key_out
         self.errors = 0
+        # the pipeline's worker pool stamps each executor with the run's
+        # tracer and a per-worker track ("s2/w1"), so the window entry
+        # points' open -> op -> seal spans land on that worker's lane;
+        # they measure the host's enqueue, the device's time lands in the
+        # pipeline's per-window sync span
+        self.tracer = NULL_TRACER
+        self.track = "enclave"
 
     # -- the per-chunk engine: one chunk, verdicts synced as they come ----
 
@@ -380,13 +388,19 @@ class EnclaveExecutor:
                 "(run_static_window); arbitrary closures cannot be "
                 "attested — the paper's no-dynamic-linking rule.")
         out_view, out_ctrs, out_epochs = _reseal_coords(win, reseal_as)
-        keys_in, nonces_in = _window_cipher_params(self.key_in, win)
-        pt, ok = aead.open_many(keys_in, nonces_in, win.words, win.tags)
-        xb = aead.words_to_tensor_batch(pt, win.meta)
-        yb = torch.stack([fn(xb[b]) for b in range(len(win))])
-        words, meta = aead.tensor_to_words_batch(yb)
-        keys_out, nonces_out = _window_cipher_params(self.key_out, out_view)
-        ct, tags = aead.seal_many(keys_out, nonces_out, words.contiguous())
+        tr, track, B = self.tracer, self.track, len(win)
+        with tr.span("enclave.open", cat="dispatch", track=track, rows=B):
+            keys_in, nonces_in = _window_cipher_params(self.key_in, win)
+            pt, ok = aead.open_many(keys_in, nonces_in, win.words, win.tags)
+        with tr.span("enclave.op", cat="dispatch", track=track, rows=B):
+            xb = aead.words_to_tensor_batch(pt, win.meta)
+            yb = torch.stack([fn(xb[b]) for b in range(B)])
+            words, meta = aead.tensor_to_words_batch(yb)
+        with tr.span("enclave.seal", cat="dispatch", track=track, rows=B):
+            keys_out, nonces_out = _window_cipher_params(self.key_out,
+                                                         out_view)
+            ct, tags = aead.seal_many(keys_out, nonces_out,
+                                      words.contiguous())
         return replace(win, words=ct, tags=tags, meta=meta,
                        n_words=words.shape[1], counters=out_ctrs,
                        epochs=out_epochs), ok
@@ -412,25 +426,38 @@ class EnclaveExecutor:
         out_view, out_ctrs, out_epochs = _reseal_coords(win, reseal_as)
         keys_in, nonces_in = _window_cipher_params(self.key_in, win)
         keys_out, nonces_out = _window_cipher_params(self.key_out, out_view)
+        tr, track, B = self.tracer, self.track, len(win)
         if self.mode == "encrypted":
-            pt, ok = aead.open_many(keys_in, nonces_in, win.words, win.tags)
-            words = _apply_static_words(op, const, pt)
-            ct, tags = aead.seal_many(keys_out, nonces_out,
-                                      words.contiguous())
+            with tr.span("enclave.open", cat="dispatch", track=track,
+                         rows=B):
+                pt, ok = aead.open_many(keys_in, nonces_in, win.words,
+                                        win.tags)
+            with tr.span("enclave.op", cat="dispatch", track=track, op=op,
+                         rows=B):
+                words = _apply_static_words(op, const, pt)
+            with tr.span("enclave.seal", cat="dispatch", track=track,
+                         rows=B):
+                ct, tags = aead.seal_many(keys_out, nonces_out,
+                                          words.contiguous())
             return replace(win, words=ct, tags=tags, counters=out_ctrs,
                            epochs=out_epochs), ok
         # enclave: the MAC check on ciphertext happens outside the enclave
         # (ciphertext is public data): one mac-key derivation + one MAC
-        mk_in = aead.derive_mac_keys_many(keys_in, nonces_in)
-        ok = (aead.mac2_many(win.words, mk_in) == win.tags).all(dim=-1)
-        # fused decrypt->op->encrypt over the window's words as they are;
-        # each chunk's payload keystream starts at counter 1.  A
-        # re-execution re-encrypts under the FRESH nonces (the chunk
+        with tr.span("enclave.open", cat="dispatch", track=track, rows=B):
+            mk_in = aead.derive_mac_keys_many(keys_in, nonces_in)
+            ok = (aead.mac2_many(win.words, mk_in) == win.tags).all(dim=-1)
+        # fused decrypt->op->encrypt over the window's words as they are,
+        # one launch; each chunk's payload keystream starts at counter 1.
+        # A re-execution re-encrypts under the FRESH nonces (the chunk
         # counter only enters through the nonce)
-        out_words = enclave_ops.enclave_map_window(
-            keys_in, keys_out, nonces_in, win.words, op=op, const=const,
-            nonces_out=None if reseal_as is None else nonces_out)
-        mk_out = aead.derive_mac_keys_many(keys_out, nonces_out)
-        tags_out = aead.mac2_many(out_words, mk_out)
+        with tr.span("enclave.op", cat="dispatch", track=track, op=op,
+                     rows=B):
+            out_words = enclave_ops.enclave_map_window(
+                keys_in, keys_out, nonces_in, win.words, op=op, const=const,
+                nonces_out=None if reseal_as is None else nonces_out)
+        # re-tag under the outbound keys, batched
+        with tr.span("enclave.seal", cat="dispatch", track=track, rows=B):
+            mk_out = aead.derive_mac_keys_many(keys_out, nonces_out)
+            tags_out = aead.mac2_many(out_words, mk_out)
         return replace(win, words=out_words, tags=tags_out,
                        counters=out_ctrs, epochs=out_epochs), ok

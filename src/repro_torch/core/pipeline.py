@@ -28,10 +28,26 @@ and edge keys are established by the attested handshake.
 straddling a flip opens every row under its ingress epoch, and
 ``KeyDirectory.revoke`` evicts a worker live.
 
-Not ported yet: fault tolerance (``retry=``/``chaos=`` raise
-``NotImplementedError`` naming its ROADMAP item rather than being served
-by something else).  Span tracing and the live monitor are not ported
-either; the engine takes no ``tracer=``/``monitor=``.
+Telemetry is opt-in and host-side: a ``tracer=``
+(:class:`repro_torch.obs.Tracer`) records spans around ingress seals,
+each worker's open -> op -> seal share, the per-window verdict sync,
+merges and reduce folds, and a ``monitor=``
+(:class:`repro_torch.obs.PipelineMonitor`) folds each window into its
+sliding per-stage health.  Neither adds a host sync or a device
+program: ``pipeline.host_syncs`` and ``device.dispatches`` read the same
+with and without them.
+
+Fault tolerance is opt-in too: a ``retry=`` policy
+(:class:`repro_torch.ft.RetryPolicy`) or a ``chaos=`` plan
+(:class:`repro_torch.ft.ChaosPlan`) runs the window engine's stages
+through :meth:`Pipeline._stage_stream_ft` — per-share retry with
+backoff, failover to a survivor or a live-enrolled spare, speculative
+backup against stragglers, and replay of tampered or unverified rows
+from the retained sealed inputs.  Every re-execution re-seals under a
+fresh counter block reserved from the ingress edge (in enclave mode the
+fused kernel encrypts straight under those outbound coordinates), so
+recovery never spends a (key, nonce, counter) twice and the terminal
+reduce equals the fault-free run's.
 """
 from __future__ import annotations
 
@@ -48,16 +64,19 @@ import torch
 from repro_torch.attest.directory import (EdgeHandle, KeyDirectory,
                                           KeyDirectoryError)
 from repro_torch.attest.measure import IO_ENDPOINT, measure_stage
+from repro_torch.attest.quote import QuoteError
 from repro_torch.configs.base import SecureStreamConfig
 from repro_torch.core import router as R
 from repro_torch.core.enclave import (EnclaveExecutor, SealedChunk,
                                       SealedWindow, egress, egress_window,
                                       ingress, plain_window,
                                       seal_tensors_window, uniform_runs)
+from repro_torch.ft.recovery import FTContext
+from repro_torch.ft.retry import RetryPolicy
 from repro_torch.obs.metrics import REGISTRY as _METRICS
+from repro_torch.obs.monitor import NULL_MONITOR
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.u32 import from_numpy, host_to_device
-
-_FT_ITEM = "ROADMAP Queue 1 item 12 (fault tolerance)"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -178,20 +197,25 @@ def _shape_runs(xs: List[torch.Tensor]):
 
 def _sync_window(outputs: List[torch.Tensor],
                  vec_specs: List[Tuple[Optional[torch.Tensor], int]],
-                 device: torch.device) -> np.ndarray:
+                 device: torch.device, tracer=NULL_TRACER,
+                 track: str = "main") -> np.ndarray:
     """THE one host sync of a window: every deferred MAC verdict in a
     single device->host copy, which is queued behind (and so waits for)
     every kernel of the window.  ``vec_specs`` is [(device verdict
-    vector or None, n)]; None (plain mode) counts as all-pass."""
+    vector or None, n)]; None (plain mode) counts as all-pass.  The
+    ``sync.verdicts`` span is where device time surfaces on a timeline:
+    dispatch spans upstream only measure the host's enqueue."""
     _HOST_SYNCS.inc()
-    if all(ok is None for ok, _ in vec_specs):
-        if outputs and device.type == "cuda":
-            torch.cuda.synchronize(device)
-        return np.ones(sum(n for _, n in vec_specs), bool)
-    parts = [torch.ones((n,), dtype=torch.bool, device=device)
-             if ok is None else ok for ok, n in vec_specs]
-    vec = parts[0] if len(parts) == 1 else torch.cat(parts)
-    return vec.cpu().numpy()
+    with tracer.span("sync.verdicts", cat="sync", track=track,
+                     rows=sum(n for _, n in vec_specs)):
+        if all(ok is None for ok, _ in vec_specs):
+            if outputs and device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return np.ones(sum(n for _, n in vec_specs), bool)
+        parts = [torch.ones((n,), dtype=torch.bool, device=device)
+                 if ok is None else ok for ok, n in vec_specs]
+        vec = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return vec.cpu().numpy()
 
 
 class Pipeline:
@@ -204,7 +228,13 @@ class Pipeline:
     ``fusion`` is builder metadata from :mod:`repro_torch.dsl.compile`: a
     ``{"fused_from": {survivor: [absorbed stage names]}, "decisions":
     [...]}`` record of bit-exact stage merges, surfaced via
-    :meth:`report`; hand-built pipelines leave it empty."""
+    :meth:`report`; hand-built pipelines leave it empty.
+
+    ``tracer``/``monitor`` attach span tracing and live health to every
+    run (each off by default: :data:`NULL_TRACER`, :data:`NULL_MONITOR`);
+    ``retry``/``chaos`` enable the fault-tolerant window engine (see the
+    module docstring).  :meth:`run` takes each of the four for one run
+    only."""
 
     def __init__(self, stages: Sequence[Stage],
                  secure: SecureStreamConfig = SecureStreamConfig(),
@@ -213,15 +243,24 @@ class Pipeline:
                  window_chunks: int = 8,
                  fusion: Optional[Dict[str, Any]] = None,
                  device=None,
+                 tracer=None,
+                 monitor=None,
                  retry=None,
                  chaos=None):
-        if retry is not None or chaos is not None:
-            raise NotImplementedError(
-                f"retry=/chaos= are not ported yet: {_FT_ITEM}")
         self.device = resolve_device(device)
         self.stages = list(stages)
         self.secure = secure
         self.seed = seed
+        # telemetry is off unless asked for: the NULL objects' calls are
+        # no-ops, so the instrumented paths cost an attribute call
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.monitor = monitor if monitor is not None else NULL_MONITOR
+        # fault tolerance is opt-in the same way: ``retry`` is a
+        # RetryPolicy, ``chaos`` a ChaosPlan; with both None the engine
+        # runs the plain stage stream
+        self.retry = retry
+        self.chaos = chaos
+        self._last_ft = None        # FTContext of the most recent run
         # dispatch/window accounting for the ingress and egress hops
         # (stage hops live in StageMetrics)
         self._ingress_windows_n = 0
@@ -246,6 +285,7 @@ class Pipeline:
         ] if secure.mode != "plain" else [None] * (len(self.stages) + 1)
         self.metrics: Dict[str, StageMetrics] = {
             s.name: StageMetrics() for s in self.stages}
+        self.monitor.attach(self)
 
     # -------------------------------------------------------- attestation
 
@@ -304,13 +344,21 @@ class Pipeline:
 
     # ------------------------------------------------------------------ run
 
-    def _worker_pool(self, i: int, st: Stage) -> List[EnclaveExecutor]:
-        """One executor per worker of stage i, all sharing the edge keys."""
+    def _executor(self, i: int, st: Stage, w: int) -> EnclaveExecutor:
+        """Worker ``w`` of stage i: the stage's mode (non-sgx stages run
+        encrypted under enclave mode), the edge keys, and the run's
+        tracer on the worker's own lane."""
         mode = self.secure.mode
         st_mode = mode if st.sgx else ("plain" if mode == "plain"
                                        else "encrypted")
-        return [EnclaveExecutor(st_mode, self.keys[i], self.keys[i + 1])
-                for _ in range(max(1, st.workers))]
+        ex = EnclaveExecutor(st_mode, self.keys[i], self.keys[i + 1])
+        ex.tracer = self.tracer
+        ex.track = f"{st.name}/w{w}"
+        return ex
+
+    def _worker_pool(self, i: int, st: Stage) -> List[EnclaveExecutor]:
+        """One executor per worker of stage i, all sharing the edge keys."""
+        return [self._executor(i, st, w) for w in range(max(1, st.workers))]
 
     def _stage_stream(self, upstream: Iterator[SealedWindow], st: Stage,
                       pool: List[EnclaveExecutor],
@@ -329,54 +377,55 @@ class Pipeline:
         m = self.metrics[st.name]
         if len(m.per_worker) < len(pool):
             m.per_worker.extend([0] * (len(pool) - len(m.per_worker)))
+        tr = self.tracer
         audit = self.directory.audit
         lat = _METRICS.histogram(f"pipeline.stage.{st.name}.window_seconds")
         depth = _METRICS.gauge(f"pipeline.stage.{st.name}.queue_rows")
         phase = 0                    # rolling global row index for rr
         while True:
             live = self._live_workers(st)
-            target = len(live) * window_chunks
-            parts: List[SealedWindow] = []
-            got = 0
-            while got < target:
-                win = next(upstream, None)
-                if win is None:
-                    break
-                parts.append(win)
-                got += len(win)
+            parts, got = self._pull_round(upstream,
+                                          len(live) * window_chunks)
             if not parts:
                 return
             depth.set(got)
+            tr.counter("queue_rows", got, track=st.name)
             # pulling the window may itself have revoked workers upstream
             live = self._live_workers(st)
             L = len(live)
             d0 = _DISPATCHES.value
             t0 = time.perf_counter()
             dispatches = []          # (part idx, worker, row idxs, out, ok)
-            for pi, win in enumerate(parts):
-                B = len(win)
-                assign = [(phase + j) % L for j in range(B)]
-                phase += B
-                for k in range(L):
-                    idxs = [j for j in range(B) if assign[j] == k]
-                    if not idxs:
-                        continue
-                    sub = win if len(idxs) == B else win.select(idxs)
-                    w = live[k]
-                    if st.fn is not None:
-                        out, ok = pool[w].run_window(st.fn, sub)
-                    else:
-                        out, ok = pool[w].run_static_window(
-                            st.op, st.const, sub)
-                    dispatches.append((pi, w, idxs, out, ok))
+            with tr.span("stage.dispatch", cat="dispatch", track=st.name,
+                         rows=got, workers=L):
+                for pi, win in enumerate(parts):
+                    B = len(win)
+                    assign = [(phase + j) % L for j in range(B)]
+                    phase += B
+                    for k in range(L):
+                        idxs = [j for j in range(B) if assign[j] == k]
+                        if not idxs:
+                            continue
+                        sub = win if len(idxs) == B else win.select(idxs)
+                        w = live[k]
+                        if st.fn is not None:
+                            out, ok = pool[w].run_window(st.fn, sub)
+                        else:
+                            out, ok = pool[w].run_static_window(
+                                st.op, st.const, sub)
+                        dispatches.append((pi, w, idxs, out, ok))
             verdicts = _sync_window(
                 [d[3].words for d in dispatches],
-                [(d[4], len(d[3])) for d in dispatches], self.device)
+                [(d[4], len(d[3])) for d in dispatches], self.device,
+                tracer=tr, track=st.name)
             dt = time.perf_counter() - t0
             m.seconds += dt
             lat.observe(dt)
             m.windows += 1
-            m.dispatches += _DISPATCHES.value - d0
+            disp = _DISPATCHES.value - d0
+            m.dispatches += disp
+            tr.counter("windows_per_s", (1.0 / dt) if dt > 0 else 0.0,
+                       track=st.name)
             off = 0
             marks: List[np.ndarray] = []
             for pi, w, idxs, out, _ in dispatches:
@@ -395,7 +444,43 @@ class Pipeline:
                                      worker=self.worker_id(st.name, w),
                                      row=out.counters[jj],
                                      epoch=out.epochs[jj])
-            yield from list(self._merge_outputs(parts, dispatches, marks))
+            self._record_stage_window(st, parts, got, dispatches, marks, dt,
+                                      disp)
+            with tr.span("stage.merge", cat="pipeline", track=st.name,
+                         windows=len(parts)):
+                merged = list(self._merge_outputs(parts, dispatches, marks))
+            yield from merged
+
+    @staticmethod
+    def _pull_round(upstream: Iterator[SealedWindow], target: int
+                    ) -> Tuple[List[SealedWindow], int]:
+        """Pull upstream windows until ``target`` rows (or the stream's
+        end) -> (windows, rows)."""
+        parts: List[SealedWindow] = []
+        got = 0
+        while got < target:
+            win = next(upstream, None)
+            if win is None:
+                break
+            parts.append(win)
+            got += len(win)
+        return parts, got
+
+    def _record_stage_window(self, st: Stage, parts, got: int, dispatches,
+                             marks, dt: float, disp: int) -> None:
+        """Fold one stage round into the live monitor, from host-side
+        numbers only (the round's numpy verdicts, row counts, epochs)."""
+        mon = self.monitor
+        if not mon.enabled:
+            return
+        wrows: Dict[int, int] = {}
+        for _, w, idxs, _, _ in dispatches:
+            wrows[w] = wrows.get(w, 0) + len(idxs)
+        mon.record_window(
+            st.name, rows=got, ok_rows=int(sum(int(v.sum()) for v in marks)),
+            bytes=sum(len(p) * int(p.n_words) * 4 for p in parts),
+            seconds=dt, queue_rows=got, worker_rows=wrows,
+            min_epoch=min(min(p.epochs) for p in parts), dispatches=disp)
 
     @staticmethod
     def _merge_outputs(parts, dispatches, marks):
@@ -436,6 +521,398 @@ class Pipeline:
                 epochs=[e[3] for e in entries],
                 meta=outs[0].meta, n_words=outs[0].n_words)
 
+    # ------------------------------------------------------ fault tolerance
+
+    def _ft_fresh_coords(self, n: int):
+        """Reserve a FRESH counter block for a re-execution.
+
+        Every retry / failover / backup / replay re-seals its rows under
+        counters reserved from the INGRESS edge at the current epoch —
+        the one allocator whose blocks are collision-free across every
+        edge (mid-pipeline edges never advance the session count), so a
+        re-executed share can never re-spend a (key, nonce, counter)
+        triple already used on any outbound key.  Plain mode has no
+        nonces: returns None (re-execution keeps original coordinates).
+        """
+        h0 = self.keys[0]
+        if h0 is None:
+            return None
+        base, epoch = h0.reserve_window(n)
+        return (list(range(base, base + n)), epoch)
+
+    def _ft_exec(self, st: Stage, ex: EnclaveExecutor, sub: SealedWindow,
+                 coords):
+        """One batched open->op->seal of a share.  ``coords`` =
+        (counters, epoch) re-seals under fresh ingress-reserved
+        coordinates (the re-execution path); None keeps steady state."""
+        if st.fn is not None:
+            return ex.run_window(st.fn, sub, reseal_as=coords)
+        return ex.run_static_window(st.op, st.const, sub, reseal_as=coords)
+
+    def _ft_pick_survivor(self, st: Stage, ft, exclude: int,
+                          prefer=None) -> Optional[int]:
+        """A live, not-dead worker other than ``exclude``, honouring the
+        backup dispatcher's placement hint when it is usable.  Recomputed
+        from the CURRENT worker set, so a spare enrolled earlier in the
+        same round absorbs later failovers."""
+        cands = []
+        for x in range(max(1, st.workers)):
+            if x == exclude or ft.is_dead(st.name, x):
+                continue
+            if self.directory.policy.is_revoked(self.worker_id(st.name, x)):
+                continue
+            cands.append(x)
+        if not cands:
+            return None
+        if prefer is not None and prefer in cands:
+            return prefer
+        return cands[0]
+
+    def enroll_spare(self, stage_name: str) -> int:
+        """Enroll + admit one spare worker for a stage, live.
+
+        The spare takes the same attested admission path as build time
+        (measure -> enroll -> quote -> verify); edge sessions are
+        stage-scoped, so the spare joins the existing attested channels
+        (``KeyDirectory.establish`` runs only if an edge lost its
+        session).  Returns the new worker index; raises
+        :class:`repro_torch.attest.quote.QuoteError` if admission fails
+        (a chaos-injected handshake failure included)."""
+        idx, st = next((i, s) for i, s in enumerate(self.stages)
+                       if s.name == stage_name)
+        d = self.directory
+        w = max(1, st.workers)
+        wid = self.worker_id(st.name, w)
+        meas = measure_stage(op=st.op, const=st.const, fn=st.fn, sgx=st.sgx)
+        d.policy.allow(meas)
+        d.enroll(wid, meas)
+        d.admit(wid)                 # raises unless the quote verifies
+        if self.secure.mode != "plain":
+            endpoints = ["io/source"] \
+                + [f"stage/{s.name}" for s in self.stages] + ["io/sink"]
+            for e in (idx, idx + 1):
+                if not d.has_session(f"edge{e}"):
+                    d.establish(f"edge{e}", endpoints[e], endpoints[e + 1],
+                                stage_id=e)
+        st.workers = w + 1
+        return w
+
+    def _ft_enroll_spare(self, st: Stage, pool: List[EnclaveExecutor],
+                         ft) -> Optional[int]:
+        """Failover fallback when a stage has no survivors: enroll a
+        spare through the live admission path and extend the worker
+        pool.  A rejected admission (chaos ``enroll_fail``) is retried
+        once; None if no spare was admitted."""
+        for _ in range(2):
+            try:
+                w = self.enroll_spare(st.name)
+            except QuoteError:
+                ft.enroll_failures.inc()
+                continue
+            i = next(ix for ix, s in enumerate(self.stages)
+                     if s.name == st.name)
+            pool.append(self._executor(i, st, w))
+            m = self.metrics[st.name]
+            if len(m.per_worker) < len(pool):
+                m.per_worker.extend([0] * (len(pool) - len(m.per_worker)))
+            return w
+        return None
+
+    def _ft_dispatch_share(self, st: Stage, pool: List[EnclaveExecutor],
+                           ft, rnd: int, w: int,
+                           sub: SealedWindow, share_id: int):
+        """Dispatch one worker share under the retry policy.
+
+        Consults the chaos plan for crash/stall faults at this
+        (stage, round, worker) hook, retries with backoff on the same
+        worker, fails the share over to a survivor (or a live-enrolled
+        spare) when the worker is gone, and races an injected straggler
+        against a speculative backup on another worker.  EVERY
+        re-execution re-seals under fresh ingress-reserved counters
+        (:meth:`_ft_fresh_coords`).  The share's time ``dt`` is host
+        time around an asynchronous launch (its enqueue), as the
+        reference's is: the engine adds no sync to time it.  Returns
+        (final worker, out window, deferred verdict vector); raises if
+        the share cannot be placed anywhere."""
+        audit = self.directory.audit
+        policy = ft.policy
+        chaos = ft.chaos
+        det = ft.detector(st.name)
+        bdisp = ft.dispatcher(st.name, max(1, st.workers))
+        bdisp.track(share_id, w)
+        attempts = 0
+        fresh = False
+        t_start = time.perf_counter()
+        while True:
+            spec = None if chaos is None \
+                else chaos.crash_for(st.name, rnd, w)
+            dead = ft.is_dead(st.name, w)
+            out = ok = dt = None
+            if not dead and (spec is None or spec.when == "after"):
+                coords = self._ft_fresh_coords(len(sub)) if fresh else None
+                t0 = time.perf_counter()
+                out, ok = self._ft_exec(st, pool[w], sub, coords)
+                dt = time.perf_counter() - t0
+            if spec is not None:
+                # the fault fires exactly once: one worker_failed per
+                # injected crash, however many shares it costs
+                ft.worker_failures.inc()
+                audit.record("worker_failed", stage=st.name,
+                             worker=self.worker_id(st.name, w),
+                             reason="crash", fatal=spec.fatal, round=rnd)
+                if spec.fatal:
+                    ft.mark_dead(st.name, w)
+            if spec is not None or dead:
+                # the share (or its result) is lost
+                attempts += 1
+                alive = not ft.is_dead(st.name, w)
+                within = attempts < policy.max_attempts and (
+                    policy.deadline_s is None
+                    or time.perf_counter() - t_start < policy.deadline_s)
+                if alive and within:
+                    ft.retries.inc()
+                    audit.record("share_retried", stage=st.name,
+                                 worker=self.worker_id(st.name, w),
+                                 attempt=attempts, round=rnd)
+                    policy.sleep(policy.backoff(attempts))
+                    fresh = True
+                    continue
+                if not policy.failover:
+                    raise KeyDirectoryError(
+                        f"share of stage {st.name!r} lost worker "
+                        f"{self.worker_id(st.name, w)} and failover is "
+                        f"disabled by the retry policy")
+                w2 = self._ft_pick_survivor(st, ft, exclude=w)
+                if w2 is None and policy.enroll_spare:
+                    w2 = self._ft_enroll_spare(st, pool, ft)
+                if w2 is None:
+                    raise KeyDirectoryError(
+                        f"share of stage {st.name!r} has no survivor to "
+                        f"fail over to and no spare could be admitted")
+                ft.failovers.inc()
+                audit.record("share_failover", stage=st.name,
+                             worker=self.worker_id(st.name, w),
+                             to=self.worker_id(st.name, w2),
+                             reason="crash", round=rnd)
+                bdisp.track(share_id, w2)
+                w = w2
+                attempts = 0
+                fresh = True
+                continue
+            # success path: race an injected stall against the cutoff
+            stall = None if chaos is None \
+                else chaos.stall_for(st.name, rnd, w)
+            if stall is not None:
+                observed = dt + stall.seconds
+                if observed > policy.timeout_for(det):
+                    ft.worker_failures.inc()
+                    audit.record("worker_failed", stage=st.name,
+                                 worker=self.worker_id(st.name, w),
+                                 reason="stall", round=rnd)
+                    hint = bdisp.reissue(share_id)
+                    w2 = self._ft_pick_survivor(st, ft, exclude=w,
+                                                prefer=hint)
+                    if w2 is not None:
+                        # the speculative backup wins; the original
+                        # result arrives late and deduplicates
+                        ft.backups.inc()
+                        audit.record("share_failover", stage=st.name,
+                                     worker=self.worker_id(st.name, w),
+                                     to=self.worker_id(st.name, w2),
+                                     reason="backup", round=rnd)
+                        coords = self._ft_fresh_coords(len(sub))
+                        t0 = time.perf_counter()
+                        out2, ok2 = self._ft_exec(st, pool[w2], sub,
+                                                  coords)
+                        det.observe(time.perf_counter() - t0)
+                        bdisp.track(share_id, w2)
+                        bdisp.complete(share_id)   # backup completes...
+                        bdisp.complete(share_id)   # ...original is a dup
+                        return w2, out2, ok2
+                    # nobody to back up on: keep the slow result
+                det.observe(observed)
+                bdisp.complete(share_id)
+                return w, out, ok
+            det.observe(dt)
+            bdisp.complete(share_id)
+            return w, out, ok
+
+    def _stage_stream_ft(self, upstream: Iterator[SealedWindow], st: Stage,
+                         pool: List[EnclaveExecutor], window_chunks: int,
+                         ft) -> Iterator[SealedWindow]:
+        """Fault-tolerant sibling of :meth:`_stage_stream`.
+
+        Same round structure (pull -> round-robin -> one batched
+        dispatch per worker share -> ONE deferred-verdict host sync ->
+        merge in stream order), with the fault-tolerance hooks around
+        it: the round's sealed input parts are RETAINED in the replay
+        buffer until its verdicts are folded in; each share goes through
+        :meth:`_ft_dispatch_share` (chaos crash/stall hooks, retry,
+        failover, speculative backup); tampered shares MAC-fail at the
+        sync and their rows are re-executed from the retained clean
+        parts; a dropped verdict sync voids the whole share, which is
+        likewise replayed (with one more host sync for the replays'
+        verdicts).  Replayed rows re-seal under fresh ingress counters
+        and the merge still orders by original row index, so the
+        surviving stream and any terminal reduce over it equal the
+        fault-free run's."""
+        m = self.metrics[st.name]
+        if len(m.per_worker) < len(pool):
+            m.per_worker.extend([0] * (len(pool) - len(m.per_worker)))
+        tr = self.tracer
+        audit = self.directory.audit
+        chaos = ft.chaos
+        secure = self.secure.mode != "plain"
+        lat = _METRICS.histogram(f"pipeline.stage.{st.name}.window_seconds")
+        depth = _METRICS.gauge(f"pipeline.stage.{st.name}.queue_rows")
+        phase = 0
+        rnd = -1
+        while True:
+            rnd += 1
+            live = [w for w in self._live_workers(st)
+                    if not ft.is_dead(st.name, w)]
+            if not live:
+                # every worker is dead: last-ditch live spare enrollment
+                w = self._ft_enroll_spare(st, pool, ft)
+                if w is None:
+                    raise KeyDirectoryError(
+                        f"every worker of stage {st.name!r} is dead and "
+                        f"no spare could be admitted")
+                live = [w]
+            parts, got = self._pull_round(upstream,
+                                          len(live) * window_chunks)
+            if not parts:
+                return
+            # retain the sealed inputs (still under their reserved nonce
+            # blocks) until this round's verdict sync is folded in
+            ft.buffer.retain(st.name, rnd, parts)
+            depth.set(got)
+            tr.counter("queue_rows", got, track=st.name)
+            live = [w for w in self._live_workers(st)
+                    if not ft.is_dead(st.name, w)]
+            L = len(live)
+            d0 = _DISPATCHES.value
+            t0 = time.perf_counter()
+            dispatches = []          # (part idx, worker, row idxs, out, ok)
+            flags = []               # aligned: per-share fault markers
+            with tr.span("stage.dispatch", cat="dispatch", track=st.name,
+                         rows=got, workers=L):
+                for pi, win in enumerate(parts):
+                    B = len(win)
+                    assign = [(phase + j) % L for j in range(B)]
+                    phase += B
+                    for k in range(L):
+                        idxs = [j for j in range(B) if assign[j] == k]
+                        if not idxs:
+                            continue
+                        sub = win if len(idxs) == B else win.select(idxs)
+                        w = live[k]
+                        tampered = False
+                        if secure and chaos is not None:
+                            tf = chaos.tamper_for(st.name, rnd, w)
+                            if tf is not None:
+                                # corrupt the dispatch COPY only: the
+                                # retained rows stay clean for replay
+                                sub = chaos.apply_tamper(tf, sub)
+                                tampered = True
+                        share_id = ft.next_share_id()
+                        w2, out, ok = self._ft_dispatch_share(
+                            st, pool, ft, rnd, w, sub, share_id)
+                        verdict_dropped = False
+                        if secure and chaos is not None:
+                            dv = chaos.drop_verdict_for(st.name, rnd, w)
+                            verdict_dropped = dv is not None
+                        dispatches.append((pi, w2, idxs, out, ok))
+                        flags.append({"tampered": tampered,
+                                      "verdict_dropped": verdict_dropped})
+            verdicts = _sync_window(
+                [d[3].words for d in dispatches],
+                [(d[4], len(d[3])) for d in dispatches], self.device,
+                tracer=tr, track=st.name)
+            dt = time.perf_counter() - t0
+            m.seconds += dt
+            lat.observe(dt)
+            m.windows += 1
+            disp = _DISPATCHES.value - d0
+            m.dispatches += disp
+            tr.counter("windows_per_s", (1.0 / dt) if dt > 0 else 0.0,
+                       track=st.name)
+            # ---- per-row accounting + replay scheduling
+            off = 0
+            final = []               # dispatch tuples fed to the merge
+            marks: List[np.ndarray] = []
+            replays = []             # (part idx, worker, row js, reason)
+            for di, (pi, w, idxs, out, _) in enumerate(dispatches):
+                v = np.array(verdicts[off: off + len(idxs)], copy=True)
+                off += len(idxs)
+                if flags[di]["verdict_dropped"]:
+                    # the host never saw this share's verdicts: every
+                    # row is unverified -> replay the whole share
+                    replays.append((pi, w, list(idxs), "verdict_dropped"))
+                    continue
+                for jj, alive_row in enumerate(v):
+                    if alive_row:
+                        m.chunks += 1
+                        m.per_worker[w] += 1
+                        m.bytes += int(parts[pi].n_words) * 4
+                    else:
+                        m.mac_failures += 1
+                        pool[w].errors += 1
+                        audit.record("mac_failure", stage=st.name,
+                                     worker=self.worker_id(st.name, w),
+                                     row=out.counters[jj],
+                                     epoch=out.epochs[jj])
+                final.append((pi, w, idxs, out, None))
+                marks.append(v)
+                failed_js = [j for jj, j in enumerate(idxs) if not v[jj]]
+                if failed_js and secure and ft.policy.replay_mac_failures:
+                    replays.append((pi, w, failed_js, "mac_failure"))
+            if replays:
+                rd = []
+                for pi, w, row_js, reason in replays:
+                    sub = parts[pi].select(row_js)
+                    coords = self._ft_fresh_coords(len(sub))
+                    wr = w if not ft.is_dead(st.name, w) else live[0]
+                    out2, ok2 = self._ft_exec(st, pool[wr], sub, coords)
+                    rd.append((pi, wr, row_js, out2, ok2))
+                    ft.replays.inc()
+                    audit.record("window_replayed", stage=st.name,
+                                 worker=self.worker_id(st.name, wr),
+                                 rows=len(row_js), reason=reason,
+                                 round=rnd)
+                rv = _sync_window([d[3].words for d in rd],
+                                  [(d[4], len(d[3])) for d in rd],
+                                  self.device, tracer=tr, track=st.name)
+                roff = 0
+                for (pi, _, row_js, reason), (_, wr, _, out2, _) \
+                        in zip(replays, rd):
+                    v2 = np.array(rv[roff: roff + len(row_js)], copy=True)
+                    roff += len(row_js)
+                    for jj, alive_row in enumerate(v2):
+                        if alive_row:
+                            m.chunks += 1
+                            m.per_worker[wr] += 1
+                            m.bytes += int(parts[pi].n_words) * 4
+                        elif reason == "verdict_dropped":
+                            # first time this row provably failed
+                            m.mac_failures += 1
+                            audit.record(
+                                "mac_failure", stage=st.name,
+                                worker=self.worker_id(st.name, wr),
+                                row=out2.counters[jj],
+                                epoch=out2.epochs[jj])
+                        # a mac_failure replay that fails again was
+                        # already audited on the original verdict
+                    final.append((pi, wr, row_js, out2, None))
+                    marks.append(v2)
+            self._record_stage_window(st, parts, got, final, marks, dt, disp)
+            with tr.span("stage.merge", cat="pipeline", track=st.name,
+                         windows=len(parts)):
+                merged = list(self._merge_outputs(parts, final, marks))
+            # the round's verdicts are folded in: release retained rows
+            ft.buffer.ack(st.name, rnd)
+            yield from merged
+
     def _ingress_stream(self, source: Iterable, mode: str,
                         rekey_every_n: Optional[int],
                         window: int) -> Iterator[SealedWindow]:
@@ -449,6 +926,8 @@ class Pipeline:
         :meth:`_seal_ingress_window`)."""
         it = iter(source)
         n_plain = 0
+        tr = self.tracer
+        mon = self.monitor
         buffered = _METRICS.gauge("pipeline.ingress.buffered_rows")
         prev: Optional[List[SealedWindow]] = None
         while True:
@@ -457,16 +936,26 @@ class Pipeline:
             if not xs:
                 break
             d0 = _DISPATCHES.value
-            if mode == "plain":
-                cur = [plain_window(range(n_plain + j,
-                                          n_plain + j + len(sub)), sub)
-                       for j, sub in _shape_runs(xs)]
-                n_plain += len(xs)
-            else:
-                cur = self._seal_ingress_window(xs, rekey_every_n)
+            t0 = time.perf_counter()
+            with tr.span("ingress.seal", cat="dispatch", track="ingress",
+                         rows=len(xs)):
+                if mode == "plain":
+                    cur = [plain_window(range(n_plain + j,
+                                              n_plain + j + len(sub)), sub)
+                           for j, sub in _shape_runs(xs)]
+                    n_plain += len(xs)
+                else:
+                    cur = self._seal_ingress_window(xs, rekey_every_n)
             buffered.set(len(xs))
+            disp = _DISPATCHES.value - d0
             self._ingress_windows_n += 1
-            self._ingress_dispatches += _DISPATCHES.value - d0
+            self._ingress_dispatches += disp
+            if mon.enabled:
+                mon.record_window(
+                    "ingress", rows=len(xs),
+                    bytes=sum(len(w) * int(w.n_words) * 4 for w in cur),
+                    seconds=time.perf_counter() - t0, queue_rows=len(xs),
+                    dispatches=disp)
             if prev is not None:
                 yield from prev
             prev = cur
@@ -485,7 +974,9 @@ class Pipeline:
         while i < len(xs):
             sess = self.directory.session(h0.edge)
             if rekey and sess.chunks >= rekey:
-                self.directory.advance_epoch()
+                self.tracer.instant("rekey", cat="security",
+                                    track="ingress",
+                                    epoch=self.directory.advance_epoch())
                 sess = self.directory.session(h0.edge)
             room = len(xs) - i if not rekey else max(1, rekey - sess.chunks)
             group = xs[i:i + room]
@@ -529,7 +1020,7 @@ class Pipeline:
     def run(self, source: Iterable, on_result: Optional[Callable] = None,
             rekey_every_n: Optional[int] = None,
             window_chunks: Optional[int] = None,
-            retry=None, chaos=None) -> Any:
+            tracer=None, monitor=None, retry=None, chaos=None) -> Any:
         """Stream source chunks (tensors on the pipeline's device, or
         numpy arrays) through all stages; returns the terminal reduce
         value (if the last stage reduces) or the last chunk.
@@ -539,17 +1030,65 @@ class Pipeline:
         ingressed in, and the window factor is clamped so the
         directory's ``epoch_history`` covers the deepest in-flight lag.
         ``window_chunks`` overrides the pipeline's window factor for this
-        run; 1 is the per-chunk oracle engine.  ``retry``/``chaos`` are
-        not ported yet and raise ``NotImplementedError``."""
-        if retry is not None or chaos is not None:
-            raise NotImplementedError(
-                f"retry=/chaos= are not ported yet: {_FT_ITEM}")
+        run; 1 is the per-chunk oracle engine.
+
+        ``tracer`` / ``monitor``: a :class:`repro_torch.obs.Tracer` /
+        :class:`repro_torch.obs.PipelineMonitor` for this run only (the
+        pipeline's own otherwise); output, host syncs and dispatches are
+        the same with or without them.
+
+        ``retry``: a :class:`repro_torch.ft.RetryPolicy` enabling
+        per-share retry, failover and replay for this run only (the
+        window engine only: ``ValueError`` when the window factor
+        resolves to 1).  ``chaos``: a :class:`repro_torch.ft.ChaosPlan`
+        of seeded faults consulted at every engine hook; it implies the
+        default policy when no ``retry`` is given, and its
+        ``enroll_fail`` faults go through the directory's admission
+        interceptor for the run."""
+        prev = (self.tracer, self.monitor, self.retry, self.chaos,
+                self.directory.admission_interceptor)
+        if tracer is not None:
+            self.tracer = tracer
+        if monitor is not None:
+            self.monitor = monitor
+            monitor.attach(self)
+        if retry is not None:
+            self.retry = retry
+        if chaos is not None:
+            self.chaos = chaos
+        if self.chaos is not None:
+            self.directory.admission_interceptor = self.chaos.enroll_failure
+        try:
+            with self.tracer.span("pipeline.run", mode=self.secure.mode,
+                                  stages=len(self.stages)):
+                return self._run_impl(source, on_result, rekey_every_n,
+                                      window_chunks)
+        finally:
+            (self.tracer, self.monitor, self.retry, self.chaos,
+             self.directory.admission_interceptor) = prev
+
+    def _run_impl(self, source: Iterable, on_result: Optional[Callable],
+                  rekey_every_n: Optional[int],
+                  window_chunks: Optional[int]) -> Any:
         mode = self.secure.mode
         wc = self.window_chunks if window_chunks is None \
             else max(1, int(window_chunks))
         if rekey_every_n and mode != "plain":
             wc = self._clamp_window_for_rekey(wc, rekey_every_n)
+        ft = None
+        if self.retry is not None or self.chaos is not None:
+            ft = FTContext(policy=self.retry if self.retry is not None
+                           else RetryPolicy(), chaos=self.chaos)
+        self._last_ft = ft
         if wc == 1:
+            if ft is not None:
+                raise ValueError(
+                    "fault tolerance (retry/chaos) needs the "
+                    "window-vectorized engine (window_chunks >= 2); the "
+                    "window factor resolved to 1 — if rekey_every_n "
+                    "clamped it, build the pipeline with a "
+                    "KeyDirectory(epoch_history=...) large enough for "
+                    "the window/rekey combination")
             # the per-chunk oracle engine: scalar seal/open per chunk with
             # a blocking verdict sync per chunk (the seed engine)
             return self._run_chunked(source, on_result, rekey_every_n)
@@ -563,8 +1102,11 @@ class Pipeline:
         end = len(self.stages) if reduce_idx is None else reduce_idx
         for i in range(end):
             st = self.stages[i]
-            stream = self._stage_stream(stream, st, self._worker_pool(i, st),
-                                        wc)
+            pool = self._worker_pool(i, st)
+            if ft is not None:
+                stream = self._stage_stream_ft(stream, st, pool, wc, ft)
+            else:
+                stream = self._stage_stream(stream, st, pool, wc)
         sink_w = max(1, self.stages[end - 1].workers) if end else 1
         egress_rows = sink_w * wc
         audit = self.directory.audit
@@ -581,23 +1123,26 @@ class Pipeline:
                     stream, mode, self.keys[reduce_idx], egress_rows):
                 egress_lat.observe(dt)
                 t0 = time.perf_counter()
-                off = 0
-                for win, vals in groups:
-                    for j in range(len(win)):
-                        if not verdicts[off + j]:
-                            m.mac_failures += 1
-                            audit.record("mac_failure", stage=st.name,
-                                         worker="io/sink",
-                                         row=win.counters[j],
-                                         epoch=win.epochs[j])
-                            continue
-                        if not reduce_started:
-                            reduce_state = st.reduce_init
-                            reduce_started = True
-                        reduce_state = st.reduce_fn(reduce_state, vals[j])
-                        m.chunks += 1
-                        m.bytes += int(win.n_words) * 4
-                    off += len(win)
+                with self.tracer.span("reduce.fold", cat="pipeline",
+                                      track="sink", rows=len(verdicts)):
+                    off = 0
+                    for win, vals in groups:
+                        for j in range(len(win)):
+                            if not verdicts[off + j]:
+                                m.mac_failures += 1
+                                audit.record("mac_failure", stage=st.name,
+                                             worker="io/sink",
+                                             row=win.counters[j],
+                                             epoch=win.epochs[j])
+                                continue
+                            if not reduce_started:
+                                reduce_state = st.reduce_init
+                                reduce_started = True
+                            reduce_state = st.reduce_fn(reduce_state,
+                                                        vals[j])
+                            m.chunks += 1
+                            m.bytes += int(win.n_words) * 4
+                        off += len(win)
                 m.seconds += dt + (time.perf_counter() - t0)
             return _finish(st.reduce_fn, reduce_state) \
                 if reduce_started else None
@@ -641,14 +1186,25 @@ class Pipeline:
         t0 = time.perf_counter()
         groups = []
         specs = []
-        for win in parts:
-            vals, ok = egress_window(mode, key, win)
-            groups.append((win, vals))
-            specs.append((ok, len(win)))
-        verdicts = _sync_window([v for _, v in groups], specs, self.device)
+        with self.tracer.span("egress.open", cat="dispatch", track="sink",
+                              rows=sum(len(w) for w in parts)):
+            for win in parts:
+                vals, ok = egress_window(mode, key, win)
+                groups.append((win, vals))
+                specs.append((ok, len(win)))
+        verdicts = _sync_window([v for _, v in groups], specs, self.device,
+                                tracer=self.tracer, track="sink")
         dt = time.perf_counter() - t0
+        disp = _DISPATCHES.value - d0
         self._egress_windows_n += 1
-        self._egress_dispatches += _DISPATCHES.value - d0
+        self._egress_dispatches += disp
+        mon = self.monitor
+        if mon.enabled:
+            mon.record_window(
+                "egress", rows=sum(len(w) for w in parts),
+                ok_rows=int(verdicts.sum()),
+                bytes=sum(len(w) * int(w.n_words) * 4 for w in parts),
+                seconds=dt, dispatches=disp)
         return groups, verdicts, dt
 
     # ------------------------------------- per-chunk oracle (window_chunks=1)
@@ -668,7 +1224,9 @@ class Pipeline:
             h0 = self.keys[0]
             if rekey_every_n and \
                     self.directory.session(h0.edge).chunks >= rekey_every_n:
-                self.directory.advance_epoch()
+                self.tracer.instant("rekey", cat="security",
+                                    track="ingress",
+                                    epoch=self.directory.advance_epoch())
             yield ingress(mode, h0, h0.next_counter(), x)
 
     def _stage_stream_chunked(self, upstream: Iterator[SealedChunk],
@@ -681,6 +1239,8 @@ class Pipeline:
         m = self.metrics[st.name]
         if len(m.per_worker) < len(pool):
             m.per_worker.extend([0] * (len(pool) - len(m.per_worker)))
+        tr = self.tracer
+        mon = self.monitor
         audit = self.directory.audit
         lat = _METRICS.histogram(f"pipeline.stage.{st.name}.window_seconds")
         while True:
@@ -695,17 +1255,30 @@ class Pipeline:
                 for chunk in queue:
                     d0 = _DISPATCHES.value
                     t0 = time.perf_counter()
-                    if st.fn is not None:
-                        out = pool[w].run(st.fn, chunk)
-                    else:
-                        out = pool[w].run_static(st.op, st.const, chunk)
+                    with tr.span("stage.chunk", cat="dispatch",
+                                 track=f"{st.name}/w{w}",
+                                 row=chunk.counter):
+                        if st.fn is not None:
+                            out = pool[w].run(st.fn, chunk)
+                        else:
+                            out = pool[w].run_static(st.op, st.const, chunk)
                     if pool[w].mode != "plain":
                         _HOST_SYNCS.inc()      # the scalar bool(ok) sync
                     dt = time.perf_counter() - t0
                     m.seconds += dt
-                    lat.observe(dt)
+                    lat.observe(dt)            # the oracle's window IS a chunk
                     m.windows += 1
-                    m.dispatches += _DISPATCHES.value - d0
+                    disp = _DISPATCHES.value - d0
+                    m.dispatches += disp
+                    if mon.enabled:
+                        mon.record_window(
+                            st.name, rows=1,
+                            ok_rows=0 if out is None else 1,
+                            bytes=0 if out is None
+                            else int(chunk.n_words) * 4,
+                            seconds=dt, queue_rows=len(window),
+                            worker_rows={w: 1}, min_epoch=chunk.epoch,
+                            dispatches=disp)
                     if out is None:
                         m.mac_failures += 1
                         audit.record("mac_failure", stage=st.name,
@@ -789,7 +1362,11 @@ class Pipeline:
         p = Pipeline(stages, self.secure, seed=self.seed,
                      directory=self.directory,
                      window_chunks=self.window_chunks, fusion=self.fusion,
-                     device=self.device)
+                     device=self.device,
+                     tracer=None if self.tracer is NULL_TRACER
+                     else self.tracer,
+                     monitor=None if self.monitor is NULL_MONITOR
+                     else self.monitor)
         p._evicted_logged = self._evicted_logged
         p._ingress_windows_n = self._ingress_windows_n
         p._ingress_dispatches = self._ingress_dispatches

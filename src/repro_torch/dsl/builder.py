@@ -24,19 +24,15 @@ of the kernels instead).  ``.as_observable()`` lowers the same chain
 onto a cleartext :class:`~repro_torch.core.observable.Observable`, the
 DSL's oracle.
 
-The engine has no span tracer, live monitor or fault tolerance yet, so
-``.trace()``, ``.monitor()``, ``.retry()`` and ``.chaos()`` raise
-``NotImplementedError`` naming their ROADMAP items rather than being
-accepted and ignored.
+``.trace()``, ``.monitor()``, ``.retry()`` and ``.chaos()`` attach a
+span tracer, a live monitor, a retry policy and a fault plan to the
+compiled pipeline (:mod:`repro_torch.obs`, :mod:`repro_torch.ft`).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Iterable, Optional, Tuple, Union
 
 from repro_torch.core.observable import Observable, Op, describe_ops
-
-_OBS_ITEM = "ROADMAP Queue 1 item 11 (obs tracing and the live monitor)"
-_FT_ITEM = "ROADMAP Queue 1 item 12 (fault tolerance)"
 
 
 class StreamBuilder:
@@ -158,21 +154,69 @@ class StreamBuilder:
         return self._with_settings(fuse=bool(enabled))
 
     def trace(self, tracer=None) -> "StreamBuilder":
-        """Not ported yet: the engine has no span tracer."""
-        raise NotImplementedError(f".trace() is not ported yet: {_OBS_ITEM}")
+        """Attach a :class:`repro_torch.obs.Tracer` to the compiled
+        pipeline (a fresh one when ``tracer`` is None).  Per-window spans
+        — ingress seals, per-worker open->op->seal, verdict syncs,
+        merges, reduce folds — land on it; export with
+        ``builder.tracer.export_chrome("trace.json")`` after a run.
+        Tracing stays off (zero-cost no-ops) unless this is called or a
+        tracer is passed to ``Pipeline.run``."""
+        from repro_torch.obs.trace import Tracer
+        return self._with_settings(
+            tracer=tracer if tracer is not None else Tracer())
+
+    @property
+    def tracer(self):
+        """The tracer attached via :meth:`trace` (None when untraced)."""
+        return self._settings.get("tracer")
 
     def monitor(self, monitor=None) -> "StreamBuilder":
-        """Not ported yet: the engine has no live monitor."""
-        raise NotImplementedError(
-            f".monitor() is not ported yet: {_OBS_ITEM}")
+        """Attach a :class:`repro_torch.obs.PipelineMonitor` (a fresh one
+        when ``monitor`` is None) to the compiled pipeline: sliding
+        per-stage health (windows/s, MB/s, p50/p95 latency, queue depth,
+        worker skew, mac-failure rate, epoch lag), updated once per
+        window while :meth:`run` streams; read it with
+        ``builder.health_monitor.snapshot()`` or serve it with
+        :func:`repro_torch.obs.serve_metrics`."""
+        from repro_torch.obs.monitor import PipelineMonitor
+        return self._with_settings(
+            monitor=monitor if monitor is not None else PipelineMonitor())
+
+    @property
+    def health_monitor(self):
+        """The monitor attached via :meth:`monitor` (None when
+        unmonitored)."""
+        return self._settings.get("monitor")
 
     def retry(self, policy=None) -> "StreamBuilder":
-        """Not ported yet: the engine has no fault tolerance."""
-        raise NotImplementedError(f".retry() is not ported yet: {_FT_ITEM}")
+        """Attach a :class:`repro_torch.ft.RetryPolicy` (the default
+        policy when ``policy`` is None): per-share retry with bounded
+        backoff, failover to survivors (or a live-enrolled spare),
+        speculative backup against stragglers, and replay of MAC-failed
+        rows from the retained window, every re-execution re-sealed
+        under fresh directory-reserved counters.  Requires the window
+        engine (``window_chunks >= 2``)."""
+        from repro_torch.ft.retry import RetryPolicy
+        return self._with_settings(
+            retry=policy if policy is not None else RetryPolicy())
+
+    @property
+    def retry_policy(self):
+        """The policy attached via :meth:`retry` (None when FT is off)."""
+        return self._settings.get("retry")
 
     def chaos(self, plan) -> "StreamBuilder":
-        """Not ported yet: the engine has no fault tolerance."""
-        raise NotImplementedError(f".chaos() is not ported yet: {_FT_ITEM}")
+        """Attach a :class:`repro_torch.ft.ChaosPlan`: seeded fault
+        injection (worker crashes, stalls, tampered shares, dropped
+        verdict syncs, enrollment failures) consulted at every engine
+        hook.  Implies :meth:`retry` with the default policy if no policy
+        was attached."""
+        return self._with_settings(chaos=plan)
+
+    @property
+    def chaos_plan(self):
+        """The plan attached via :meth:`chaos` (None when chaos is off)."""
+        return self._settings.get("chaos")
 
     # ------------------------------------------------------------ lowering
 
@@ -195,7 +239,11 @@ class StreamBuilder:
             window_chunks=s.get("window_chunks", 8),
             fuse=s.get("fuse", True),
             rekey_every_n=rekey_every_n,
-            device=s.get("device"))
+            device=s.get("device"),
+            tracer=s.get("tracer"),
+            monitor=s.get("monitor"),
+            retry=s.get("retry"),
+            chaos=s.get("chaos"))
         return self.pipeline
 
     def run(self, source: Optional[Iterable] = None, *,

@@ -30,7 +30,7 @@ contributes nothing to the streaming hot path.
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import SecureStreamConfig
 from repro_torch.core.observable import Op
@@ -215,24 +215,26 @@ def compile_pipeline(ops: Sequence[Op], *, mode: str = "enclave",
                      seed: int = 0, directory=None, window_chunks: int = 8,
                      fuse: bool = True,
                      rekey_every_n: Optional[int] = None,
-                     device=None) -> Pipeline:
+                     device=None, tracer=None, monitor=None,
+                     retry=None, chaos=None) -> Pipeline:
     """Validate, fuse, and emit a :class:`Pipeline` on ``device`` (the
     card unless the caller names another) from a DSL op chain.
 
     ``rekey_every_n`` (when known at build time, e.g. from a spec file)
     triggers the eager cadence-vs-``epoch_history`` rejection the engine
-    would otherwise raise at ``run()``."""
+    would otherwise raise at ``run()``.  ``tracer``/``monitor`` (from
+    ``StreamBuilder.trace``/``.monitor``) and ``retry``/``chaos`` (from
+    ``.retry``/``.chaos``) are attached to the emitted pipeline; None
+    keeps each off."""
     stage_dicts = validate(ops, mode)
     fused, fused_from, decisions = plan_fusion(stage_dicts, fuse)
     dev = resolve_device(device)
-    kw: Dict[str, Any] = {}
-    if directory is not None:
-        kw["directory"] = directory
     p = Pipeline([_to_stage(s, dev) for s in fused],
                  SecureStreamConfig(mode=mode),
-                 seed=seed, window_chunks=window_chunks,
+                 seed=seed, directory=directory, window_chunks=window_chunks,
                  fusion={"fused_from": fused_from, "decisions": decisions},
-                 device=dev, **kw)
+                 device=dev, tracer=tracer, monitor=monitor, retry=retry,
+                 chaos=chaos)
     if rekey_every_n and mode != "plain":
         # the same guard Pipeline.run applies — surfaced at build time
         p._clamp_window_for_rekey(p.window_chunks, int(rekey_every_n))

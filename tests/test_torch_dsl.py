@@ -357,9 +357,23 @@ def test_spec_forms_and_mini_parser_equal_reference():
                                        ("retry", "item 12"),
                                        ("chaos", "item 12")])
 def test_unported_verbs_name_their_roadmap_item(verb, item):
+    """The four verbs of ROADMAP Queue 1 items 1 and 2 (numbered 11 and
+    12 when they were unported) are ported: each attaches its object to
+    the builder, which hands it to the compiled pipeline."""
+    from repro_torch.ft import ChaosPlan, RetryPolicy
+    from repro_torch.obs import PipelineMonitor, Tracer
+    obj = {"trace": Tracer, "monitor": PipelineMonitor,
+           "retry": RetryPolicy, "chaos": ChaosPlan}[verb]()
+    prop = {"trace": "tracer", "monitor": "health_monitor",
+            "retry": "retry_policy", "chaos": "chaos_plan"}[verb]
     sb = stream().map("identity")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        getattr(sb, verb)(None)
+    assert getattr(sb, prop) is None
+    sb2 = getattr(sb, verb)(obj)
+    assert getattr(sb2, prop) is obj and getattr(sb, prop) is None
+    p = sb2.device("cpu").build("encrypted")
+    attr = {"trace": "tracer", "monitor": "monitor", "retry": "retry",
+            "chaos": "chaos"}[verb]
+    assert getattr(p, attr) is obj
 
 
 def test_builds_on_the_card_by_default(monkeypatch):

@@ -189,6 +189,45 @@ def test_pipeline_on_the_card_goes_through_the_kernels(cuda):
         minlength=20))
 
 
+def test_enclave_chaos_run_on_the_card_equals_the_cpu(cuda):
+    """A small enclave job under a crash (after the share ran), a tamper
+    and a dropped verdict: the card's terminal sum is the CPU's, bit for
+    bit, and its re-executions went through the window hop's kernel."""
+    from repro_torch.attest.directory import KeyDirectory
+    from repro_torch.configs.base import SecureStreamConfig
+    from repro_torch.core.pipeline import Pipeline, Stage
+    from repro_torch.ft import ChaosPlan, FaultSpec, RetryPolicy
+
+    def add(acc, x):
+        return x if acc is None else acc + x
+
+    xs = [np.random.default_rng(i).standard_normal(4096)
+          .astype(np.float32) for i in range(16)]
+
+    def run(dev):
+        plan = ChaosPlan(faults=[
+            FaultSpec("crash", stage="a", round=0, worker=1, when="after"),
+            FaultSpec("tamper", stage="b", round=1, worker=0, rows=2),
+            FaultSpec("drop_verdict", stage="a", round=1, worker=0)])
+        p = Pipeline([Stage("a", "scale_f32", const=1.5, workers=2),
+                      Stage("b", "relu_f32"),
+                      Stage("sum", "custom", reduce_fn=add)],
+                     SecureStreamConfig(mode="enclave"), seed=3,
+                     directory=KeyDirectory(seed=3, epoch_history=64),
+                     window_chunks=4, device=dev,
+                     retry=RetryPolicy(share_timeout_s=0.25), chaos=plan)
+        out = p.run(iter(torch.as_tensor(x, device=dev) for x in xs))
+        assert not plan.pending()
+        return out.cpu().numpy(), p.directory.audit.dump()
+
+    build.reset_launch_counts()
+    got, audit = run(cuda)
+    assert build.launch_counts()["ss_enclave_map_window"] > 0
+    want, want_audit = run("cpu")
+    assert got.view(np.uint32).tobytes() == want.view(np.uint32).tobytes()
+    assert audit == want_audit
+
+
 def test_failed_build_raises_for_a_cuda_tensor(cuda, monkeypatch):
     """No fallback: a CUDA tensor never runs the plain version."""
     def broken():

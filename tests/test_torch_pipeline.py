@@ -156,15 +156,18 @@ def test_run_window_chunks_override_keeps_result(reference,
 
 
 def test_unported_paths_raise_not_implemented(oracle_reference):
-    """Fault tolerance is not ported and raises; a window factor of 1,
+    """Nothing on these paths is unported any more: a window factor of 1,
     asked for or forced by a tight rekey cadence, runs the per-chunk
-    oracle engine and equals the reference's."""
+    oracle engine and equals the reference's; fault tolerance is
+    accepted by the window engine and, as in the reference, refused with
+    a ``ValueError`` (not ``NotImplementedError``) on the oracle."""
+    from repro_torch.ft import ChaosPlan, RetryPolicy
     _assert_equal(_as_np(_port("encrypted", 1, window_chunks=1).run(
         _short())), oracle_reference["asked"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port("encrypted", 1).run([], retry=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port("encrypted", 1, chaos=object())
+    with pytest.raises(ValueError, match="window_chunks >= 2"):
+        _port("encrypted", 1).run(_short(), window_chunks=1,
+                                  retry=RetryPolicy())
+    assert _port("encrypted", 1, chaos=ChaosPlan()).chaos.faults == []
     # a rekey cadence that clamps the window to 1 runs the oracle engine
     tight = _port("encrypted", 2,
                   directory=pipeline_mod.KeyDirectory(seed=0,
