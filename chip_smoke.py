@@ -140,22 +140,53 @@ Phases, each printed on its own line; any failure exits non-zero:
    name beside phase 3's profiled device-busy ms a window (spans are
    host time; around a launch they measure its enqueue).
 
-Every pipeline run of phases 3-7 and 11 and the serving run of phase 10
-sets the kernels' launch counts to 0 just before it and reads them just
+12. the secure wire.  (a) the sealed checkpoint of phase 10's
+   llama3.2-1b parameters (1,235,814,400 bf16 values, ~150,860 rows of
+   4,096 words, one batched seal) saved into ``build/phase12_ckpt`` and
+   restored on the card, every leaf equal; a flipped byte and a dropped
+   last row each raise; save and restore seconds split into host (npz,
+   disk, copies) and device (the seal and open calls, by CUDA events),
+   and the seal's GB/s; then the cipher pass (row 1) and the CW-MAC tags
+   (row 2, one launch per 65,535 rows, counted) at that shape against
+   their plain versions (a slab of rows at a time) and bounds; one seal
+   of that shape from an emptied cache allocator and one warm, each
+   profiled (cudaMalloc's host time beside the kernels' device time).  (b) ``pipeline_apply``
+   with 4 stages of tanh(x @ w) at width 2,048 over 8 microbatches of
+   4,096 tokens (32 MiB a hand-off): unsealed, sealed and sealed with
+   ``rekey_every_n=2``, each bit-equal to chaining the stages; the
+   largest seal and open call of each sealed run (per-item keys) bit-equal
+   to the plain cipher pass and tags on its inputs; a tampered hand-off
+   raises ``PipelineMACError``; ms a schedule sealed and unsealed in
+   turns, seal/open calls and host syncs a tick.  (c) the
+   router's keyed shuffle of 8 x 131,072 DelayedFlights records over 8
+   workers by carrier, plain and sealed (one seal, one open and one
+   exchange a sealed round): every record exactly once at worker
+   hash(carrier) % 8 by numpy, all verdicts true, and the sealed round's
+   seal and open call bit-equal to the plain cipher pass and tags on its
+   inputs; ``secure_exchange`` of the mailbox equals its transpose; a
+   flipped wire word fails exactly its block; MB/s plain and sealed in
+   turns.
+
+Every pipeline run of phases 3-7 and 11, the serving run of phase 10
+and the sealed and plain runs of phase 12 set the kernels' launch counts
+to 0 just before each and read them just
 after: it fails unless exactly the kernels of its mode's path on its
 engine were launched (window engine: the cipher pass and kernels 2-3 in
 enclave mode, the pass and 2 in encrypted mode; per-chunk engine: the
 pass and kernels 5-6, and the pass and 5; plain mode none; serving: the
 pass, 5 and 7, kernel 7 once per layer in the prefill and never in
-decode).  Kernel 3 is ``ss_enclave_map_window`` there; the rows entry
-runs on no path.  The fault-tolerant engine (phase 11) is the window
+decode; phase 12's sealed runs: the cipher pass and kernel 2, its
+plain runs none).  Kernel 3 is ``ss_enclave_map_window`` there; the rows
+entry runs on no path.  The fault-tolerant engine (phase 11) is the window
 engine's path: retries, failovers, backups and replays re-execute a
 share through the same kernels, the window hop with ``nonces_out``.
 
 Then one JSON line with every kernel's numbers (``launches`` from the
 main run of its path: phase 3 for kernels 1-3, phase 7's timed run for
 kernels 4-6, phase 10's serving run for kernel 7; rows 1 and 4 both
-count the cipher pass, each on its own path), and as the last line
+count the cipher pass, each on its own path; rows 1 and 2 also carry
+phase 12's launches and their numbers at the checkpoint's shape), and as
+the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is available.
 
@@ -218,6 +249,12 @@ KERNELS = {
     "serve": {
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
                       "ss_flash_attention_fwd"),
+    },
+    # the secure wire (phase 12): every seal and open is a batched AEAD
+    # call (the cipher pass and kernel 2); the exchanges are copies
+    "wire": {
+        "plain": (),
+        "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_tags"),
     },
 }
 #: the run whose launch counts go into each row of the JSON line (rows
@@ -2929,11 +2966,604 @@ def phase_trace(torch, dev, busy_ms_per_window=None):
               f"  {count[name]:6d} spans  {name}", flush=True)
 
 
+
+# ------------------------------------------------- phase 12: the secure wire
+
+#: phase 12a: the sealed checkpoint of phase 10's llama3.2-1b parameters
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "phase12_ckpt"
+CKPT_STEP = 1
+#: phase 12b: GPipe at llama3.2-1b's hidden width: S stages of
+#: tanh(x @ w), M microbatches of TOKENS x WIDTH f32 (32 MiB a hand-off)
+GPIPE_STAGES, GPIPE_MICRO, GPIPE_TOKENS, GPIPE_WIDTH = 4, 8, 4096, 2048
+GPIPE_REKEY = 2
+#: phase 12c: DelayedFlights records a worker over W workers
+ROUTE_WORKERS, ROUTE_RECORDS = 8, 131_072
+#: timed repetitions of 12b's schedules and 12c's rounds, in turns
+WIRE_REPS = 3
+#: words of the plain versions at a time (their int64 temporaries of a
+#: whole checkpoint, 150k rows of 4,096 words, would not fit the card)
+PLAIN_SLAB_WORDS = 16384 * 4096
+
+
+class _Evented:
+    """Wraps ``module.name`` so every call is bracketed by CUDA events:
+    ``ms()`` is the device time of the calls made since (the seal and
+    open passes of a checkpoint, apart from its host work)."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.real = getattr(module, name)
+        self.events = []
+
+    def __enter__(self):
+        def call(*a, **kw):
+            start = self.torch.cuda.Event(enable_timing=True)
+            stop = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*a, **kw)
+            stop.record()
+            self.events.append((start, stop))
+            return out
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def _slabbed(torch, fn, n_rows, row_words):
+    """``fn(i, j)`` over slabs [i, j) of rows of ``row_words`` words, at
+    most PLAIN_SLAB_WORDS a slab; outputs concatenated by row."""
+    rows = max(1, PLAIN_SLAB_WORDS // max(1, row_words))
+    outs = [fn(i, min(i + rows, n_rows)) for i in range(0, n_rows, rows)]
+    return tuple(torch.cat(p) for p in zip(*outs)) \
+        if isinstance(outs[0], tuple) else torch.cat(outs)
+
+
+class _Largest:
+    """Wraps ``module.name`` (``aead.seal_many`` or ``open_many``) and keeps
+    copies of the arguments and results of its call with the most rows:
+    one real call of a path, to hold against the plain versions."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.args = self.out = None
+
+    def __enter__(self):
+        def call(*a, **kw):
+            out = self.real(*a, **kw)
+            if self.args is None or a[1].shape[0] > self.args[1].shape[0]:
+                self.args = tuple(t.clone() for t in a)
+                self.out = tuple(t.clone() for t in out)
+            return out
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def require_aead_plain(torch, what, seal, open_):
+    """Holds the real ``seal_many`` and ``open_many`` calls that ``seal``
+    and ``open_`` (:class:`_Largest`) kept bit-equal to the plain cipher
+    pass and tags on the same inputs, a slab of rows at a time: ct and
+    tags of the seal, pt and verdicts of the open.  -> [(B, n) of the
+    seal, (B, n) of the open]."""
+    from repro_torch.kernels.chacha20.ref import cipher_pass_ref
+    from repro_torch.kernels.cwmac import ops as cwmac_ops
+    from repro_torch.kernels.cwmac.ref import mac_tags_ref
+    shapes = []
+    for mode, call in (("seal", seal), ("open", open_)):
+        if call.args is None:
+            raise AssertionError(f"{what}: no {mode}_many call to check")
+        key, nonces, words = call.args[:3]
+        B, n = words.shape
+        bw = cwmac_ops.block_words(n, B)
+
+        def plain(i, j):
+            mk, res = cipher_pass_ref(key if key.dim() == 1 else key[i:j],
+                                      nonces[i:j], words[i:j])
+            maced = res if mode == "seal" else words[i:j]
+            return res, mac_tags_ref(maced, mk[:, 0::2], mk[:, 1::2], bw)
+        res, tags = _slabbed(torch, plain, B, n)
+        require_equal(f"{what}: {mode}_many's words", call.out[0], res)
+        if mode == "seal":
+            require_equal(f"{what}: seal_many's tags", call.out[1], tags)
+        else:
+            ok = (tags == call.args[3]).all(dim=-1)
+            require_equal(f"{what}: open_many's verdicts",
+                          call.out[1].to(torch.int32), ok.to(torch.int32))
+        shapes.append((B, n))
+    return shapes
+
+
+def _tree_equal(torch, a, b, path=""):
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"restored keys differ at {path or '/'}")
+        return sum(_tree_equal(torch, a[k], b[k], f"{path}/{k}") for k in a)
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device \
+            or not torch.equal(a, b):
+        raise AssertionError(f"restored leaf {path} differs")
+    return 1
+
+
+def phase_sealed_checkpoint(torch, dev):
+    """Phase 12a: the sealed checkpoint of llama3.2-1b's 1,235,814,400 bf16
+    parameters (phase 10's ``_serve_model``), saved and restored on the
+    card, every leaf equal; a flipped byte of ``arrays.sealed`` and a
+    dropped last row (with its tag and the length) each raise.  Then the
+    cipher pass (row 1) and the CW-MAC tags (row 2) at the store's shape,
+    bit-equal to their plain versions and timed against their bounds, and
+    a cold and a warm seal of that shape profiled.
+    -> ({run: launches}, {row name: numbers at the checkpoint's shape})."""
+    import json
+    import shutil
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.kernels.chacha20 import ops as chacha_ops
+    from repro_torch.kernels.chacha20.ref import cipher_pass_ref
+    from repro_torch.kernels.cwmac import ops as cwmac_ops
+    from repro_torch.kernels.cwmac.ref import mac_tags_ref
+    cfg, params, _, init_s = _serve_model(torch, dev)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    launches = {}
+
+    def save():
+        with _Evented(torch, ckpt.aead, "seal_many") as ev:
+            t0 = time.perf_counter()
+            final = ckpt.save(str(CKPT_DIR), CKPT_STEP, params, {},
+                              device=dev)
+            torch.cuda.synchronize()
+            return final, time.perf_counter() - t0, ev.ms()
+    (final, save_s, seal_ms), launches["ckpt_save"] = counted_run(
+        torch, "sealed_checkpoint_save", "encrypted", save, engine="wire")
+    with open(Path(final) / "manifest.json") as f:
+        man = json.load(f)
+    n_bytes = man["aead"]["n_bytes"]
+    n_rows = len(man["aead"]["tags"]) // 16
+    if launches["ckpt_save"]["ss_cwmac_tags"] != \
+            -(-n_rows // cwmac_ops.MAX_ROWS):
+        raise AssertionError(f"the seal of {n_rows} rows launched the tags "
+                             f"kernel {launches['ckpt_save']}")
+
+    def restore():
+        with _Evented(torch, ckpt.aead, "open_many") as ev:
+            t0 = time.perf_counter()
+            out = ckpt.restore(str(CKPT_DIR), params_like=params,
+                               opt_like={}, device=dev)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, ev.ms()
+    ((step, restored, opt), restore_s, open_ms), \
+        launches["ckpt_restore"] = counted_run(
+            torch, "sealed_checkpoint_restore", "encrypted", restore,
+            engine="wire")
+    leaves = _tree_equal(torch, params, restored)
+    n_params = sum(t.numel() for t in ckpt._leaves(params))
+    if step != CKPT_STEP or opt != {}:
+        raise AssertionError(f"restored step {step}, opt {opt}")
+    del restored
+
+    # tamper: one flipped byte of the sealed blob, then a dropped last row
+    blob = Path(final) / "arrays.sealed"
+    with open(blob, "r+b") as f:
+        f.seek(n_bytes // 2)
+        byte = f.read(1)
+        f.seek(n_bytes // 2)
+        f.write(bytes([byte[0] ^ 0x01]))
+    for what, match in (("flipped byte", "AEAD verification FAILED on "
+                                         "rows"),
+                        ("dropped last row", "tag list")):
+        if what == "dropped last row":
+            with open(blob, "r+b") as f:
+                f.seek(n_bytes // 2)
+                f.write(byte)
+                f.truncate((n_rows - 1) * 4 * 4096)
+            bad = dict(man, aead=dict(man["aead"],
+                                      tags=man["aead"]["tags"][:-16],
+                                      n_bytes=(n_rows - 1) * 4 * 4096))
+            with open(Path(final) / "manifest.json", "w") as f:
+                json.dump(bad, f)
+        try:
+            ckpt.restore(str(CKPT_DIR), params_like=params, opt_like={},
+                         device=dev)
+        except ValueError as e:
+            if match not in str(e):
+                raise AssertionError(f"{what}: restore raised {e}") from e
+        else:
+            raise AssertionError(f"{what}: the tampered store restored")
+    shutil.rmtree(CKPT_DIR)
+    host_save, host_restore = save_s - seal_ms / 1e3, \
+        restore_s - open_ms / 1e3
+    phase("sealed_checkpoint", arch=SERVE_ARCH, params=n_params,
+          dtype="bfloat16", leaves=leaves, blob_bytes=n_bytes, rows=n_rows,
+          row_words=4096, init_s=round(init_s, 3), save_s=round(save_s, 3),
+          save_host_s=round(host_save, 3), save_device_ms=seal_ms,
+          seal_gb_per_s=n_bytes / 1e9 / (seal_ms / 1e3),
+          restore_s=round(restore_s, 3),
+          restore_host_s=round(host_restore, 3),
+          restore_device_ms=open_ms,
+          open_gb_per_s=n_bytes / 1e9 / (open_ms / 1e3),
+          equal=True, flipped_byte_raises=True, dropped_row_raises=True)
+    del params
+
+    # kernels 1 and 2 at the store's shape: (n_rows, 4096) words, one key
+    g = torch.Generator(device=dev).manual_seed(12)
+    words = torch.randint(-2 ** 31, 2 ** 31, (n_rows, 4096),
+                          dtype=torch.int32, device=dev, generator=g)
+    key = torch.randint(-2 ** 31, 2 ** 31, (8,), dtype=torch.int32,
+                        device=dev, generator=g)
+    nonces = torch.randint(-2 ** 31, 2 ** 31, (n_rows, 3),
+                           dtype=torch.int32, device=dev, generator=g)
+    rows = {}
+    mk, ct = chacha_ops.cipher_pass(key, nonces, words)
+    pmk, pct = _slabbed(torch, lambda i, j: cipher_pass_ref(
+        key, nonces[i:j], words[i:j]), n_rows, 4096)
+    require_equal("cipher pass at the checkpoint's shape", ct, pct)
+    require_equal("MAC keys at the checkpoint's shape", mk, pmk)
+    del pmk, pct, ct
+    b, by = bound(*pass_work(n_rows, 4096))
+    ms = device_ms(torch, lambda: chacha_ops.cipher_pass(key, nonces, words),
+                   2, reps=3)
+    plain_ms = _events_ms(torch, lambda: _slabbed(
+        torch, lambda i, j: cipher_pass_ref(key, nonces[i:j], words[i:j]),
+        n_rows, 4096), 1)
+    rows["chacha20_cipher_pass_batch"] = dict(
+        shape=f"{n_rows} x 4096", ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, max_abs_err=0)
+    phase("kernel_shape", name="chacha20_cipher_pass_batch",
+          shape=f"checkpoint {n_rows}x4096", bit_equal=True, ms=ms,
+          plain_ms=plain_ms, bound_ms=b, bound_by=by, share_of_bound=b / ms)
+
+    def tags():
+        return cwmac_ops.mac2_batch(words, mk[:, 0], mk[:, 1], mk[:, 2],
+                                    mk[:, 3])
+
+    def plain_tags():
+        bw = cwmac_ops.block_words(4096, n_rows)
+        return _slabbed(torch, lambda i, j: mac_tags_ref(
+            words[i:j], mk[i:j, 0::2], mk[i:j, 1::2], bw), n_rows, 4096)
+    before = cwmac_ops.KERNEL.launches
+    got = tags()
+    a_call = cwmac_ops.KERNEL.launches - before
+    if a_call != -(-n_rows // cwmac_ops.MAX_ROWS):
+        raise AssertionError(f"the tags kernel launched {a_call} times over "
+                             f"{n_rows} rows")
+    require_equal("cwmac tags at the checkpoint's shape", got, plain_tags())
+    b, by = bound(n_rows * 4096 * 4 + n_rows * 6 * 4,
+                  2 * n_rows * 4096 * CWMAC_OPS_PER_WORD)
+    ms = device_ms(torch, tags, 2, reps=3)
+    plain_ms = _events_ms(torch, plain_tags, 1)
+    rows["cwmac_tags"] = dict(
+        shape=f"{n_rows} x 4096", ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, max_abs_err=0, launches_a_call=a_call)
+    phase("kernel_shape", name="cwmac_tags",
+          shape=f"checkpoint {n_rows}x4096", bit_equal=True, ms=ms,
+          plain_ms=plain_ms, bound_ms=b, bound_by=by, share_of_bound=b / ms,
+          launches_a_call=a_call)
+
+    # the save's seal took more device time than its two kernels: one seal
+    # at the store's shape from an emptied cache allocator and one warm,
+    # each profiled, CUDA events around the call and around its cipher
+    # pass and tags calls (each with its output's allocation)
+    from torch.profiler import ProfilerActivity, profile
+    del got, mk
+    seal = {}
+    for state in ("cold", "warm"):
+        torch.cuda.synchronize()
+        if state == "cold":
+            torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                _Evented(torch, ckpt.aead, "seal_many") as ev, \
+                _Evented(torch, chacha_ops, "cipher_pass") as ev_pass, \
+                _Evented(torch, cwmac_ops, "mac2_batch") as ev_tags:
+            ckpt.aead.seal_many(key, nonces, words)
+            seal[f"{state}_event_ms"] = ev.ms()
+            seal[f"{state}_pass_event_ms"] = ev_pass.ms()
+            seal[f"{state}_tags_event_ms"] = ev_tags.ms()
+        mallocs = [e for e in prof.key_averages()
+                   if e.key.startswith("cudaMalloc")]
+        kernels = device_rows(prof)
+        seal[f"{state}_kernels_ms"] = sum(r[1] for r in kernels) / 1e3 \
+            if kernels else "not measured (no device time in the trace)"
+        seal[f"{state}_malloc_ms"] = sum(e.cpu_time_total
+                                         for e in mallocs) / 1e3
+        seal[f"{state}_mallocs"] = sum(e.count for e in mallocs)
+    phase("seal_allocator", shape=f"{n_rows}x4096", **seal)
+    return launches, rows
+
+
+def profile_wire(torch, what, fn):
+    """One warm call of ``fn()`` under torch.profiler: wall, the device's
+    busy ms and share, and the device kernels and copies that take it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(device_rows(prof), key=lambda r: -r[1])
+    if not rows:
+        phase("wire_profile", run=what, wall_ms=wall_ms, device_busy=(
+            "not measured (no device time in the trace)"))
+        return
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    phase("wire_profile", run=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
+          device_busy_share=busy_ms / wall_ms)
+    for key, t, count in rows[:8]:
+        print(f"   device {t / 1e3:10.4f} ms  {count:5d} calls  {key[:90]}",
+              flush=True)
+
+
+def _wire_calls():
+    """{AEAD seal calls, open calls, exchanges} so far (the port's
+    registry)."""
+    from repro_torch.obs.metrics import REGISTRY
+    return {k: int(REGISTRY.counter(c).value) for k, c in (
+        ("seal", "device.dispatches.aead.seal_many"),
+        ("open", "device.dispatches.aead.open_many"),
+        ("exchange", "dist.exchange_calls"))}
+
+
+def _delta(a, b):
+    return {k: b[k] - a[k] for k in a}
+
+
+def phase_sealed_gpipe(torch, dev):
+    """Phase 12b: ``pipeline_apply`` with S = 4 stages of tanh(x @ w) at
+    llama3.2-1b's hidden width (w (4, 2048, 2048) f32) over M = 8
+    microbatches of 4,096 x 2,048 (32 MiB a hand-off): unsealed, sealed,
+    and sealed with ``rekey_every_n=2`` on an explicit directory, each
+    bit-equal to chaining the stages one microbatch at a time; a tampered
+    hand-off raises ``PipelineMACError``.  -> {run: launches}."""
+    from repro_torch.crypto import aead
+    from repro_torch.dist import pipeline_parallel as pp
+    S, M, T, D = GPIPE_STAGES, GPIPE_MICRO, GPIPE_TOKENS, GPIPE_WIDTH
+    g = torch.Generator(device=dev).manual_seed(21)
+    w = torch.randn((S, D, D), device=dev, generator=g) / math.sqrt(D)
+    xs = torch.randn((M, T, D), device=dev, generator=g)
+
+    def stage(wi, x):
+        return torch.tanh(x @ wi)
+
+    def chain():
+        outs = []
+        for m in range(M):
+            x = xs[m]
+            for s in range(S):
+                x = stage(w[s], x)
+            outs.append(x)
+        return torch.stack(outs)
+    want = chain()
+    # a fresh step for every sealed schedule on the shared default
+    # directory: its edge counters are step * M + microbatch
+    steps = iter(range(1, 1 << 20))
+    d = pp.edge_directory(S, seed=0)
+    runs = {"plain": dict(seal=False), "sealed": dict(seal=True),
+            "sealed_rekey": dict(seal=True, directory=d,
+                                 rekey_every_n=GPIPE_REKEY)}
+    launches, calls, checked = {}, {}, {}
+    for name, kw in runs.items():
+        c0 = _wire_calls()
+        with _Largest(aead, "seal_many") as seal, \
+                _Largest(aead, "open_many") as open_:
+            out, launches[name] = counted_run(
+                torch, f"gpipe_{name}", "plain" if name == "plain"
+                else "encrypted", lambda: pp.pipeline_apply(
+                    stage, w, xs, step=next(steps), **kw),
+                engine="wire")
+        calls[name] = _delta(c0, _wire_calls())
+        if not torch.equal(out, want):
+            raise AssertionError(f"gpipe {name}: differs from chaining the "
+                                 f"stages")
+        if name != "plain":
+            checked[name] = require_aead_plain(torch, f"gpipe {name}", seal,
+                                               open_)
+        del seal, open_
+    if d.epoch != (M + S - 1) // GPIPE_REKEY:
+        raise AssertionError(f"the rekeyed schedule ended at epoch "
+                             f"{d.epoch}")
+
+    # a tampered hand-off: one ciphertext word flipped into stage 2,
+    # microbatch 3
+    real = pp.unprotect_many
+
+    def tampered(keys, counters, cts, tags, meta):
+        for i, (k, st) in enumerate(zip(keys, counters)):
+            if k.stage_id == 2 and st % M == 3:
+                cts = cts.clone()
+                cts[i, 7] ^= 0x10
+        return real(keys, counters, cts, tags, meta)
+    pp.unprotect_many = tampered
+    try:
+        pp.pipeline_apply(stage, w, xs, step=next(steps))
+    except pp.PipelineMACError as e:
+        if str(e) != "MAC failure on edge into stage 2, microbatch 3":
+            raise AssertionError(f"tamper named {e}") from e
+    else:
+        raise AssertionError("a tampered hand-off opened")
+    finally:
+        pp.unprotect_many = real
+
+    ticks = M + S - 1
+    syncs, sites = host_syncs(torch, lambda: pp.pipeline_apply(
+        stage, w, xs, step=next(steps)))
+    for name in ("plain", "sealed"):
+        profile_wire(torch, f"gpipe_{name}", lambda: pp.pipeline_apply(
+            stage, w, xs, seal=name == "sealed", step=next(steps)))
+    ms = {"plain": [], "sealed": []}
+    for name in ("plain", "sealed", "sealed", "plain") * WIRE_REPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp.pipeline_apply(stage, w, xs, seal=name == "sealed",
+                          step=next(steps))
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    sealed = calls["sealed"]
+    phase("sealed_gpipe", stages=S, microbatches=M, tokens=T, width=D,
+          handoff_mib=T * D * 4 / 2 ** 20, ticks=ticks,
+          equal_plain=True, equal_sealed=True, equal_rekeyed=True,
+          aead_plain_equal={k: [f"{b}x{n}" for b, n in v]
+                            for k, v in checked.items()},
+          tamper_raises=True, rekey_epochs=d.epoch,
+          plain_ms=min(ms["plain"]), sealed_ms=min(ms["sealed"]),
+          plain_ms_all=ms["plain"], sealed_ms_all=ms["sealed"],
+          seal_calls=sealed["seal"], open_calls=sealed["open"],
+          seal_calls_a_tick=sealed["seal"] / ticks,
+          open_calls_a_tick=sealed["open"] / ticks,
+          host_syncs=syncs, host_syncs_a_tick=syncs / ticks,
+          sync_sites=",".join(sorted(set(sites))))
+    return launches
+
+
+def _np_hash(k):
+    """numpy u32 ``_consistent_hash``: the oracle of 12c's routing."""
+    k = k.astype(np.uint32) * np.uint32(0x9E3779B1)
+    return k ^ (k >> np.uint32(16))
+
+
+def phase_keyed_shuffle(torch, dev):
+    """Phase 12c: the router's keyed shuffle of DelayedFlights records
+    (16 words, 64 B) from ``data.synthetic``, 131,072 a worker over W = 8
+    workers on the ``model`` axis, keyed by carrier, plain and over sealed
+    channels: every record arrives exactly once at worker hash(carrier) %
+    8 (numpy), the counts sum to 8 x 131,072 and every verdict is true;
+    ``secure_exchange`` of the same mailbox equals its transpose; a
+    flipped wire word fails exactly that block.  -> {run: launches}."""
+    from repro_torch.attest.directory import ephemeral_edge_key
+    from repro_torch.core.router import _bucket, route_keyed_sharded
+    from repro_torch.crypto import aead
+    from repro_torch.data.synthetic import CARRIER_WORD, flight_records
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.meshctx import make_mesh
+    from repro_torch.u32 import from_numpy
+    W, n = ROUTE_WORKERS, ROUTE_RECORDS
+    recs = flight_records(W * n, seed=12).reshape(W, n, 16)
+    x = from_numpy(recs, dev)
+    keys = x[:, :, CARRIER_WORD].contiguous()
+    mesh = make_mesh((W,), ("model",), device=dev)
+    key = ephemeral_edge_key("shuffle", seed=12)
+    dest = (_np_hash(recs[:, :, CARRIER_WORD]) % W).astype(np.int64)
+    launches, calls, step = {}, {}, 0
+    for name in ("plain", "sealed"):
+        kw = dict(key=key, step=step) if name == "sealed" else {}
+        step += 1
+        c0 = _wire_calls()
+        with _Largest(aead, "seal_many") as seal, \
+                _Largest(aead, "open_many") as open_:
+            (inbox, counts, ok), launches[name] = counted_run(
+                torch, f"keyed_route_{name}",
+                "encrypted" if name == "sealed" else "plain",
+                lambda: route_keyed_sharded(x, keys, mesh, **kw),
+                engine="wire")
+        calls[name] = _delta(c0, _wire_calls())
+        if name == "sealed":
+            checked = require_aead_plain(torch, "keyed route sealed", seal,
+                                         open_)
+        del seal, open_
+        counts_h, inbox_h = counts.cpu().numpy(), inbox.cpu().numpy()
+        if not bool(ok.all()) or int(counts_h.sum()) != W * n:
+            raise AssertionError(f"keyed route {name}: verdicts or counts "
+                                 f"wrong ({int(counts_h.sum())} rows)")
+        for j in range(W):
+            for src in range(W):
+                got = inbox_h[j, src, :counts_h[j, src]].view(np.uint32)
+                if not np.array_equal(got, recs[src][dest[src] == j]):
+                    raise AssertionError(f"keyed route {name}: block "
+                                         f"({src} -> {j}) differs")
+        del inbox, inbox_h
+    if calls["sealed"] != {"seal": 1, "open": 1, "exchange": 1}:
+        raise AssertionError(f"a sealed round made {calls['sealed']}")
+
+    mailbox, bucket_counts = _bucket(x, torch.from_numpy(dest).to(dev), W)
+    y, ok = col.secure_exchange(mailbox, mesh, key=key, step=step)
+    step += 1
+    if not bool(ok.all()) or not torch.equal(y, mailbox.transpose(0, 1)):
+        raise AssertionError("secure_exchange differs from the transpose")
+    del y
+
+    # the wire exposed: the sealed round's pieces, one word flipped in
+    # block (src 3 -> dst 5)
+    payload = torch.cat([mailbox.reshape(W, W, -1),
+                         bucket_counts[..., None]], dim=-1)
+    n_words = payload.shape[-1]
+    kw_t = torch.from_numpy(key.key).to(dev)
+    nonces = col._route_nonces_base(W, step * W * W, dev)
+    ct, tags = aead.seal_many(kw_t, nonces, payload.reshape(W * W, -1))
+    wire = torch.cat([ct, tags], -1).reshape(W, W, -1)
+    wire[3, 5, n_words // 2] ^= 0x4
+    got = col.exchange(wire, mesh).reshape(W * W, -1)
+    nonces_in = nonces.reshape(W, W, 3).transpose(0, 1).reshape(W * W, 3)
+    _, ok = aead.open_many(kw_t, nonces_in, got[:, :n_words],
+                           got[:, n_words:])
+    want = torch.ones((W, W), dtype=torch.bool, device=dev)
+    want[5, 3] = False
+    if not torch.equal(ok.reshape(W, W), want):
+        raise AssertionError("a flipped wire word did not fail exactly its "
+                             "block")
+    del wire, got, ct, payload, mailbox
+
+    steps = iter(range(step + 1, 1 << 20))   # a fresh step every round
+    for name in ("plain", "sealed"):
+        profile_wire(torch, f"keyed_route_{name}", lambda: route_keyed_sharded(
+            x, keys, mesh, **(dict(key=key, step=next(steps))
+                              if name == "sealed" else {})))
+    ms = {"plain": [], "sealed": []}
+    for name in ("plain", "sealed", "sealed", "plain") * WIRE_REPS:
+        kw = dict(key=key, step=next(steps)) if name == "sealed" else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        route_keyed_sharded(x, keys, mesh, **kw)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    mb = W * n * 64 / 1e6
+    phase("keyed_shuffle", workers=W, records_a_worker=n, record_bytes=64,
+          mailbox_mb=W * W * n * 64 / 1e6, payload_rows=W * W,
+          payload_words=n_words, exactly_once=True,
+          aead_plain_equal=[f"{b}x{n}" for b, n in checked],
+          transpose_equal=True, flipped_word_fails_its_block=True,
+          plain_ms=min(ms["plain"]), sealed_ms=min(ms["sealed"]),
+          plain_mb_per_s=mb / (min(ms["plain"]) / 1e3),
+          sealed_mb_per_s=mb / (min(ms["sealed"]) / 1e3),
+          plain_ms_all=ms["plain"], sealed_ms_all=ms["sealed"],
+          sealed_round_calls=calls["sealed"],
+          plain_round_calls=calls["plain"])
+    return launches
+
+
+def phase_secure_wire(torch, dev):
+    """Phase 12: 12a, 12b and 12c.  -> ({run: launches}, {row name: the
+    numbers of rows 1 and 2 at the checkpoint's shape})."""
+    t0 = time.perf_counter()
+    launches, rows = phase_sealed_checkpoint(torch, dev)
+    t1 = time.perf_counter()
+    launches.update({f"gpipe_{k}": v for k, v in
+                     phase_sealed_gpipe(torch, dev).items()})
+    t2 = time.perf_counter()
+    launches.update({f"keyed_route_{k}": v for k, v in
+                     phase_keyed_shuffle(torch, dev).items()})
+    phase("secure_wire", seconds=round(time.perf_counter() - t0, 3),
+          checkpoint_s=round(t1 - t0, 3), gpipe_s=round(t2 - t1, 3),
+          shuffle_s=round(time.perf_counter() - t2, 3))
+    return launches, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2991,11 +3621,17 @@ def main() -> int:
         phase_ft_stage8(torch, dev)
         phase_observation_cost(torch, dev, OBS_RECORDS)
         phase_trace(torch, dev, busy_ms)
+    wire_launches, wire_rows = phase_secure_wire(torch, dev) \
+        if 12 in phases else ({}, {})
     for k in kernels:
         sym = k.pop("symbol")
         run = LAUNCHES_FROM[k["name"]]
         k["launches"] = launches[run][sym] if run in launches else None
         k.update(extra.get(k["name"], {}))
+        if k["name"] in wire_rows:
+            k.setdefault("shapes", {})["checkpoint"] = wire_rows[k["name"]]
+            k["launches_secure_wire"] = {
+                run: n[sym] for run, n in wire_launches.items() if n[sym]}
     phase("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

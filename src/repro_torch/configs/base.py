@@ -1,17 +1,20 @@
 """Configuration dataclasses of the port (``repro/configs/base.py``).
 
 A served architecture is described by a :class:`ModelConfig`, the serving
-geometry by :class:`RunConfig` and the secure-stream data path by
-:class:`SecureStreamConfig`.  Plain frozen dataclasses with the
-reference's field names.  :class:`ModelConfig` holds the dense family's
-fields only; the reference's MoE, SSM, xLSTM, frontend, optimizer and
-sharding configs come with the slices that read them (ROADMAP Queue 1
-item 15).
+geometry by :class:`RunConfig`, the secure-stream data path by
+:class:`SecureStreamConfig` and the logical-axis sharding rules by
+:class:`ShardingConfig` (read by :mod:`repro_torch.dist.meshctx`).
+Plain frozen dataclasses with the reference's field names.
+:class:`ModelConfig` holds the dense family's fields only; the
+reference's MoE, SSM, xLSTM, frontend and optimizer configs come with
+the slices that read them.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
+from typing import Dict, Tuple
 
 # ---------------------------------------------------------------------------
 # Model config
@@ -78,6 +81,37 @@ class SecureStreamConfig:
     mac: str = "cwmac"             # cwmac | none (poly1305 reserved for host)
     seal_checkpoints: bool = True
     seal_pp_boundaries: bool = True
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Logical-axis -> mesh-axis rules (MaxText-style)."""
+
+    # Each logical axis maps to a tuple of mesh axes tried in order; the
+    # partitioner shards on the first whose size divides the dim (padding
+    # is allowed as a fallback when `allow_uneven`).
+    rules: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+        ("batch", ("pod", "data")),
+        ("seq", ()),               # sequence sharding enabled per-shape
+        ("seq_res", ()),           # SP residual stream (enable per-arch)
+        ("moe_ff", ()),            # FSDP storage of expert weights
+        ("embed", ()),             # activation d_model: replicated
+        ("vocab", ("model",)),
+        ("heads", ("model",)),
+        ("kv_heads", ("model",)),
+        ("mlp", ("model",)),
+        ("experts", ("model",)),
+        ("kv_seq", ()),            # decode KV cache sequence dim
+        ("zero", ("data",)),       # optimizer-state sharding axis
+    )
+    allow_uneven: bool = True
+
+    def with_rule(self, name: str, axes: Tuple[str, ...]) -> "ShardingConfig":
+        rules = tuple((k, axes if k == name else v) for k, v in self.rules)
+        return dataclasses.replace(self, rules=rules)
+
+    def lookup(self) -> Dict[str, Tuple[str, ...]]:
+        return dict(self.rules)
 
 
 @dataclass(frozen=True)

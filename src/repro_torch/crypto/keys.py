@@ -4,9 +4,11 @@ Session keys are established per edge by the quote-checked handshake and
 owned, ratcheted and revoked by
 :class:`repro_torch.attest.directory.KeyDirectory`; this module defines
 the key *container* and the nonce discipline.  The reference's legacy
-root-seed derivation (``derive_stage_key``) is not ported: every key of
+per-stage derivation from a root seed is not ported: every edge key of
 the port comes from a directory, and the repository's key-hygiene test
-admits that derivation only inside ``src/repro/crypto``.
+admits that derivation only inside ``src/repro/crypto``.  The root seed
+itself is: :func:`root_key_from_seed` feeds the sealed checkpoint
+store's seal key (:mod:`repro_torch.ckpt.checkpoint`).
 
 Word carrier: ``StageKey.key`` and :meth:`StageKey.nonce` are ``int32``
 numpy arrays holding the u32 bit patterns (the reference holds
@@ -17,6 +19,7 @@ occupies nonce words 1..2 (64 bits) and :meth:`StageKey.nonce` raises
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -69,3 +72,9 @@ def resolve_key(key, epoch: int = None) -> StageKey:
 def current_epoch(key) -> int:
     """The epoch a seal under ``key`` happens in (0 for static keys)."""
     return 0 if isinstance(key, StageKey) else key.epoch
+
+
+def root_key_from_seed(seed: int) -> bytes:
+    """The 32-byte root secret of ``seed`` (the reference's, byte for
+    byte): the sealed checkpoint store derives its seal key from it."""
+    return hashlib.sha256(f"repro-root-{seed}".encode()).digest()

@@ -370,7 +370,9 @@ int tags(const void* words, long long B, long long n, const void* r0,
 
 }  // namespace
 
-// words (B, n) contiguous; key k's r and s at r_k[q * rs_k], s_k[q * ss_k]
+// words (B, n) contiguous, B <= 65,535 (rows sit on gridDim.y; the Python
+// wrapper launches once per slab of a larger batch); key k's r and s at
+// r_k[q * rs_k], s_k[q * ss_k]
 // (int32-carried, read as signed mod p); tags (B, K).  G blocks per row of
 // m groups per thread; cluster != 0 folds through a cluster (G <= 8), else
 // through scratch (B*G*K words) and tickets (B ints, zero on entry and on

@@ -1,4 +1,4 @@
-"""Public ops: CW-MAC tags, one kernel launch per call.
+"""Public ops: CW-MAC tags, one kernel launch per call of up to 65,535 rows.
 
 Replaces the reference's ``repro/kernels/cwmac/ops.py``: ``mac_batch`` /
 ``mac2_batch`` (Pallas ``_mac_tile_batch_kernel``) and ``mac`` (Pallas
@@ -30,6 +30,9 @@ CLUSTER_BLOCKS = 8
 MIN_GROUPS, CLUSTER_GROUPS = 4, 16
 #: SM count the CPU path plans for (an H100 SXM's)
 H100_SMS = 132
+#: rows one launch covers (they sit on gridDim.y, and the launcher refuses
+#: more); :func:`mac2_batch` launches once per slab of this many rows
+MAX_ROWS = 65535
 
 KERNEL = build.Kernel("ss_cwmac_tags", [
     build.VOIDP, build.LONG, build.LONG, build.VOIDP, build.VOIDP,
@@ -108,22 +111,29 @@ def _tags(words: torch.Tensor, keys: List[torch.Tensor], batched: bool
     stream = build.stream_of(words)
     G, m, cluster = plan(n, B, _sms(dev.index))
     out = torch.empty((B, K), dtype=torch.int32, device=dev)
+    # one launch a slab of at most MAX_ROWS rows (a sealed checkpoint's
+    # ~151k rows are three); launches on one stream run in order, so every
+    # slab reuses the same scratch and tickets
+    slab = min(B, MAX_ROWS)
     scratch = tickets = None                 # the cluster path needs none
     if not cluster:
-        part = torch.empty(B * G * K, dtype=torch.int32, device=dev)
+        part = torch.empty(slab * G * K, dtype=torch.int32, device=dev)
         scratch, tickets = part.data_ptr(), _tickets(dev, stream,
-                                                     B).data_ptr()
+                                                     slab).data_ptr()
     r0, s0 = keys[0], keys[1]
     r1, s1 = (keys[2], keys[3]) if K == 2 else (r0, s0)
-    if batched:
-        KERNEL(words.data_ptr(), B, n, r0.data_ptr(), s0.data_ptr(),
-               r1.data_ptr(), s1.data_ptr(), r0.stride(0), s0.stride(0),
-               r1.stride(0), s1.stride(0), K, G, m, int(cluster),
-               out.data_ptr(), scratch, tickets, stream)
-    else:
+    if not batched:
         MESSAGE_KERNEL(words.data_ptr(), n, r0.data_ptr(), s0.data_ptr(),
                        r1.data_ptr(), s1.data_ptr(), K, G, m, int(cluster),
                        out.data_ptr(), scratch, tickets, stream)
+        return out
+    key_ptrs = [(k.data_ptr(), 4 * k.stride(0)) for k in (r0, s0, r1, s1)]
+    for q0 in range(0, B, slab):
+        KERNEL(words.data_ptr() + 4 * q0 * n, min(slab, B - q0), n,
+               *[p + q0 * step for p, step in key_ptrs],
+               r0.stride(0), s0.stride(0), r1.stride(0), s1.stride(0), K,
+               G, m, int(cluster), out.data_ptr() + 4 * q0 * K, scratch,
+               tickets, stream)
     return out
 
 

@@ -570,3 +570,103 @@ def test_prefill_launches_kernel_7_once_per_layer_and_decode_never(cuda):
     excess = (logits.cpu() - want).abs() - (3e-2 + 2 ** -6 * want.abs())
     assert excess.max().item() <= 0
     assert torch.isfinite(logits2).all()
+
+
+# ------------------------------------------------------- the secure wire
+
+
+def _mac2_chunked_plain(words, mk, rows=16384):
+    """The plain tags of a large batch, a slab of rows at a time (the rows
+    are independent; one slab's temporaries fit the card)."""
+    return torch.cat([mac_tags_ref(
+        words[i:i + rows], mk[i:i + rows, 0::2], mk[i:i + rows, 1::2],
+        cwmac_ops.block_words(words.shape[1], words.shape[0]))
+        for i in range(0, words.shape[0], rows)])
+
+
+@pytest.mark.parametrize("B,n", [(70_000, 37), (70_000, 4096),
+                                 (150_860, 4096)])
+def test_cwmac_tags_over_65535_rows_equal_plain(cuda, B, n):
+    """More rows than one grid's y extent: one launch per slab of MAX_ROWS
+    (65,535) rows, each counted where it is launched, tags bit-equal to
+    the plain version (a sealed llama3.2-1b checkpoint is ~150,860 rows of
+    4,096 words)."""
+    g = torch.Generator(device=cuda).manual_seed(B + n)
+    words = torch.randint(-2 ** 31, 2 ** 31, (B, n), dtype=torch.int32,
+                          device=cuda, generator=g)
+    mk = torch.randint(0, 2 ** 31 - 1, (B, 4), dtype=torch.int32,
+                       device=cuda, generator=g)
+    before = cwmac_ops.KERNEL.launches
+    got = cwmac_ops.mac2_batch(words, mk[:, 0], mk[:, 1], mk[:, 2], mk[:, 3])
+    assert cwmac_ops.KERNEL.launches == before + -(-B // cwmac_ops.MAX_ROWS)
+    assert torch.equal(got, _mac2_chunked_plain(words, mk))
+
+
+def test_seal_many_over_65535_rows_opens_and_equals_plain(cuda):
+    B, n = 70_000, 64
+    t = lambda a: from_numpy(a, cuda)       # noqa: E731
+    key, nonces, words = t(_u32(8, 40)), t(_u32((B, 3), 41)), \
+        t(_u32((B, n), 42))
+    ct, tags = aead.seal_many(key, nonces, words)
+    ct_p, tags_p = aead.seal_many(key, nonces, words, backend="torch")
+    assert torch.equal(ct, ct_p) and torch.equal(tags, tags_p)
+    pt, ok = aead.open_many(key, nonces, ct, tags)
+    assert torch.equal(pt, words) and bool(ok.all())
+
+
+def test_sealed_checkpoint_on_the_card_equals_the_cpu_store(cuda, tmp_path,
+                                                            monkeypatch):
+    """The same salt gives the same sealed store from the card's seal and
+    from the CPU's plain versions; the card restores it exactly."""
+    import json
+    import os
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    g = torch.Generator().manual_seed(3)
+    params = {"w": torch.randn(300, 1000, generator=g).to(torch.bfloat16),
+              "b": torch.randn(4097, generator=g)}
+    opt = {"m": [torch.randn(300, 1000, generator=g), None]}
+    monkeypatch.setattr(os, "urandom", lambda k: bytes(range(k)))
+    stores = {}
+    for dev in ("cpu", cuda):
+        tree = {k: v.to(dev) for k, v in params.items()}
+        final = ckpt.save(str(tmp_path / str(dev)), 5, tree, opt,
+                          device=dev)
+        with open(os.path.join(final, "arrays.sealed"), "rb") as f:
+            blob = f.read()
+        with open(os.path.join(final, "manifest.json")) as f:
+            aead_meta = json.load(f)["aead"]
+        stores[str(dev)] = (blob, aead_meta)
+    assert stores["cpu"] == stores[str(cuda)]
+    _, p2, o2 = ckpt.restore(str(tmp_path / str(cuda)), params_like=params,
+                             opt_like=opt, device=cuda)
+    assert all(p2[k].device == cuda and torch.equal(p2[k].cpu(), params[k])
+               for k in params)
+    assert torch.equal(o2["m"][0].cpu(), opt["m"][0]) and o2["m"][1] is None
+
+
+@pytest.mark.parametrize("sealed", [False, True])
+def test_secure_exchange_and_keyed_route_at_8_workers_equal_the_cpu(cuda,
+                                                                   sealed):
+    from repro_torch.attest.directory import ephemeral_edge_key
+    from repro_torch.core.router import route_keyed_sharded
+    from repro_torch.dist.collectives import secure_exchange
+    from repro_torch.dist.meshctx import make_mesh
+    W = 8
+    key = ephemeral_edge_key("shuffle", seed=0)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((W, W, 64, 16))
+                         .astype(np.float32))
+    rows = from_numpy(_u32((W, 4096, 16), 5), "cpu")
+    rkeys = from_numpy(_u32((W, 4096), 6), "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh((W,), ("model",), device=dev)
+        kw = dict(key=key, step=3) if sealed else {}
+        y = secure_exchange(x.to(dev), mesh, key=key, step=2)
+        r = route_keyed_sharded(rows.to(dev), rkeys.to(dev), mesh, **kw)
+        out[str(dev)] = [t.cpu() for t in (*y, *r)]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(a, b)
+    assert bool(out["cpu"][1].all()) and bool(out["cpu"][4].all())
+    assert int(out["cpu"][3].sum()) == W * 4096
