@@ -166,18 +166,41 @@ Phases, each printed on its own line; any failure exits non-zero:
    inputs; ``secure_exchange`` of the mailbox equals its transpose; a
    flipped wire word fails exactly its block; MB/s plain and sealed in
    turns.
+13. secure training of llama3.2-1b at full width and depth (4 x 2,048
+   tokens a step, AdamW, remat "full", bf16; every number printed beside
+   the card's name and power limit).  (a) at its attention shape (B 4,
+   32 heads, S 2,048, D 64): kernel 7's out and its log-sum-exp (bf16
+   and f32) against the plain version, the flash Function's dq/dk/dv
+   against autograd through plain f32 attention; the kernel's time with
+   and without the lse; the Function's backward (plain torch) beside its
+   bound, the plain attention's backward and SDPA's.  (b) one train step
+   with kernel 7 ("flash") and one with the plain "chunked" attention
+   from the same weights and batch: loss and global gradient norm within
+   stated bf16 tolerances.  (c) ``Trainer.train()`` with sealed batches
+   (``examples/secure_lm_train.py``'s learnable recipe), a sealed
+   checkpoint every 3 steps into ``build/phase13_ckpt`` (removed after)
+   and a ``node_loss`` at step 4: restarts 1, one step replayed, and the
+   final parameters equal an uninterrupted run's bit for bit (both under
+   ``torch.use_deterministic_algorithms(True)``, with
+   ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts); seconds a step,
+   tokens/s, MFU, the device's busy share and the flash backward's share
+   of a profiled step, kernel 7 launches a step, sealed ingest ms a step,
+   checkpoint save and restore seconds, peak memory.
 
-Every pipeline run of phases 3-7 and 11, the serving run of phase 10
-and the sealed and plain runs of phase 12 set the kernels' launch counts
-to 0 just before each and read them just
+Every pipeline run of phases 3-7 and 11, the serving run of phase 10,
+the sealed and plain runs of phase 12 and the train steps and training
+runs of phase 13 set the kernels' launch counts to 0 just before each
+and read them just
 after: it fails unless exactly the kernels of its mode's path on its
 engine were launched (window engine: the cipher pass and kernels 2-3 in
 enclave mode, the pass and 2 in encrypted mode; per-chunk engine: the
 pass and kernels 5-6, and the pass and 5; plain mode none; serving: the
 pass, 5 and 7, kernel 7 once per layer in the prefill and never in
 decode; phase 12's sealed runs: the cipher pass and kernel 2, its
-plain runs none).  Kernel 3 is ``ss_enclave_map_window`` there; the rows
-entry runs on no path.  The fault-tolerant engine (phase 11) is the window
+plain runs none; phase 13: kernel 7 alone in a "flash" step, nothing in
+a "chunked" one, the pass and kernels 5 and 7 in the uninterrupted
+training run, and kernel 2 as well in the checkpointed one).  Kernel 3
+is ``ss_enclave_map_window`` there; the rows entry runs on no path.  The fault-tolerant engine (phase 11) is the window
 engine's path: retries, failovers, backups and replays re-execute a
 share through the same kernels, the window hop with ``nonces_out``.
 
@@ -185,8 +208,9 @@ Then one JSON line with every kernel's numbers (``launches`` from the
 main run of its path: phase 3 for kernels 1-3, phase 7's timed run for
 kernels 4-6, phase 10's serving run for kernel 7; rows 1 and 4 both
 count the cipher pass, each on its own path; rows 1 and 2 also carry
-phase 12's launches and their numbers at the checkpoint's shape), and as
-the last line
+phase 12's launches and their numbers at the checkpoint's shape; rows 1,
+2, 4, 5 and 7 carry phase 13's launches in its recovered training run
+and row 7 its training numbers), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is available.
 
@@ -195,8 +219,10 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -255,6 +281,22 @@ KERNELS = {
     "wire": {
         "plain": (),
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_tags"),
+    },
+    # secure training (phase 13): one train step launches kernel 7 twice a
+    # layer under remat "full" ("flash") or nothing ("chunked"); the
+    # trainer's batches are sealed and opened with the scalar AEAD
+    # (kernels 4 and 5), its checkpoints with the batched one (1 and 2)
+    "train_step": {
+        "flash": ("ss_flash_attention_fwd",),
+        "chunked": (),
+    },
+    "train_steps": {
+        "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
+                      "ss_flash_attention_fwd"),
+    },
+    "train": {
+        "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
+                      "ss_cwmac_tags", "ss_flash_attention_fwd"),
     },
 }
 #: the run whose launch counts go into each row of the JSON line (rows
@@ -1075,12 +1117,14 @@ def phase_reducer(torch, dev, rng):
 
 
 def phase_card_and_build(torch):
+    global CARD
     from repro_torch.kernels import build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(smi, flush=True)
+    CARD = f'"{smi.splitlines()[0]}"'   
     t0 = time.perf_counter()
     probe_build = start_probe_build()        # beside the library's nvccs
     build.library()
@@ -3559,15 +3603,534 @@ def phase_secure_wire(torch, dev):
     return launches, rows
 
 
+# --------------------------------------------- phase 13: secure training
+
+#: phase 13's model, batch and run: llama3.2-1b at full width and depth,
+#: 4 sequences of 2,048 tokens a step, AdamW, remat "full", bf16
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+#: 13c: steps, checkpoint cadence and the injected failure (after the
+#: first checkpoint, so the restart restores it and replays a step)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 3, 4
+TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / "phase13_ckpt"
+#: 13a: kernel 7's lse against the plain version's (f32 both; values
+#: ~log(keys) ~ 8): the scores' f32 sums in another order, ex2.approx (2
+#: ulp) over <= 2,048 terms and the exp2-unit max times ln 2 each move it
+#: ~1e-6..1e-5
+LSE_TOL = 1e-4
+#: 13a: the flash Function's dq/dk/dv (bf16) against autograd through the
+#: plain f32 attention: the relative L2 error of each; the Function's
+#: inputs to the backward are bf16 (its output rounds at 2^-9, and delta =
+#: sum(do * out) reads it) and its gradients round to bf16 (2^-9)
+GRAD_RTOL = 1e-2
+#: 13b: the loss and the global gradient norm of one step with kernel 7
+#: ("flash") and with the plain "chunked" attention.  Two bf16 runs that
+#: differ in rounding drift ~2^-4 on a logit over the 16 layers (phase
+#: 10's SERVE_LOGIT_TOL); the loss averages 8,192 tokens' NLL (~11.8),
+#: so 1e-2 leaves a wide margin; the norm is dominated by the largest
+#: leaves, whose elements differ by bf16 rounding: 2e-2 relative
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GNORM_RTOL = 2e-2
+#: 13b: the attention leaves' gradients (wq, wk, wv, wo of every layer),
+#: which the loss and the norm hardly see at random init.  In f32 the two
+#: steps differ only in attention's forward (kernel 7's f32 kernel, ~1e-6
+#: from the plain one) and in the order of the backward's sums, so each
+#: leaf's relative L2 gap must stay under ATTN_GRAD_F32_RTOL; a wrong
+#: backward moves it by O(1).  In bf16 every product of the network
+#: rounds, which leaves both bf16 steps ~2e-2 from the f32 step: the
+#: flash step's attention leaves may be no farther from the f32 chunked
+#: step than ATTN_GRAD_BF16_RATIO times the bf16 chunked step's are.
+#: Measured on an H100 80GB HBM3 (700 W): 6.0e-6..8.0e-6 in f32; in bf16
+#: 2.19e-2..2.83e-2 (flash) against 2.21e-2..2.84e-2 (chunked)
+ATTN_GRAD_F32_RTOL = 1e-4
+ATTN_GRAD_BF16_RATIO = 1.5
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+#: 13c: the first loss of random weights (embedding std 0.02: near-uniform
+#: logits) lies within 1.0 of ln(vocab)
+TRAIN_LOSS0_TOL = 1.0
+CARD = ""                       # "name, power limit" (nvidia-smi), phase 1
+
+
+def train_data_fn(vocab: int):
+    """``examples/secure_lm_train.py``'s learnable recipe at phase 13's
+    shape: noisy modular ramps, deterministic per step (replay)."""
+    def data_fn(step: int):
+        rng = np.random.default_rng(1000 + step)
+        start = rng.integers(0, vocab, (TRAIN_BATCH, 1))
+        ramp = (start + np.arange(TRAIN_SEQ + 1)[None]) % vocab
+        noise = rng.integers(0, vocab, ramp.shape)
+        keep = rng.random(ramp.shape) < 0.9
+        toks = np.where(keep, ramp, noise).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    return data_fn
+
+
+def _train_run():
+    """llama3.2-1b's run config with the "train_4k" shape (256 sequences
+    of 4,096 tokens) cut to phase 13's 4 of 2,048, for one card's time."""
+    from repro_torch.configs import SHAPES, get_run_config
+    run = get_run_config(TRAIN_ARCH, "train_4k", remat="full")
+    return dataclasses.replace(run, shape=dataclasses.replace(
+        SHAPES["train_4k"], name="train_4k-cut", seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH))
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def phase_train_attention(torch, dev):
+    """Phase 13a: kernel 7's out and lse against the plain version, and
+    the flash Function's gradients against autograd through plain
+    attention, at llama3.2-1b's training shape; then the kernel's time
+    with and without the lse, and the Function's backward beside its
+    bound, the plain attention's backward and SDPA's.  -> numbers."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_ROW_RTOL, NEG_INF, attention_ref, bf16_mismatch)
+    from repro_torch.models.flash import flash_attention
+    cfg = _train_run().model
+    B, H, S, D = TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    bhsd = lambda t: t.transpose(1, 2)          # noqa: E731
+    failed = []
+    for dtype in (torch.bfloat16, torch.float32):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        out, lse = flash_ops.flash_attention(qq, kk, vv, causal=True,
+                                             return_lse=True)
+        want, want_lse = attention_ref(bhsd(qq), bhsd(kk), bhsd(vv),
+                                       causal=True, return_lse=True)
+        lse_err = (lse - want_lse).abs().max().item()
+        name = str(dtype).removeprefix("torch.")
+        if dtype == torch.bfloat16:
+            err, excess, row_rel = bf16_mismatch(bhsd(out), want, bhsd(qq),
+                                                 bhsd(kk), bhsd(vv))
+            ok = excess <= 0 and row_rel <= BF16_ROW_RTOL
+            more = dict(out_excess=excess, out_row_rel_err=row_rel,
+                        out_row_rtol=BF16_ROW_RTOL)
+        else:
+            err = (bhsd(out) - want).abs().max().item()
+            ok, more = err <= F32_TOL, dict(out_tol=F32_TOL)
+        ok = ok and lse_err <= LSE_TOL and tuple(lse.shape) == (B, H, S)
+        phase("train_flash_check", card=CARD, dtype=name,
+              shape=f"{B}x{S}x{H}x{D}", out_max_abs_err=err, **more,
+              lse_max_abs_err=lse_err, lse_tol=LSE_TOL, ok=ok)
+        if not ok:
+            failed.append(f"forward {name}")
+        del out, lse, want, want_lse
+    # the Function's gradients against autograd through plain f32
+    # attention of the same (bf16-valued) inputs
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention(qg, kg, vg, True, 512, 1024)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    keep = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+
+    def plain_attention(a, b, c):
+        s = bhsd(a) @ bhsd(b).transpose(-1, -2) / math.sqrt(D)
+        s = s.masked_fill(~keep, NEG_INF)
+        return (torch.softmax(s, dim=-1) @ bhsd(c)).transpose(1, 2)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(plain_attention(qf, kf, vf), (qf, kf, vf),
+                               do.float())
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        rel = _rel_l2(a, b)
+        ok = rel <= GRAD_RTOL and a.dtype == torch.bfloat16
+        phase("train_flash_grad", card=CARD, grad=name,
+              max_abs_err=(a.float() - b).abs().max().item(),
+              rel_l2_err=rel, rel_l2_tol=GRAD_RTOL, ok=ok)
+        if not ok:
+            failed.append(name)
+    del got, want, qf, kf, vf
+    if failed:
+        raise AssertionError(f"phase 13a: {failed} differ from the plain "
+                             f"versions")
+    # kernel 7 with and without the lse, in turns
+    fwd = lambda lse: (lambda: flash_ops.flash_attention(   # noqa: E731
+        q, k, v, causal=True, return_lse=lse))
+    t = [eager_ms(torch, fwd(lse), 20) for lse in (False, True, True, False)]
+    no_lse_ms, lse_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    flops = flash_flops(B, H, S, S, D, True)
+    fwd_bound, fwd_by = bound(4 * q.numel() * 2 + B * H * S * 4, flops,
+                              BF16_TC_FLOPS)
+    # the backward: the Function's (plain torch), autograd through plain
+    # attention, SDPA's; each over one retained forward graph
+    def backward_ms(fn, inputs, grad, iters):
+        x = [t.detach().clone().requires_grad_() for t in inputs]
+        y = fn(*x)
+        return eager_ms(torch, lambda: torch.autograd.grad(
+            y, x, grad, retain_graph=True), iters)
+    bwd_ms = backward_ms(lambda a, b, c: flash_attention(a, b, c, True, 512,
+                                                         1024),
+                         (q, k, v), do, 5)
+    plain_bwd_ms = backward_ms(plain_attention, (q.float(), k.float(),
+                                                 v.float()), do.float(), 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_bwd_ms = backward_ms(lambda a, b, c: sdpa(a, b, c, is_causal=True),
+                              (bhsd(q), bhsd(k), bhsd(v)), bhsd(do), 10)
+    # the backward's work: 5 products of 2 D flops an attended pair (the
+    # score recompute, dv, dp, dk, dq) = 2.5x the forward's; bytes: q, k,
+    # v, out, do read, dq, dk, dv written (bf16), lse read (f32)
+    bwd_bound, bwd_by = bound(8 * q.numel() * 2 + B * H * S * 4,
+                              2.5 * flops, BF16_TC_FLOPS)
+    phase("flash_lse_time", card=CARD, shape=f"{B}x{S}x{H}x{D} bf16 causal",
+          ms_without_lse=no_lse_ms, ms_with_lse=lse_ms,
+          lse_cost=lse_ms / no_lse_ms - 1, bound_ms=fwd_bound,
+          bound_by=fwd_by, runs_ms="/".join(f"{x:.4f}" for x in t))
+    phase("flash_backward", card=CARD, shape=f"{B}x{S}x{H}x{D} bf16 causal",
+          route="plain torch (models/flash.py flash_backward_plain)",
+          ms=bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+          f32_bound_ms=2.5 * flops / F32_FLOPS * 1e3,
+          plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+          library_call="scaled_dot_product_attention(is_causal=True) "
+                       "backward", vs_library=bwd_ms / sdpa_bwd_ms,
+          share_of_bound=bwd_bound / bwd_ms)
+    return dict(ms_with_lse=lse_ms, ms_without_lse=no_lse_ms,
+                backward_ms=bwd_ms, backward_bound_ms=bwd_bound,
+                backward_library_ms=sdpa_bwd_ms,
+                backward_plain_ms=plain_bwd_ms)
+
+
+class _Recorded:
+    """Wraps ``module.name`` and keeps each call's result (the clipped
+    gradients and the global norm of ``optimizers._clip_by_global_norm``)
+    and its first argument."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def call(*a, **kw):
+            out = self.real(*a, **kw)
+            self.calls.append((a[0], out))
+            return out
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def _train_step_grads(torch, run, impl, params, batch, what):
+    """One train step of ``run`` with ``attn_impl=impl``, counted: its
+    loss, the gradients and their global norm (before clipping), its
+    wall time, peak memory and kernel 7 launches."""
+    from repro_torch.optim import optimizers
+    from repro_torch.train.steps import make_train_step
+    step, opt = make_train_step(run, attn_impl=impl)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _Recorded(optimizers, "_clip_by_global_norm") as rec:
+        t0 = time.perf_counter()
+        (_, _, metrics), launches = counted_run(
+            torch, what, impl, lambda: step(params, state, batch, 0),
+            engine="train_step")
+        secs = time.perf_counter() - t0
+    grads, (_, norm) = rec.calls[0]
+    return dict(loss=float(metrics["loss"]), norm=float(norm), grads=grads,
+                s=secs, peak=torch.cuda.max_memory_allocated(),
+                flash=launches.get("ss_flash_attention_fwd", 0))
+
+
+def phase_train_step_both_ways(torch, dev, params):
+    """Phase 13b: one full-width train step with kernel 7 (``"flash"``)
+    and one with the plain ``"chunked"`` attention, from the same
+    parameters and batch, in bf16 and again in f32: the bf16 losses and
+    global gradient norms agree; the attention leaves' gradients of the
+    two f32 steps agree to f32 rounding, and the bf16 flash step's are no
+    farther from the f32 step's than the bf16 chunked step's are."""
+    from repro_torch.optim import optimizers
+    run = _train_run()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             train_data_fn(run.model.vocab_size)(0).items()}
+    out = {}
+    for impl in ("flash", "chunked"):
+        out[impl] = _train_step_grads(torch, run, impl, params, batch,
+                                      f"train_step_{impl}")
+    params32 = optimizers.tree_map(lambda t: t.float(), params)
+    for impl in ("flash", "chunked"):
+        out[impl + "_f32"] = _train_step_grads(
+            torch, run, impl, params32, batch, f"train_step_{impl}_f32")
+    del params32
+    f, c = out["flash"], out["chunked"]
+    rel = math.sqrt(sum(
+        float((a.float() - b.float()).square().sum())
+        for a, b in zip(optimizers.tree_leaves(f["grads"]),
+                        optimizers.tree_leaves(c["grads"])))) / c["norm"]
+
+    def attn(which):
+        return out[which]["grads"]["layers"]["attn"]
+    want = attn("chunked_f32")
+    attn_rel = {name: {k: _rel_l2(attn(which)[k], want[k])
+                       for k in ATTN_LEAVES}
+                for name, which in (("f32_flash", "flash_f32"),
+                                    ("bf16_flash", "flash"),
+                                    ("bf16_chunked", "chunked"))}
+    attn_ok = all(attn_rel["f32_flash"][k] <= ATTN_GRAD_F32_RTOL
+                  and attn_rel["bf16_flash"][k] <= ATTN_GRAD_BF16_RATIO
+                  * attn_rel["bf16_chunked"][k] for k in ATTN_LEAVES)
+    ok = (abs(f["loss"] - c["loss"]) <= TRAIN_LOSS_TOL
+          and abs(f["norm"] - c["norm"]) <= TRAIN_GNORM_RTOL * c["norm"]
+          and math.isfinite(f["loss"]) and attn_ok
+          and f["flash"] == out["flash_f32"]["flash"]
+          == 2 * run.model.num_layers)
+    phase("train_step_both_ways", card=CARD, arch=TRAIN_ARCH,
+          batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", remat=run.remat,
+          optimizer=run.optimizer.name, loss_flash=f["loss"],
+          loss_chunked=c["loss"], loss_tol=TRAIN_LOSS_TOL,
+          grad_norm_flash=f["norm"], grad_norm_chunked=c["norm"],
+          grad_norm_rtol=TRAIN_GNORM_RTOL, grads_rel_l2=rel,
+          loss_flash_f32=out["flash_f32"]["loss"],
+          loss_chunked_f32=out["chunked_f32"]["loss"],
+          attn_grads_rel_l2_vs_f32_chunked=attn_rel,
+          attn_f32_rtol=ATTN_GRAD_F32_RTOL,
+          attn_bf16_ratio=ATTN_GRAD_BF16_RATIO,
+          step_s={k: v["s"] for k, v in out.items()},
+          peak_gb={k: v["peak"] / 1e9 for k, v in out.items()},
+          flash_launches=f["flash"], ok=ok)
+    if not ok:
+        raise AssertionError("phase 13b: the flash and chunked steps "
+                             "disagree (or kernel 7 did not run twice a "
+                             "layer)")
+
+
+def _train_group(name: str) -> str:
+    """A device kernel of a training step by kind: kernel 7, the f32
+    products (the plain flash backward's), the bf16 products (weights,
+    LM head), the AEAD kernels, or the rest (elementwise, reductions,
+    copies, fills)."""
+    if "flash_fwd" in name:
+        return "kernel7"
+    if "chacha" in name or "cwmac" in name:
+        return "aead"
+    if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm_f32" if "f32f32" in name else "gemm_bf16"
+    return "other"
+
+
+def _launch_delta(torch, fn, into):
+    """``fn()``, adding the kernels' launches it made to ``into``."""
+    from repro_torch.kernels import build
+    torch.cuda.synchronize()
+    before = build.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in build.launch_counts().items():
+        into[k] = into.get(k, 0) + v - before.get(k, 0)
+    return out
+
+
+def phase_secure_training(torch, dev):
+    """Phase 13c: ``Trainer.train()`` of llama3.2-1b at full width with
+    sealed batches, sealed checkpoints every TRAIN_CKPT_EVERY steps and a
+    ``node_loss`` at TRAIN_FAIL_AT; beside an uninterrupted run of the
+    same steps, whose final parameters it must equal bit for bit (both
+    under ``torch.use_deterministic_algorithms``).  -> (launches of the
+    recovered run by row, numbers)."""
+    import gc
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.ft.failures import FailureInjector
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    run = _train_run()
+    cfg = run.model
+    data_fn = train_data_fn(cfg.vocab_size)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the uninterrupted run: TRAIN_STEPS steps, no checkpoint
+        plain = Trainer(run, data_fn, TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=10 ** 9, log_every=1,
+            ckpt_dir=str(TRAIN_CKPT_DIR / "unused")), device=dev)
+        ingest = []
+        sealed = plain._sealed_batch
+
+        def timed_batch(step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sealed(step)
+            torch.cuda.synchronize()
+            ingest.append(time.perf_counter() - t0)
+            return out
+        plain._sealed_batch = timed_batch
+        _, steps_launches = counted_run(
+            torch, "train_uninterrupted", "encrypted",
+            lambda: plain.run_steps(0, TRAIN_STEPS), engine="train_steps")
+        plain._sealed_batch = sealed
+        want = [t.cpu() for t in tree_leaves(plain.params)]
+        secs = [h["sec_per_step"] for h in plain.history]
+        losses = [h["loss"] for h in plain.history]
+        # one more step under the profiler: the device's busy share and
+        # the flash backward's device time
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            plain.run_steps(TRAIN_STEPS, TRAIN_STEPS + 1)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        rows = device_rows(prof)
+        busy = sum(r[1] for r in rows) / 1e6
+        bwd = [e for e in prof.key_averages()
+               if "FlashAttentionBackward" in e.key
+               and "evaluate_function" in e.key]
+        bwd_s = sum(e.device_time_total for e in bwd) / 1e6 if bwd else None
+        rows.sort(key=lambda r: -r[1])
+        # the uninterrupted run's 24.8 GB (state and snapshot) must go
+        # before the recovered run's checkpoint needs its 24.8 GB
+        del plain, prof, sealed, timed_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the recovered run: a failure after the first checkpoint
+        base = torch.cuda.memory_allocated()
+        tr = Trainer(run, data_fn, TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+            log_every=1, ckpt_dir=str(TRAIN_CKPT_DIR)),
+            injector=FailureInjector({TRAIN_FAIL_AT: "node_loss"}),
+            device=dev)
+        ckpt_launches, t = {}, {"save": [], "restore": []}
+        for name in ("save", "restore"):
+            real = getattr(tr, name)
+
+            def timed(real=real, name=name):
+                t0 = time.perf_counter()
+                out = _launch_delta(torch, real, ckpt_launches)
+                t[name].append(time.perf_counter() - t0)
+                return out
+            setattr(tr, name, timed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = counted_run(torch, "secure_training", "encrypted",
+                                    tr.train, engine="train")
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = tree_leaves(tr.params)
+        equal = len(got) == len(want) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        hist = [h["step"] for h in out["history"]]
+        with open(Path(TRAIN_CKPT_DIR) / f"step-{TRAIN_CKPT_EVERY:08d}"
+                  / "manifest.json") as f:
+            ckpt_rows = len(json.load(f)["aead"]["tags"]) // 16
+        ckpt_bytes = sum(p.stat().st_size for p in
+                         (Path(TRAIN_CKPT_DIR)
+                          / f"step-{TRAIN_CKPT_EVERY:08d}").iterdir())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    step_s = float(np.median(secs[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.param_count()
+    # model FLOPs a step: 6 N a token (forward + backward of the weights)
+    # and the causal attention's products, forward and backward (3x)
+    model_flops = 6 * n * tokens + 3 * cfg.num_layers * flash_flops(
+        TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim, True)
+    executed = len(out["history"])
+    flash_per_step = steps_launches["ss_flash_attention_fwd"] / TRAIN_STEPS
+    replayed_equal = out["history"][TRAIN_FAIL_AT - 1]["loss"] == \
+        out["history"][TRAIN_FAIL_AT]["loss"] == losses[TRAIN_FAIL_AT - 1]
+    ok = (equal and out["final_step"] == TRAIN_STEPS
+          and out["restarts"] == 1
+          and out["replayed_steps"] == TRAIN_FAIL_AT - TRAIN_CKPT_EVERY
+          and hist == [1, 2, 3, 4, 4, 5] and replayed_equal
+          and all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab_size)) <= TRAIN_LOSS0_TOL
+          and flash_per_step == 2 * cfg.num_layers
+          and len(t["save"]) == 2 and len(t["restore"]) == 2)
+    phase("secure_training", card=CARD, arch=TRAIN_ARCH,
+          params=n, layers=cfg.num_layers, batch=TRAIN_BATCH,
+          seq=TRAIN_SEQ, remat=run.remat, optimizer=run.optimizer.name,
+          steps=TRAIN_STEPS, steps_executed=executed,
+          sec_per_step=step_s, secs="/".join(f"{x:.4f}" for x in secs),
+          tokens_per_s=tokens / step_s,
+          mfu=model_flops / step_s / BF16_TC_FLOPS,
+          model_tflop_per_step=model_flops / 1e12,
+          device_busy_share=round(busy / prof_wall, 4),
+          profiled_step_s=prof_wall,
+          flash_backward_s=bwd_s,
+          flash_backward_share=None if bwd_s is None else bwd_s / prof_wall,
+          kernel7_launches_per_step=flash_per_step,
+          sealed_ingest_ms_per_step=1e3 * float(np.median(ingest)),
+          ckpt_save_s="/".join(f"{x:.3f}" for x in t["save"]),
+          ckpt_restore_s="/".join(f"{x:.3f}" for x in t["restore"][1:]),
+          ckpt_bytes=ckpt_bytes, ckpt_rows=ckpt_rows,
+          train_s=train_s, peak_memory_gb=peak / 1e9,
+          allocated_before_gb=base / 1e9,
+          restarts=out["restarts"], replayed_steps=out["replayed_steps"],
+          final_step=out["final_step"], history_steps=hist,
+          losses="/".join(f"{x:.5f}" for x in losses),
+          equal_to_uninterrupted=equal,
+          deterministic_algorithms=True, ok=ok)
+    groups = {}
+    for key, tt, _ in rows:
+        groups[_train_group(key)] = groups.get(_train_group(key), 0) + tt
+    phase("train_profile", card=CARD, wall_ms=prof_wall * 1e3,
+          busy_ms=busy * 1e3, **{f"{g}_ms": v / 1e3
+                                 for g, v in sorted(groups.items())})
+    for key, tt, count in rows[:12]:
+        print(f"   device {tt / 1e3:10.3f} ms  {count:7d} calls  "
+              f"{key[:90]}", flush=True)
+    if not ok:
+        raise AssertionError(f"phase 13c: the secure training run failed "
+                             f"its checks (equal={equal}, out={out})")
+    # the recovered run's launches by row: the checkpoint's batched seal
+    # and open (rows 1 and 2), the per-chunk seal and open of the batches
+    # (rows 4 and 5), kernel 7 (row 7)
+    cp = "ss_chacha20_cipher_pass"
+    rows_launches = {
+        "chacha20_cipher_pass_batch": ckpt_launches.get(cp, 0),
+        "cwmac_tags": ckpt_launches.get("ss_cwmac_tags", 0),
+        "chacha20_cipher_pass_message": launches[cp] - ckpt_launches.get(
+            cp, 0),
+        "cwmac_mac_tags": launches["ss_cwmac_mac_tags"],
+        "flash_attention_fwd": launches["ss_flash_attention_fwd"],
+    }
+    return rows_launches, dict(steps_executed=executed,
+                               kernel7_per_step=flash_per_step)
+
+
+def phase_training(torch, dev):
+    """Phase 13: 13a, 13b and 13c.  -> ({row name: launches in 13c's
+    recovered run}, row 7's numbers)."""
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    numbers = phase_train_attention(torch, dev)
+    t1 = time.perf_counter()
+    run = _train_run()
+    params = api.init_params(run.model, torch.Generator(device=dev)
+                             .manual_seed(run.seed), dev)
+    phase_train_step_both_ways(torch, dev, params)
+    del params
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    rows_launches, more = phase_secure_training(torch, dev)
+    phase("training", card=CARD, seconds=round(time.perf_counter() - t0, 3),
+          attention_s=round(t1 - t0, 3), both_ways_s=round(t2 - t1, 3),
+          trainer_s=round(time.perf_counter() - t2, 3))
+    numbers.update(more)
+    return rows_launches, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
+    # phase 13 runs with deterministic algorithms: cuBLAS needs a fixed
+    # workspace for that, set before it is first initialised
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3623,6 +4186,8 @@ def main() -> int:
         phase_trace(torch, dev, busy_ms)
     wire_launches, wire_rows = phase_secure_wire(torch, dev) \
         if 12 in phases else ({}, {})
+    train_launches, train_numbers = phase_training(torch, dev) \
+        if 13 in phases else ({}, {})
     for k in kernels:
         sym = k.pop("symbol")
         run = LAUNCHES_FROM[k["name"]]
@@ -3632,6 +4197,10 @@ def main() -> int:
             k.setdefault("shapes", {})["checkpoint"] = wire_rows[k["name"]]
             k["launches_secure_wire"] = {
                 run: n[sym] for run, n in wire_launches.items() if n[sym]}
+        if k["name"] in train_launches:
+            k["launches_secure_training"] = train_launches[k["name"]]
+        if k["name"] == "flash_attention_fwd" and train_numbers:
+            k["training"] = train_numbers
     phase("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

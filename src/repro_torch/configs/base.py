@@ -1,13 +1,14 @@
 """Configuration dataclasses of the port (``repro/configs/base.py``).
 
-A served architecture is described by a :class:`ModelConfig`, the serving
-geometry by :class:`RunConfig`, the secure-stream data path by
-:class:`SecureStreamConfig` and the logical-axis sharding rules by
-:class:`ShardingConfig` (read by :mod:`repro_torch.dist.meshctx`).
-Plain frozen dataclasses with the reference's field names.
-:class:`ModelConfig` holds the dense family's fields only; the
-reference's MoE, SSM, xLSTM, frontend and optimizer configs come with
-the slices that read them.
+An architecture is described by a :class:`ModelConfig`, the training /
+serving geometry by :class:`RunConfig` (shape, optimizer, remat,
+microbatches, seed), the optimizer by :class:`OptimizerConfig`,
+the secure-stream data path by :class:`SecureStreamConfig` and the
+logical-axis sharding rules by :class:`ShardingConfig` (read by
+:mod:`repro_torch.dist.meshctx`).  Plain frozen dataclasses with the
+reference's field names.  :class:`ModelConfig` holds the dense family's
+fields only; the reference's MoE, SSM, xLSTM and frontend configs come
+with the families that read them (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -60,10 +61,37 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ShapeConfig:
-    name: str
+    name: str                     # train_4k | prefill_32k | ...
     seq_len: int
     global_batch: int
     kind: str                     # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"           # adamw | adafactor | sgdm
+    lr: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    # Gradient compression: "none" | "fp16" (the accumulated gradients
+    # rounded through float16, as the reference's train step does).
+    grad_compression: str = "none"
 
 
 @dataclass(frozen=True)
@@ -116,5 +144,42 @@ class ShardingConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
+    """The reference's ``sharding``, ``secure``, ``dtype`` and
+    ``param_dtype`` fields are left out: no code of the one-card port
+    (nor, for the dtypes, of the reference) reads them."""
+
     model: ModelConfig
     shape: ShapeConfig
+    optimizer: OptimizerConfig = OptimizerConfig()
+    remat: str = "full"            # none | full | selective
+    microbatches: int = 1          # grad-accumulation microbatches
+    seed: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Reduced ("smoke") configs: same family, tiny dims, run on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def reduce_for_smoke(m: ModelConfig) -> ModelConfig:
+    """Shrink a full config to a CPU-runnable config of the same family
+    (the reference's dims: 2 layers, d_model 64, 4 heads of 16, d_ff 128,
+    vocab 256).  Only the dense family is ported."""
+    if m.family != "dense":
+        raise NotImplementedError(
+            f"family {m.family!r} is not ported to repro_torch yet "
+            f"(ROADMAP Queue 1 item 7)")
+    return ModelConfig(
+        arch_id=m.arch_id + "-smoke",
+        family=m.family,
+        num_layers=min(m.num_layers, 2),
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(m.num_kv_heads, 4) if m.num_kv_heads > 1 else 1,
+        d_ff=128 if m.d_ff else 0,
+        vocab_size=256,
+        head_dim=16,
+        qkv_bias=m.qkv_bias,
+        mlp_type=m.mlp_type,
+        tie_embeddings=m.tie_embeddings,
+    )

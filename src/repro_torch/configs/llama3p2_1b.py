@@ -3,7 +3,7 @@
 16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256.  Copied from the
 reference's ``repro/configs/llama3p2_1b.py``.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, OptimizerConfig
 
 ARCH_ID = "llama3.2-1b"
 
@@ -20,3 +20,5 @@ MODEL = ModelConfig(
     tie_embeddings=True,
     rope_theta=500_000.0,
 )
+
+OPTIMIZER = OptimizerConfig(name="adamw")

@@ -11,7 +11,14 @@
 // Skv is), over every key otherwise.  Scores and the softmax are f32, the
 // running max starts at -1e30, the normaliser is clamped at 1e-30, p is
 // rounded to bf16 before P V (the tensor cores' A operand) and the output
-// is cast to the input type.
+// is cast to the input type.  With a non-null `lse` the kernel also writes
+// each row's log-sum-exp of its scaled scores, natural log, f32, in a
+// contiguous (B, H, Sq) array: lse_i = max_j s_ij + log(sum_j exp(s_ij -
+// max_j s_ij)) with s_ij = q_i . k_j / sqrt(D), the normaliser clamped at
+// 1e-30 as the output's.  It is the residual models/flash.py's backward
+// recomputes the probabilities from (p_ij = exp(s_ij - lse_i)); the
+// reference's _flash_fwd_impl returns the same m + log(l).  Serving passes
+// null and writes nothing more.
 //
 // Bound on an H100 SXM at the serving path's shape (B=8 requests, S=4096,
 // H=32 heads, D=64, bf16, causal): operations, twice over.  4*B*H*D*S(S+1)/2
@@ -67,12 +74,14 @@ namespace {
 constexpr int kD = 64;              // the head dim instantiated (llama3.2-1b)
 constexpr float kNegInf = -1e30f;   // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;                       // (B, H, Sq) f32, or null: not written
   int Sq, Skv, causal;
   float scale;                      // 1 / sqrt(D)
   // element strides of batch, sequence and head for q, k, v, o
@@ -508,6 +517,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     const float den_a = fmaxf(st.l_a, 1e-30f), den_b = fmaxf(st.l_b, 1e-30f);
     auto* op = static_cast<__nv_bfloat16*>(p.o) + b * p.ob + h * p.oh;
     const int row_b = row_a + 8, col2 = 2 * (lane & 3);
+    // the running max is in exp2 units (scores times scale * log2 e):
+    // times ln 2 it is the max of the scaled scores; the four lanes of a
+    // row hold the same max and sum, the first of them writes
+    if (p.lse != nullptr && (lane & 3) == 0) {
+      float* lp = p.lse + ((long long)b * gridDim.y + h) * p.Sq;
+      if (row_a < p.Sq) lp[row_a] = fmaf(st.m_a, kLn2, logf(den_a));
+      if (row_b < p.Sq) lp[row_b] = fmaf(st.m_b, kLn2, logf(den_b));
+    }
 #pragma unroll
     for (int dt = 0; dt < kD / 8; ++dt) {
       const int col = dt * 8 + col2;
@@ -586,6 +603,8 @@ flash_fwd_f32_kernel(Params p) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < kD; ++d) orow[d] = acc[d] / den;
+    if (p.lse != nullptr)
+      p.lse[((long long)b * gridDim.y + h) * p.Sq + row] = m + logf(den);
   }
 }
 
@@ -674,9 +693,11 @@ int launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 bf16, 1 f32.  strides: 12 element strides, (batch, sequence,
-// head) of q, k, v and out in that order; the D stride is 1.
+// head) of q, k, v and out in that order; the D stride is 1.  lse: a
+// contiguous (B, H, Sq) f32 array for each row's log-sum-exp, or null.
 extern "C" int ss_flash_attention_fwd(const void* q, const void* k,
-                                      const void* v, void* out, int dtype,
+                                      const void* v, void* out, float* lse,
+                                      int dtype,
                                       int B, int H, int Sq, int Skv, int D,
                                       int causal, float scale,
                                       const long long* strides,
@@ -684,7 +705,7 @@ extern "C" int ss_flash_attention_fwd(const void* q, const void* k,
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (D != kD || Skv <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, out, Sq, Skv, causal ? 1 : 0, scale,
+  Params p{q, k, v, out, lse, Sq, Skv, causal ? 1 : 0, scale,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11]};

@@ -10,7 +10,9 @@ it here:
 * :func:`window_from_numpy` / :func:`window_to_numpy` move a sealed
   window across, so a window sealed in one package opens in the other;
 * :func:`lm_params_from_numpy` turns the reference's LM parameter pytree
-  into the port's, so both packages serve the same weights.
+  into the port's, so both packages serve the same weights;
+* :func:`opt_state_from_numpy` does the same for an optimizer state, so
+  the port's optimizer continues the reference's.
 """
 from __future__ import annotations
 
@@ -115,3 +117,27 @@ def lm_params_from_numpy(tree: Mapping, cfg, device="cuda") -> Dict:
                              f"has {sorted(spec)}")
         return {k: walk(spec[k], node[k], f"{path}/{k}") for k in spec}
     return walk(param_template(cfg), tree, "")
+
+
+def opt_state_from_numpy(tree: Mapping, like: Mapping, device="cuda") -> Dict:
+    """The reference's optimizer state (nested dicts of numpy arrays) ->
+    the port's, shaped after ``like`` (the port optimizer's ``init`` of
+    the same parameters): same keys, shapes and types (f32 moments, bf16
+    momentum bit for bit)."""
+    def walk(want, node, path):
+        if isinstance(want, torch.Tensor):
+            a = np.asarray(node)
+            if tuple(a.shape) != tuple(want.shape):
+                raise ValueError(f"{path}: shape {a.shape}, the state "
+                                 f"says {tuple(want.shape)}")
+            t = _tensor_from_numpy(a, path, device)
+            if t.dtype != want.dtype:
+                raise ValueError(f"{path}: {t.dtype}, the state says "
+                                 f"{want.dtype}")
+            return t
+        if not isinstance(node, Mapping) or set(node) != set(want):
+            got = sorted(node) if isinstance(node, Mapping) else type(node)
+            raise ValueError(f"{path or 'state'}: keys {got}, the state "
+                             f"has {sorted(want)}")
+        return {k: walk(want[k], node[k], f"{path}/{k}") for k in want}
+    return walk(like, tree, "")

@@ -11,7 +11,10 @@ the (B, S, H, D) entry makes no transposed copy (the reference swaps
 axes to (B, H, S, D) for its BlockSpecs), and rows past the end read as
 zeros, so any S is taken (the reference needs S to be a multiple of its
 chunk); its tiles are fixed, so there are no chunk arguments.  K and V
-come already repeated to the H query heads.
+come already repeated to the H query heads.  ``return_lse=True`` also
+returns each query row's log-sum-exp of its scaled scores (natural log,
+f32, (B, H, Sq)): the residual the flash backward
+(:mod:`repro_torch.models.flash`) recomputes the probabilities from.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 KERNEL = build.Kernel("ss_flash_attention_fwd", [
-    build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP, build.INT,
+    build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP,
+    build.INT,
     build.INT, build.INT, build.INT, build.INT, build.INT, build.INT,
     ctypes.c_float, build.VOIDP, build.VOIDP])
 #: the element types the kernel takes (0 and 1 in its dtype argument)
@@ -56,7 +60,7 @@ def _check(q, k, v, seq: int, head: int) -> None:
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
 
 
-def _launch(q, k, v, out, causal: bool, seq: int, head: int) -> None:
+def _launch(q, k, v, out, lse, causal: bool, seq: int, head: int) -> None:
     build.require_cuda(q)
     D = q.shape[3]
     if D != HEAD_DIM:
@@ -72,32 +76,43 @@ def _launch(q, k, v, out, causal: bool, seq: int, head: int) -> None:
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in (0, seq, head)])
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           DTYPES.index(q.dtype), q.shape[0], q.shape[head], q.shape[seq],
+           None if lse is None else lse.data_ptr(), DTYPES.index(q.dtype), q.shape[0], q.shape[head], q.shape[seq],
            k.shape[seq], D, int(causal), 1.0 / math.sqrt(D),
            ctypes.addressof(strides), build.stream_of(q))
 
 
+def _run(q, k, v, causal: bool, return_lse: bool, seq: int, head: int):
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((q.shape[0], q.shape[head], q.shape[seq]),
+                      dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    _launch(q, k, v, out, lse, causal, seq=seq, head=head)
+    return (out, lse) if return_lse else out
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True, return_lse: bool = False):
     """q: (B, H, Sq, D); k, v: (B, H, Skv, D) -> (B, H, Sq, D) in q's
-    type (bf16 or f32).  Causal masking is top-left aligned (row i sees
-    keys 0..i), as the TPU kernel's."""
+    type (bf16 or f32), and with ``return_lse`` the (B, H, Sq) f32
+    log-sum-exp.  Causal masking is top-left aligned (row i sees keys
+    0..i), as the TPU kernel's."""
     _check(q, k, v, seq=2, head=1)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, causal, seq=2, head=1)
-    return out
+        return attention_ref(q, k, v, causal=causal, return_lse=return_lse)
+    return _run(q, k, v, causal, return_lse, seq=2, head=1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, return_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Skv, H, D) with KV already repeated to
-    H heads -> (B, Sq, H, D)."""
+    H heads -> (B, Sq, H, D), and with ``return_lse`` the (B, H, Sq) f32
+    log-sum-exp (head-major, the layout the backward reads)."""
     _check(q, k, v, seq=1, head=2)
     if q.device.type == "cpu":
-        return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal).transpose(1, 2)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, causal, seq=1, head=2)
-    return out
+        got = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal,
+                            return_lse=return_lse)
+        if return_lse:
+            return got[0].transpose(1, 2), got[1]
+        return got.transpose(1, 2)
+    return _run(q, k, v, causal, return_lse, seq=1, head=2)

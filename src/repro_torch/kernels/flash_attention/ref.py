@@ -19,8 +19,10 @@ NEG_INF = -1e30
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, H, Skv, D) -> (B, H, Sq, D) in q's type.
+                  causal: bool = True, return_lse: bool = False):
+    """q: (B, H, Sq, D); k, v: (B, H, Skv, D) -> (B, H, Sq, D) in q's type,
+    and with ``return_lse`` the (B, H, Sq) f32 log-sum-exp of each row's
+    scaled (and masked) scores, natural log.
 
     Scores, softmax and the product with V are f32.  The (H, Sq, Skv)
     scores are materialised one batch element at a time: at the serving
@@ -29,16 +31,20 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     keep = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device).tril()
     for b in range(B):
         s = torch.matmul(q[b].float(), k[b].float().transpose(-1, -2))
         s /= math.sqrt(D)
         if causal:
             s.masked_fill_(~keep, NEG_INF)
+        if return_lse:
+            lse[b] = torch.logsumexp(s, dim=-1)
         p = torch.softmax(s, dim=-1)
         del s
         out[b] = torch.matmul(p, v[b].float()).to(q.dtype)
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: the largest ||got - want|| / ||want|| of a row allowed to a bf16 result

@@ -1,18 +1,21 @@
 """Model API of the port for the dense family (``repro/models/api.py``).
 
-Public surface (used by :mod:`repro_torch.serve.engine`):
+Public surface (used by :mod:`repro_torch.serve.engine` and
+:mod:`repro_torch.train.steps`):
 
 * ``param_template(cfg)``      -> nested dict of ParamSpec (no allocation)
 * ``init_params(cfg, generator, device)`` -> real params
+* ``forward(cfg, params, batch)``               -> (hidden, aux_loss)
+* ``loss_fn(cfg, params, batch)``               -> (loss, metrics)
 * ``cache_template(cfg, batch, max_seq)``; ``init_cache``
 * ``prefill(cfg, params, batch)``               -> (last_logits, cache)
 * ``decode_step(cfg, params, tokens, pos, cache)`` -> (logits, cache)
 
 Only ``family="dense"`` is ported; ``moe``, ``ssm``, ``hybrid``, ``vlm``
-and ``audio`` raise ``NotImplementedError`` (ROADMAP Queue 1 item 15),
-and ``forward`` / ``loss_fn`` come with training.  The layer stack keeps
-the reference's stacked ``(L, ...)`` layout and is walked by a Python
-loop over layer views (the reference's ``lax.scan``).
+and ``audio`` raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+The layer stack keeps the reference's stacked ``(L, ...)`` layout and is
+walked by a Python loop over layer views (the reference's ``lax.scan``),
+each layer under the remat policy (:func:`_maybe_remat`).
 
 **Prefill attention differs from the reference on purpose.**  The
 reference's ``prefill`` runs ``mha(attn_impl="hier")``, a recursive-
@@ -36,10 +39,13 @@ compute the same function.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -53,7 +59,7 @@ def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet "
-            f"(ROADMAP Queue 1 item 15); ported: {PORTED_FAMILIES}")
+            f"(ROADMAP Queue 1 item 7); ported: {PORTED_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +123,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+class _LogitsF32(torch.autograd.Function):
+    """:func:`_logits` on the card: ``torch.mm``'s ``out_dtype`` overload
+    (no f32 copy of the weight) has no derivative.  The backward rounds
+    the f32 cotangent to the operands' type and runs both products on
+    the tensor cores (an f32 product of the (T, V) cotangent would take
+    ~30x as long); the CPU path differentiates the f32 product exactly."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        return g @ w.T, h.T @ g
+
+
 def _embed(cfg: ModelConfig, params: Params, batch: Batch) -> torch.Tensor:
     return F.embedding(batch["tokens"], params["embed"])
 
@@ -128,11 +153,114 @@ def _lm_head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
 
 
 def _logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, E) @ (E, V) -> (B, V) f32: the products of the operands' own
-    values summed in f32 (the reference's ``preferred_element_type``)."""
-    if h.is_cuda:
-        return torch.mm(h, w, out_dtype=torch.float32)
+    """(T, E) @ (E, V) -> (T, V) f32: the products of the operands' own
+    values summed in f32 (the reference's ``preferred_element_type``),
+    differentiable (the loss)."""
+    if h.is_cuda and h.dtype != torch.float32:
+        return _LogitsF32.apply(h, w)
     return h.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# Forward (training) and loss
+# ---------------------------------------------------------------------------
+
+
+def _dense_block(p, x, cfg, positions, attn_impl):
+    h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    x = x + L.mha(p["attn"], h, cfg, positions=positions,
+                  attn_impl=attn_impl)
+    return _dense_mlp_residual(p, x, cfg)
+
+
+#: the ops whose results "selective" remat keeps: the products with no
+#: batch dimension (``dots_with_no_batch_dims_saveable``), i.e. the
+#: activations times a weight matrix; attention's batched products and
+#: everything elementwise are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``"none"``: ``fn``; ``"full"``: ``fn`` under
+    ``torch.utils.checkpoint`` (its inputs kept, everything else
+    recomputed in the backward); ``"selective"``: the same, but the
+    non-batched matrix products' results are kept.  Remat changes memory
+    only: the recompute runs the same ops on the same inputs."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "selective":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _selective_policy))
+    raise ValueError(f"unknown remat {remat!r}")
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
+            remat: str = "full", attn_impl: str = "flash"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (hidden (B,S,E), aux_loss).
+
+    ``attn_impl`` is the attention schedule of every layer: the
+    reference's ``"flash"`` (kernel 7 forward, block-recompute backward)
+    or ``"chunked"`` (plain torch, autograd through it)."""
+    _require_ported(cfg)
+    x = _embed(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    block = _maybe_remat(functools.partial(
+        _dense_block, cfg=cfg, positions=positions, attn_impl=attn_impl),
+        remat)
+    for p in L.unstack(params["layers"], cfg.num_layers):
+        x = block(p, x)
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _chunk_loss(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor):
+    logits = _logits(hx, w)                            # (T, V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(1, lx.clamp_min(0)[:, None].long())[:, 0]
+    valid = (lx >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Batch, *,
+            remat: str = "full", loss_chunks: int = 8,
+            aux_weight: float = 0.01, attn_impl: str = "flash"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token NLL over labels >= 0 (-1 = ignored), through a
+    streaming LM head: the (T, V) logits exist one of ``loss_chunks``
+    chunks at a time, f32 from the bf16 operands, each chunk under the
+    remat policy.  -> (loss + aux_weight * aux, {"loss", "aux",
+    "tokens"}); aux is 0 for the dense family."""
+    hidden, aux = forward(cfg, params, batch, remat=remat,
+                          attn_impl=attn_impl)
+    B, S, E = hidden.shape
+    W = _lm_head_weight(cfg, params)
+    labels = batch["labels"].reshape(B * S)
+    h = hidden.reshape(B * S, E)
+    nchunk = loss_chunks
+    while (B * S) % nchunk:
+        nchunk -= 1
+    T = (B * S) // nchunk
+    body = _maybe_remat(_chunk_loss, remat)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    ntok = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nchunk):
+        n, t = body(h[c * T:(c + 1) * T], labels[c * T:(c + 1) * T], W)
+        nll, ntok = nll + n, ntok + t
+    loss = nll / ntok.clamp_min(1.0)
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux, "tokens": ntok}
 
 
 # ---------------------------------------------------------------------------

@@ -9,13 +9,14 @@ Conventions
   ``nn.Module``: the reference's param pytree then maps onto it key for
   key (:func:`repro_torch.interop.lm_params_from_numpy`), the layer stack
   keeps its leading ``(L, ...)`` axis (a layer's weights are views into
-  it, no copies), and nothing here needs autograd (serving only).
+  it, no copies).  Training differentiates through these functions with
+  ``torch.autograd`` (:mod:`repro_torch.train.steps`).
 * Activations are bf16; softmax / norms accumulate f32, with the
   reference's casts in the reference's order.
 * einsum letters: B batch, S seq, H q-heads, K kv-heads, G q-heads per kv
   head, D head_dim, E d_model, F d_ff, V vocab.
-* There is no ``MeshContext``: the port runs on one card until ``dist`` is
-  ported, so the reference's ``ctx.constrain`` calls have no counterpart.
+* There is no ``MeshContext`` argument: the port runs on one card, where
+  the reference's ``ctx.constrain`` calls have no counterpart.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.flash import flash_attention, flash_forward_plain
+from repro_torch.models.hier_attn import hier_causal_attention
 
 Params = Any  # nested dict of tensors
 
@@ -109,6 +112,16 @@ def layer(stack: Params, i: int) -> Params:
     return {k: layer(v, i) for k, v in stack.items()}
 
 
+def unstack(stack: Params, n: int) -> List[Params]:
+    """Every layer of a stacked tree, as views: one ``unbind`` a leaf, so
+    autograd stacks the layers' gradients once (``stack[i]`` for each
+    layer would scatter each into a zeroed copy of the whole leaf)."""
+    if isinstance(stack, torch.Tensor):
+        return list(stack.unbind(0))
+    per_key = {k: unstack(v, n) for k, v in stack.items()}
+    return [{k: per_key[k][i] for k in per_key} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Basic ops
 # ---------------------------------------------------------------------------
@@ -155,8 +168,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 NEG_INF = -1e30
-#: attention schedules of the reference that wait for the training slice
-_TRAINING_IMPLS = ("flash", "chunked", "hier")
 
 
 def attention_template(cfg) -> Dict[str, ParamSpec]:
@@ -196,27 +207,61 @@ def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
         B, S, K * groups, D)
 
 
-def mha(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-        attn_impl: str = "pallas_flash", return_kv: bool = False):
-    """Full (prefill) causal self-attention.
+class _NoBackward(torch.autograd.Function):
+    """``"pallas_flash"``: the forward kernel alone.  The reference's
+    Pallas call has no VJP, and neither has this: its backward raises."""
 
-    ``attn_impl="pallas_flash"`` (the only one ported, and so the
-    default) runs the flash-attention kernel
-    (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`).
-    The reference's ``"flash"`` (custom-VJP), ``"chunked"`` and ``"hier"``
-    schedules come with the training slice and raise here."""
-    if attn_impl in _TRAINING_IMPLS:
+    @staticmethod
+    def forward(ctx, q, k, v):
+        return flash_ops.flash_attention(q, k, v, causal=True)
+
+    @staticmethod
+    def backward(ctx, do):
         raise NotImplementedError(
-            f"attn_impl={attn_impl!r} is not ported: it comes with the "
-            f"training slice (ROADMAP Queue 1 item 15); use 'pallas_flash'")
-    if attn_impl != "pallas_flash":
-        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+            "attn_impl='pallas_flash' has no backward (the reference's "
+            "Pallas call has no VJP either); train with attn_impl='flash'")
+
+
+def mha(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+        q_chunk: int = 512, kv_chunk: int = 1024,
+        attn_impl: str = "pallas_flash", return_kv: bool = False):
+    """Full (training / prefill) causal self-attention.
+
+    * ``"pallas_flash"`` (serving's default): the flash-attention kernel
+      (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`),
+      forward only;
+    * ``"flash"`` (training's, the reference's default): the custom-VJP
+      attention (:func:`repro_torch.models.flash.flash_attention`), kernel
+      7 with its log-sum-exp in the forward and the block recompute in
+      the backward;
+    * ``"chunked"``: the reference's ``chunked_attention``, the online
+      softmax over (q_chunk, kv_chunk) blocks in plain torch with autograd
+      through it: :func:`repro_torch.models.flash.flash_forward_plain`,
+      the flash forward's plain version (its output rounds to q's type,
+      as ``mha`` rounds the reference's f32 output);
+    * ``"hier"``: the recursive-halving schedule
+      (:func:`repro_torch.models.hier_attn.hier_causal_attention`).
+
+    The default differs from the reference's ``"flash"``: the reference's
+    model calls name their schedule, and the port's prefill and decode
+    run the kernel alone."""
     B, S, _ = x.shape
     groups = cfg.num_heads // cfg.num_kv_heads
     q, k, v = _project_qkv(p, x, cfg, positions)
     kv = (k, v)
-    out = flash_ops.flash_attention(q, repeat_kv(k, groups),
-                                    repeat_kv(v, groups), causal=True)
+    k = repeat_kv(k, groups)
+    v = repeat_kv(v, groups)
+    if attn_impl == "pallas_flash":
+        out = _NoBackward.apply(q, k, v)
+    elif attn_impl == "chunked":
+        out, _ = flash_forward_plain(q, k, v, True, q_chunk, kv_chunk)
+    elif attn_impl == "hier":
+        out = hier_causal_attention(q, k, v, q_chunk=q_chunk,
+                                    kv_chunk=kv_chunk)
+    elif attn_impl == "flash":
+        out = flash_attention(q, k, v, True, q_chunk, kv_chunk)
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
     y = out.reshape(B, S, -1).to(x.dtype) @ p["wo"]
     if return_kv:
         return y, kv

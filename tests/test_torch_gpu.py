@@ -537,6 +537,83 @@ def test_failed_build_raises_for_the_flash_kernel(cuda, monkeypatch):
                                              torch.bfloat16))
 
 
+#: kernel 7's log-sum-exp against the plain version's, f32 both (values
+#: ~log(keys)): f32 sums in another order, ex2.approx, the exp2-unit max
+#: times ln 2
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("B,H,Sq,Skv,dtype,causal", [
+    (2, 32, 1000, 1000, torch.bfloat16, True),
+    (2, 32, 1000, 1000, torch.float32, True),
+    (1, 4, 130, 700, torch.bfloat16, False),
+    (1, 4, 200, 200, torch.float32, False),
+    (4, 32, 2048, 2048, torch.bfloat16, True),   # llama3.2-1b training
+])
+def test_flash_kernel_lse_equals_plain(cuda, B, H, Sq, Skv, dtype, causal):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q, k, v = _qkv(cuda, B, H, Sq, Skv, dtype, seed=Sq + 7)
+    before = flash_ops.KERNEL.launches
+    got, lse = flash_ops.flash_attention_bhsd(q, k, v, causal=causal,
+                                              return_lse=True)
+    assert flash_ops.KERNEL.launches == before + 1
+    want, want_lse = attention_ref(q, k, v, causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL
+    _assert_flash_close(got, want, q, k, v, causal)
+    # the model layout gives the same head-major lse
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    _, lse2 = flash_ops.flash_attention(qs, ks, vs, causal=causal,
+                                        return_lse=True)
+    assert torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("S,qc,kc", [(2048, 512, 1024), (384, 128, 128)])
+def test_flash_function_gradients_equal_plain_autograd(cuda, S, qc, kc):
+    """The training attention on the card: kernel 7 (with its lse) in the
+    forward, the block recompute in the backward, against autograd
+    through plain f32 attention of the same bf16 inputs: each gradient
+    within 1e-2 relative L2 (bf16 output and gradients, 2^-9 each)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.flash import flash_attention
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v, do = (torch.randn((2, S, 8, 64), generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    before = flash_ops.KERNEL.launches
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*x, True, qc, kc), x, do)
+    assert flash_ops.KERNEL.launches == before + 1
+    y = [t.float().requires_grad_() for t in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", y[0], y[1]) / 8.0
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                 device=cuda).triu(1), float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), y[2])
+    want = torch.autograd.grad(out, y, do.float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        rel = ((a.float() - b).norm() / b.norm()).item()
+        assert rel <= 1e-2, rel
+
+
+def test_pallas_flash_has_no_backward_on_the_card(cuda):
+    from repro_torch.models import layers
+    from repro_torch.configs.base import ModelConfig
+    cfg = ModelConfig(arch_id="t", family="dense", num_layers=1,
+                      d_model=128, num_heads=2, num_kv_heads=1, d_ff=256,
+                      vocab_size=64, head_dim=64)
+    p = {k: (torch.randn(s.shape, device=cuda) * 0.05).to(torch.bfloat16)
+         .requires_grad_() for k, s in layers.attention_template(cfg).items()}
+    x = torch.randn((1, 128, 128), device=cuda).to(torch.bfloat16)
+    pos = torch.arange(128, device=cuda)[None]
+    y = layers.mha(p, x, cfg, positions=pos, attn_impl="pallas_flash")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        y.float().sum().backward()
+    y = layers.mha(p, x, cfg, positions=pos, attn_impl="flash")
+    y.float().sum().backward()
+    assert torch.isfinite(p["wq"].grad.float()).all()
+
+
 def test_prefill_launches_kernel_7_once_per_layer_and_decode_never(cuda):
     """A small dense model (head_dim 64) on the card: one kernel-7 launch
     per layer in the prefill, none in decode, and logits equal to the

@@ -1,5 +1,6 @@
 """The torch port stands alone: it imports neither JAX nor anything of
-the reference package ``repro``, and neither does ``chip_smoke.py``."""
+the reference package ``repro``, and neither do ``chip_smoke.py`` and
+the torch examples (``examples/torch_*.py``)."""
 import os
 import re
 import subprocess
@@ -33,8 +34,9 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 30
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
+    assert len(files) > 30 and len(examples) == 4
     bad = [str(f.relative_to(ROOT)) for f in files
            if FORBIDDEN.search(f.read_text())]
     assert bad == []
@@ -51,3 +53,18 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_torch_examples_import_with_jax_and_repro_blocked():
+    code = (
+        "import sys, runpy, glob\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "for f in sorted(glob.glob('examples/torch_*.py')):\n"
+        "    runpy.run_path(f, run_name='not_main')\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from repro.configs import get_model_config as j_get_model_config
+from repro.configs import get_run_config as j_get_run_config
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.configs.base import RunConfig as JRunConfig
 from repro.configs.base import ShapeConfig as JShapeConfig
@@ -59,7 +60,8 @@ def ctx():
 
 
 def _close(got, want, dtype):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else got
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape, (got.shape, want.shape)
@@ -141,13 +143,40 @@ def test_mha_flash_equals_reference_flash_and_hier(ctx, variant, dtype):
 
 
 @pytest.mark.parametrize("impl", ["flash", "chunked", "hier"])
-def test_mha_unported_schedules_raise(impl):
+def test_mha_unported_schedules_raise(ctx, impl):
+    """The three schedules that raised until training was ported now run:
+    each equals the reference's ``mha`` with the same schedule (both
+    dtypes), and gradients flow through it, where the backward through
+    ``"pallas_flash"`` (no VJP, as the reference's Pallas call) raises."""
+    for dtype in ("float32", "bfloat16"):
+        jcfg, jp, cfg, p = _models("swiglu_tied", dtype)
+        jx, x = _activations((B, S, 64), dtype, seed=11)
+        pos = np.arange(S, dtype=np.int32)[None].repeat(B, 0)
+        attn = {k: t.clone().requires_grad_() for k, t in
+                layers.layer(p["layers"]["attn"], 0).items()}
+        y = layers.mha(attn, x, cfg, positions=torch.from_numpy(pos),
+                       q_chunk=8, kv_chunk=8, attn_impl=impl)
+        jy = j_layers.mha(jax.tree.map(lambda a: a[0], jp["layers"]["attn"]),
+                          jx, jcfg, ctx, positions=jnp.asarray(pos),
+                          q_chunk=8, kv_chunk=8, attn_impl=impl)
+        _close(y, jy, dtype)
+        y.float().square().sum().backward()
+        assert all(torch.isfinite(t.grad.float()).all() and
+                   t.grad.abs().sum() > 0 for t in attn.values())
+
+
+def test_pallas_flash_backward_raises():
     _, _, cfg, p = _models("swiglu_tied", "float32")
-    x = torch.zeros((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        layers.mha(layers.layer(p["layers"]["attn"], 0), x, cfg,
-                   positions=torch.zeros((1, 4), dtype=torch.int32),
-                   attn_impl=impl)
+    attn = {k: t.clone().requires_grad_() for k, t in
+            layers.layer(p["layers"]["attn"], 0).items()}
+    _, x = _activations((B, S, 64), "float32", seed=12)
+    y = layers.mha(attn, x, cfg, positions=torch.zeros(
+        (B, S), dtype=torch.int32), attn_impl="pallas_flash")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        y.sum().backward()
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        layers.mha(attn, x, cfg, positions=torch.zeros((B, S),
+                   dtype=torch.int32), attn_impl="ring")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -272,6 +301,26 @@ def test_registry_ports_llama_only_and_names_the_queue():
         cfg = ModelConfig(**dict(BASE, family=fam))
         with pytest.raises(NotImplementedError, match="Queue 1"):
             api.param_template(cfg)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_run_config_equals_reference(shape):
+    """``get_run_config``: the reference's shape, optimizer and overrides
+    (the fields the port keeps, field by field)."""
+    run = configs.get_run_config("llama3.2-1b", shape, remat="selective",
+                                 microbatches=2)
+    jrun = j_get_run_config("llama3.2-1b", shape, remat="selective",
+                            microbatches=2)
+    assert run.model == configs.get_model_config("llama3.2-1b")
+    assert dataclasses.asdict(run.shape) == dataclasses.asdict(jrun.shape)
+    assert run.shape.tokens == jrun.shape.tokens
+    jopt = dataclasses.asdict(jrun.optimizer)
+    for f in dataclasses.fields(run.optimizer):
+        assert getattr(run.optimizer, f.name) == jopt[f.name], f.name
+    assert (run.remat, run.microbatches, run.seed) == (
+        jrun.remat, jrun.microbatches, jrun.seed)
+    with pytest.raises(KeyError):
+        configs.get_run_config("qwen2.5-14b", shape)
 
 
 def test_lm_params_from_numpy_refuses_a_mismatched_tree():
