@@ -91,7 +91,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    ``ref.bf16_mismatch``) and f32 (max-abs 2e-5), causal and not, at the
    serving path's prefill shape (8 requests x 4096 tokens, 32 heads of
    64), a ragged length (1000), a short one (128) and Sq < Skv; no spill
-   in its ``-Xptxas -v`` lines; timed beside its bound (and the share of
+   in its D = 64 instantiations' ``-Xptxas -v`` lines; timed beside its bound (and the share of
    it), its plain version and ``scaled_dot_product_attention`` (the
    yardstick, which the port never calls) in the same run, with its
    registers, shared memory, and its exp2 count beside the
@@ -186,18 +186,48 @@ Phases, each printed on its own line; any failure exits non-zero:
    tokens/s, MFU, the device's busy share and the flash backward's share
    of a profiled step, kernel 7 launches a step, sealed ingest ms a step,
    checkpoint save and restore seconds, peak memory.
+14. the other model families (every number beside the card's name and
+   power limit).  (a) kernel 7 at head dims 16, 112 and 128 (bf16 and
+   f32, with and without the lse, head-major and through the model's
+   (B, S, H, D) layout; ragged, Sq < Skv, causal and not) against its
+   plain version; every instantiation's registers, spills and shared
+   memory; its time beside its bound, its plain version and SDPA at
+   moonshot's, qwen2.5-14b's and kimi-k2's prefill shapes and at the
+   smoke configs' D = 16; D = 64 again at phase 9's shape beside its
+   recorded time.  (b) moonshot-v1-16b-a3b (MoE, 48 layers, 28.06 B
+   parameters, 56.1 GB bf16 drawn on the card in slabs) served as phase
+   10 serves llama: 4 sealed prompts of 2,048 tokens, TTFT, 32 decode
+   steps, kernel 7 48 times a prefill (D = 128) and never in decode;
+   the share of assignments its capacity drops; at 1 x 2,048 the
+   prefill with kernel 7 against the plain attention (logits, K/V
+   caches, the share of (token, layer) top-k expert sets that differ)
+   and layer by layer (each layer fed the plain run's input: kernel 7
+   within the limit, the two wrong attentions of phase 10 outside it);
+   decode at S against prefill(S + 1) on a copy of the config whose
+   capacity drops nothing, for the requests whose new token is routed
+   alike in both.  (c) zamba2-1.2b (38 Mamba2 layers, 6 shared-attention
+   calls, kernel 7 6 times a prefill): 8 prompts of 4,096 tokens, 64
+   decode steps, the same kernel-versus-plain checks (each beside a
+   prefill whose attention sums in another order), and 256
+   teacher-forced decode steps after prefill(S), each against the
+   forward pass over S + 256 tokens at its position, in f32 (the first
+   16 gated) and bf16.  (d) xlstm-125m (6 mLSTM / sLSTM pairs, no
+   kernel 7): 8 prompts of 2,048, 64 decode steps, the continuation
+   after 4 prompt tokens for 4 steps (its random sLSTM is chaotic),
+   the port's ``chunked_gla`` on the card against its sequential oracle
+   at an mLSTM layer's shape, and the sLSTM loop's share of a prefill.
 
-Every pipeline run of phases 3-7 and 11, the serving run of phase 10,
-the sealed and plain runs of phase 12 and the train steps and training
-runs of phase 13 set the kernels' launch counts to 0 just before each
-and read them just
+Every pipeline run of phases 3-7 and 11, the serving runs of phases 10
+and 14, the sealed and plain runs of phase 12 and the train steps and
+training runs of phase 13 set the kernels' launch counts to 0 just
+before each and read them just
 after: it fails unless exactly the kernels of its mode's path on its
 engine were launched (window engine: the cipher pass and kernels 2-3 in
 enclave mode, the pass and 2 in encrypted mode; per-chunk engine: the
 pass and kernels 5-6, and the pass and 5; plain mode none; serving: the
 pass, 5 and 7, kernel 7 once per layer in the prefill and never in
-decode; phase 12's sealed runs: the cipher pass and kernel 2, its
-plain runs none; phase 13: kernel 7 alone in a "flash" step, nothing in
+decode (phase 14: once per attention call, none for xLSTM); phase 12's
+sealed runs: the cipher pass and kernel 2, its plain runs none; phase 13: kernel 7 alone in a "flash" step, nothing in
 a "chunked" one, the pass and kernels 5 and 7 in the uninterrupted
 training run, and kernel 2 as well in the checkpointed one).  Kernel 3
 is ``ss_enclave_map_window`` there; the rows entry runs on no path.  The fault-tolerant engine (phase 11) is the window
@@ -210,7 +240,8 @@ kernels 4-6, phase 10's serving run for kernel 7; rows 1 and 4 both
 count the cipher pass, each on its own path; rows 1 and 2 also carry
 phase 12's launches and their numbers at the checkpoint's shape; rows 1,
 2, 4, 5 and 7 carry phase 13's launches in its recovered training run
-and row 7 its training numbers), and as the last line
+and row 7 its training numbers, its numbers per head dim and phase 14's
+serving launches and numbers), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is available.
 
@@ -220,6 +251,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -271,10 +303,12 @@ KERNELS = {
                     "ss_enclave_map_blocks"),
     },
     # secure LM serving: the prompts are sealed and opened with the scalar
-    # AEAD (kernels 4 and 5), the prefill runs kernel 7 in every layer
+    # AEAD (kernels 4 and 5), the prefill runs kernel 7 in every attention
+    # layer; an attention-free model (xLSTM, phase 14d) runs 4 and 5 only
     "serve": {
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
                       "ss_flash_attention_fwd"),
+        "attention_free": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags"),
     },
     # the secure wire (phase 12): every seal and open is a batched AEAD
     # call (the cipher pass and kernel 2); the exchanges are copies
@@ -731,16 +765,26 @@ def time_cipher_pass(torch, row, run, plain, old, four_lane, probes,
 
 def device_kernels(torch, fn):
     """Names of the kernels one warm call of ``fn()`` runs on the card,
-    from torch.profiler's device-side events."""
+    from torch.profiler's device-side events.  A session can lose the
+    first device event after it starts, so each opens with a marker (a
+    spin kernel, synced) and is taken again, up to three times, until the
+    marker shows; the marker is left out of the names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if any("spin_kernel" in n for n in names):
+            return [n for n in names if "spin_kernel" not in n]
+    raise AssertionError("torch.profiler lost its marker kernel in three "
+                         "sessions")
 
 
 def _short(name: str) -> str:
@@ -2260,7 +2304,7 @@ def _plain_bshd(torch, keep=None):
 #: say what sets its pace: the tensor cores and the special-function
 #: units, the softmax's other arithmetic, or the loads alone.
 _NO_MMA = ('"wgmma.mma_async.sync.aligned', '"// wgmma.mma_async.sync.aligned',
-           2)
+           3)
 _NO_EXP2 = ('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
             'y = x * 0.25f;', 1)
 _NO_SOFTMAX = ("  const int col2 = 2 * (lane & 3);\n",
@@ -2315,6 +2359,19 @@ def flash_pace(torch, run, full_ms):
     return times
 
 
+def flash_instantiations(report: str) -> dict:
+    """Kernel 7's ptxas entries by (type, head dim), from the template
+    argument in the mangled names (``flash_fwd_bf16_kernelILi128E...``)."""
+    import re
+    from repro_torch.kernels import build
+    out = {}
+    for k in build.ptxas_kernels(report):
+        m = re.search(r"flash_fwd_(bf16|f32)_kernelILi(\d+)E", k["name"])
+        if m:
+            out[(m.group(1), int(m.group(2)))] = k
+    return out
+
+
 def phase_flash(torch, dev):
     """Kernel 7 against its plain version on the card at FLASH_SHAPES,
     bf16 and f32, causal and not; then its time at the serving path's
@@ -2323,14 +2380,13 @@ def phase_flash(torch, dev):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
         BF16_ROW_RTOL, attention_ref, bf16_mismatch)
-    ptxas = {}
-    for k in build.ptxas_kernels(build.ptxas_report()):
-        if "flash" in k["name"]:
-            ptxas["bf16" if "bf16" in k["name"] else "f32"] = k
-            if k["spill_stores"] != 0 or k["spill_loads"] != 0:
-                raise AssertionError(f"{k['name']} spills registers")
+    D = 64                          # llama3.2-1b's head dim
+    inst = flash_instantiations(build.ptxas_report())
+    ptxas = {"bf16": inst[("bf16", D)], "f32": inst[("f32", D)]}
+    for k in ptxas.values():        # the D = 64 kernels do not spill
+        if k["spill_stores"] != 0 or k["spill_loads"] != 0:
+            raise AssertionError(f"{k['name']} spills registers")
     g = torch.Generator(device=dev).manual_seed(9)
-    D = flash_ops.HEAD_DIM
 
     def qkv(B, H, Sq, Skv, dtype):
         return [torch.randn((B, H, s, D), generator=g, device=dev).to(dtype)
@@ -2394,7 +2450,7 @@ def phase_flash(torch, dev):
                tflops=flops / ms / 1e9, share_of_bound=b / ms,
                exp2=exp2, exp2_ms=exp2_ms, pace_ms=pace,
                registers=ptxas["bf16"]["registers"],
-               smem_bytes=flash_ops.smem_bytes(),
+               smem_bytes=flash_ops.smem_bytes(D),
                f32_ms=f32_ms, f32_bound_ms=f32_b,
                shape=f"B={B} H={H} S={S} D={D} bf16 causal")
     phase("kernel", name=row["name"], ms=ms, plain_ms=plain_ms,
@@ -2517,16 +2573,16 @@ def phase_serve_profile(torch, cfg, params, prompts, prefill_step, decode,
     """Device busy share of one prefill at the serving shape and of
     ``steps`` decode steps after it (the engine's steps), each under its
     own torch.profiler window, and the kernels that take the device's
-    time in each."""
+    time in each.  -> {part: device busy share, or None}"""
     from torch.profiler import ProfilerActivity, profile
-    state = {}
+    state, shares = {}, {}
 
     def prefill():
         logits, state["cache"] = prefill_step(params, {"tokens": prompts})
         state["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
     def decode_steps():
-        for pos in range(SERVE_PROMPT, SERVE_PROMPT + steps):
+        for pos in range(prompts.shape[1], prompts.shape[1] + steps):
             state["tok"], _, state["cache"] = decode(
                 params, state["tok"], pos, state["cache"])
     for part, fn in (("prefill", prefill), ("decode", decode_steps)):
@@ -2539,17 +2595,22 @@ def phase_serve_profile(torch, cfg, params, prompts, prefill_step, decode,
             wall = time.perf_counter() - t0
         rows = sorted(device_rows(prof), key=lambda r: -r[1])
         if not rows:
-            phase("serve_profile", part=part, device_busy="not measured "
-                  "(no device time in the trace)", wall_s=round(wall, 4))
+            phase("serve_profile", arch=cfg.arch_id, part=part,
+                  device_busy="not measured (no device time in the trace)",
+                  wall_s=round(wall, 4))
+            shares[part] = None
             continue
         busy = sum(r[1] for r in rows) / 1e6
-        phase("serve_profile", part=part, steps=steps if part == "decode"
-              else 1, wall_s=round(wall, 4), device_busy_s=round(busy, 4),
+        shares[part] = busy / wall
+        phase("serve_profile", arch=cfg.arch_id, part=part,
+              steps=steps if part == "decode" else 1, wall_s=round(wall, 4),
+              device_busy_s=round(busy, 4),
               device_busy_share=round(busy / wall, 4),
               kernels=sum(r[2] for r in rows))
         for key, t_us, count in rows[:10]:
             print(f"   device {t_us / 1e3:10.3f} ms  {count:7d} calls  "
                   f"{key[:90]}", flush=True)
+    return shares
 
 
 def phase_serve_check(torch, cfg, params, prompts):
@@ -3933,7 +3994,6 @@ def phase_secure_training(torch, dev):
     same steps, whose final parameters it must equal bit for bit (both
     under ``torch.use_deterministic_algorithms``).  -> (launches of the
     recovered run by row, numbers)."""
-    import gc
     import shutil
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.ft.failures import FailureInjector
@@ -4119,11 +4179,773 @@ def phase_training(torch, dev):
     return rows_launches, numbers
 
 
+# ------------------------------------------------------------------ phase 14
+
+#: phase 14a: kernel 7's checks at the head dims phase 9 does not reach,
+#: (B, H, Sq, Skv): ragged, Sq < Skv and short
+FAMILY_FLASH_CHECKS = ((2, 4, 1000, 1000), (1, 3, 130, 700), (2, 4, 128, 128))
+#: ... and its timed shapes, (B, H, S, D): the prefills of the configs
+#: that take each head dim (and every config's reduce_for_smoke form)
+FAMILY_FLASH_TIMED = {
+    "moonshot-v1-16b-a3b": (4, 16, 2048, 128),
+    "qwen2.5-14b": (4, 40, 2048, 128),
+    "kimi-k2-1t-a32b": (1, 64, 2048, 112),
+    "reduce_for_smoke": (8, 4, 2048, 16),
+}
+#: kernel 7 at D = 64 at phase 9's shape (8 x 32 x 4096): the most it may
+#: take, ms.  Before the head-dim template it read 1.446 ms, and the
+#: template's D = 64 read 1.4498-1.4699 ms in the runs of this script that
+#: PERF.md section 6 records (row 7; H100 80GB HBM3, 700 W): the slowest
+#: reading plus 2 %, more than that spread again
+FLASH_D64_MS_LIMIT = 1.4699 * 1.02
+#: phase 14's served models: requests x prompt tokens, new tokens, the
+#: prompt tokens of the profiled prefill and the sLSTM timing (xlstm-125m's
+#: sLSTM loop runs ~8 ms a token whatever the batch, so its full 2,048
+#: would add minutes to each), and the decode continuation's prompt
+#: tokens and steps (see CONTINUE_F32_TOL)
+FAMILY_SERVE = {
+    "moonshot-v1-16b-a3b": (4, 2048, 32, 2048, None),
+    "zamba2-1.2b": (8, 4096, 64, 4096, (4096, 256)),
+    "xlstm-125m": (8, 2048, 64, 256, (2048, 256)),
+}
+#: decode steps in each family's profile: torch.profiler's host-side
+#: processing of a trace grows with its events (~0.5 ms a kernel on the
+#: H100 host, most of phase 14's time at 16 steps: PERF.md section 4),
+#: and the steps are alike, so their busy share is read from 4
+FAMILY_PROFILE_STEPS = 4
+#: one layer's attention output with kernel 7 against the plain attention
+#: on the same input (phase 10's cache limit): bf16 rounding of each side
+#: alone, where the wrong attentions move it by 0.3 and more
+LAYER_ATTN_RTOL = SERVE_CACHE_RTOL
+#: end to end over 38 to 48 layers (phase 10's 0.125 over 16 layers, at
+#: the square root of the depth ratio, doubled): last logits
+FAMILY_LOGIT_TOL = 0.25
+#: the MoE model's cached keys and values, kernel 7 against plain: a token
+#: routed to other experts in one run carries a different state on
+FAMILY_CACHE_RTOL = 0.25
+#: the prefill with kernel 7 against the plain one may differ in its
+#: caches (and, for MoE, its (token, layer) top-k expert sets) at most
+#: this many times as much (plus ROUTING_SLACK) as a prefill whose
+#: attention differs from the plain one only in its summation order (the
+#: recursive-halving "hier" schedule, exact attention too): 38-48 bf16
+#: layers, and the router above all, amplify any rounding difference
+#: (13.5 % of MoE sets and a 0.050 cache gap in zamba2's in the first
+#: runs, PERF.md §6)
+ROUTING_VS_BASELINE = 2.0
+ROUTING_SLACK = 0.02
+#: decode at S against prefill(S + 1), one MoE layer at a time from the
+#: prefill's own input (the new token's update, attention + MoE, within
+#: LAYER_ATTN_RTOL for the (request, layer) pairs routed alike): the least
+#: share of pairs that must be routed alike
+DECODE_ROUTED_ALIKE_MIN = 0.9
+#: phase 14d: chunked_gla on the card against its sequential oracle (f32)
+GLA_TOL = (1e-4, 1e-4)
+#: the decode continuation in f32 (the weights cast to f32; kernel 7's f32
+#: instantiation): each of the 256 teacher-forced decode steps after
+#: prefill(S) against the forward pass over the S + 256 tokens at the same
+#: position, within this max abs gap.  zamba2-1.2b read 4.4e-4 to 9.4e-4
+#: over the steps; in bf16 its 38 random layers turn rounding into gaps of
+#: order 1, so bf16 is not held to it
+CONTINUE_F32_TOL = 1e-2
+#: xlstm-125m's random sLSTM (192 x 192 recurrent blocks at the reference's
+#: scale 0.4) is chaotic: a perturbation grows ~1.15x a step (SLSTM_GROWTH
+#: prints it), so any rounding difference between the prefill's and the
+#: forward pass's GEMMs grows to order 1 within a few hundred tokens.  Its
+#: continuation runs on a copy of the f32 weights whose r_* are scaled by
+#: this factor (in this script only), under which the recurrence contracts
+SLSTM_R_SCALE = 0.25
+#: the sLSTM growth witness: a (2, T, d) input perturbed by EPS at its first
+#: position through layer 0's sLSTM; the growth a step is the T - 1'th root
+#: of the output gap's ratio between the last and the first position
+SLSTM_GROWTH = (64, 1e-4)
+
+
+def _no_diagonal_tile(torch, n):
+    """Causal mask with each row's diagonal tile of 64 keys left out (rows
+    of the first tile keep theirs): a kernel that skips its last tile."""
+    i = torch.arange(n)[:, None]
+    j = torch.arange(n)[None, :]
+    return (j <= i) & ((j < i // 64 * 64) | (i < 64))
+
+
+def _wrong_attentions(torch):
+    return {
+        "control_no_causal_mask": _plain_bshd(
+            torch, lambda n: torch.ones((n, n), dtype=torch.bool)),
+        "control_no_diagonal_tile": _plain_bshd(
+            torch, lambda n: _no_diagonal_tile(torch, n)),
+    }
+
+
+class _Routes:
+    """Records the top-k expert ids of every ``moe_ffn`` call (one a
+    layer, in order) by wrapping ``models.moe.route`` (in this script
+    only)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.topi, self._real = [], moe.route
+
+        def route(router, xf, k):
+            out = self._real(router, xf, k)
+            self.topi.append(out[2])
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._real
+
+
+def _hier_bshd(torch):
+    """Exact causal attention in another summation order: the recursive-
+    halving schedule (``models/hier_attn.py``), as kernel 7's stand-in."""
+    from repro_torch.models.hier_attn import hier_causal_attention
+
+    def attention(q, k, v, *, causal=True):
+        return hier_causal_attention(q, k, v).to(q.dtype)
+    return attention
+
+
+def _with_attention(torch, attention, fn):
+    """``fn()`` with kernel 7's wrapper replaced by ``attention`` (None:
+    the kernel itself), in this script only."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    kernel = flash_ops.flash_attention
+    flash_ops.flash_attention = kernel if attention is None else attention
+    try:
+        return fn()
+    finally:
+        flash_ops.flash_attention = kernel
+
+
+def _rel_l2_max(torch, a, b):
+    return max(((x - y).float().norm() / y.float().norm()).item()
+               for x, y in zip(a, b))
+
+
+def _attn_cache_layers(cache):
+    return [cache["attn"][t][i] for t in ("k", "v")
+            for i in range(cache["attn"]["k"].shape[0])]
+
+
+def _sets_differ(torch, a, b):
+    """Rows of two (T, k) expert-id arrays whose sets differ."""
+    return (a.sort(dim=-1).values != b.sort(dim=-1).values).any(dim=-1)
+
+
+def phase_flash_head_dims(torch, dev):
+    """Phase 14a: kernel 7 at D = 16, 112 and 128 (bf16 and f32, with and
+    without the lse, head-major and through the model's (B, S, H, D)
+    layout) against its plain version; each instantiation's registers,
+    spills and shared memory; its time beside its bound, the plain
+    version and SDPA at the configs' prefill shapes; D = 64 again at
+    phase 9's shape.  -> {head dim: numbers} for row 7."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_ROW_RTOL, attention_ref, bf16_mismatch)
+    for (dt, D), k in sorted(flash_instantiations(
+            build.ptxas_report()).items()):
+        phase("flash_instance", card=CARD, dtype=dt, head_dim=D,
+              registers=k["registers"], spill_stores=k["spill_stores"],
+              spill_loads=k["spill_loads"],
+              smem_bytes=flash_ops.smem_bytes(D) if dt == "bf16"
+              else "static")
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def qkv(B, H, Sq, Skv, D, dtype):
+        return [torch.randn((B, H, s, D), generator=g, device=dev).to(dtype)
+                for s in (Sq, Skv, Skv)]
+
+    def run(q, k, v, causal, layout, lse):
+        if layout == "bhsd":
+            return flash_ops.flash_attention_bhsd(q, k, v, causal=causal,
+                                                  return_lse=lse)
+        got = flash_ops.flash_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)), causal=causal,
+            return_lse=lse)
+        return (got[0].transpose(1, 2), got[1]) if lse \
+            else got.transpose(1, 2)
+    failed, numbers = [], {}
+    for D in (16, 112, 128):
+        cases = [(sh, c) for sh in FAMILY_FLASH_CHECKS for c in (True, False)]
+        cases += [((B, H, S, S), True) for B, H, S, Dt in
+                  FAMILY_FLASH_TIMED.values() if Dt == D]
+        for (B, H, Sq, Skv), causal in cases:
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v = qkv(B, H, Sq, Skv, D, dtype)
+                want, want_lse = attention_ref(q, k, v, causal=causal,
+                                               return_lse=True)
+                errs = {}
+                for layout in ("bhsd", "bshd"):
+                    got, lse = run(q, k, v, causal, layout, True)
+                    same = torch.equal(got, run(q, k, v, causal, layout,
+                                                False))
+                    lse_err = (lse - want_lse).abs().max().item()
+                    if dtype == torch.float32:
+                        err = (got - want).abs().max().item()
+                        ok = err <= F32_TOL
+                    else:
+                        err, excess, row_rel = bf16_mismatch(
+                            got, want, q, k, v, causal=causal)
+                        ok = excess <= 0 and row_rel <= BF16_ROW_RTOL
+                    ok = ok and same and lse_err <= LSE_TOL
+                    errs[layout] = (err, lse_err, same, ok)
+                    if not ok:
+                        failed.append((D, B, H, Sq, Skv, causal, str(dtype),
+                                       layout))
+                del q, k, v, want, want_lse
+                phase("flash_head_dim_check", card=CARD, head_dim=D,
+                      dtype=str(dtype).removeprefix("torch."),
+                      shape=f"{B}x{H}x{Sq}x{Skv}", causal=causal,
+                      **{f"{lay}_max_abs_err": e[0] for lay, e in
+                         errs.items()},
+                      **{f"{lay}_lse_err": e[1] for lay, e in errs.items()},
+                      lse_out_equal=all(e[2] for e in errs.values()),
+                      ok=all(e[3] for e in errs.values()))
+    if failed:
+        raise AssertionError(f"kernel 7 differs from its plain version at "
+                             f"{failed}")
+    for arch, (B, H, S, D) in FAMILY_FLASH_TIMED.items():
+        q, k, v = qkv(B, H, S, S, D, torch.bfloat16)
+        first_ms = eager_ms(torch, lambda: flash_ops.flash_attention_bhsd(
+            q, k, v), 20)           # printed: once read 3x the next
+        ms = eager_ms(torch, lambda: flash_ops.flash_attention_bhsd(q, k, v),
+                      20)
+        lse_ms = eager_ms(torch, lambda: flash_ops.flash_attention_bhsd(
+            q, k, v, return_lse=True), 20)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        bshd_ms = eager_ms(torch, lambda: flash_ops.flash_attention(
+            qs, ks, vs), 20)
+        del qs, ks, vs
+        plain_ms = eager_ms(torch, lambda: attention_ref(q, k, v), 2)
+        library_ms = eager_ms(torch, lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  q, k, v, is_causal=True), 20)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        f32_ms = eager_ms(torch, lambda: flash_ops.flash_attention_bhsd(
+            qf, kf, vf), 2)
+        del qf, kf, vf
+        flops = flash_flops(B, H, S, S, D, True)
+        b, by = bound(4 * q.numel() * q.element_size(), flops,
+                      BF16_TC_FLOPS)
+        exp2 = flash_pairs(B, H, S, S, True)
+        row = dict(shape=f"B={B} H={H} S={S} D={D} bf16 causal", ms=ms,
+                   first_ms=first_ms, lse_ms=lse_ms, bshd_ms=bshd_ms, plain_ms=plain_ms,
+                   bound_ms=b, bound_by=by, library_ms=library_ms,
+                   tflops=flops / ms / 1e9, share_of_bound=b / ms,
+                   vs_library=ms / library_ms, exp2=exp2,
+                   exp2_sfu_ms=exp2 / SFU_EXP2_PER_S * 1e3, f32_ms=f32_ms)
+        numbers[f"D{D} {arch}"] = row
+        phase("flash_head_dim_time", card=CARD, arch=arch, **row)
+        del q, k, v
+    B, H, S, _ = FLASH_SHAPES[0]
+    q, k, v = qkv(B, H, S, S, 64, torch.bfloat16)
+    ms = eager_ms(torch, lambda: flash_ops.flash_attention_bhsd(q, k, v), 20)
+    numbers["D64 phase 9"] = dict(ms=ms)
+    phase("flash_d64_again", card=CARD, shape=f"{B}x{H}x{S}x64", ms=ms,
+          limit_ms=FLASH_D64_MS_LIMIT, ok=ms <= FLASH_D64_MS_LIMIT)
+    del q, k, v
+    if ms > FLASH_D64_MS_LIMIT:
+        raise AssertionError(f"kernel 7 at D = 64 took {ms} ms at phase 9's "
+                             f"shape, over its limit {FLASH_D64_MS_LIMIT}")
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def serve_family(torch, dev, arch):
+    """Secure serving of ``arch`` at full width and depth, as phase 10
+    serves llama3.2-1b: weights drawn from a seed on the card, a client
+    attests the enclave, FAMILY_SERVE's prompts are sealed and opened
+    (MAC checked), prefilled through ``make_prefill_step`` (the time to
+    first token) and generated through ``greedy_generate``; kernel 7
+    launched once per attention call of each prefill and never in
+    decode.  -> (cfg, params, prompts, numbers, launches)"""
+    from repro_torch.configs import get_model_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import secure
+    from repro_torch.serve.engine import (greedy_generate, make_decode_step,
+                                          make_prefill_step)
+    R, S, N, short, _ = FAMILY_SERVE[arch]
+    cfg = get_model_config(arch)
+    g = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, g, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n = sum(t.numel() for t in _leaves(params))
+    if n != cfg.param_count():
+        raise AssertionError(f"{arch}: {n} parameters drawn, the template "
+                             f"has {cfg.param_count()}")
+    run_cfg = RunConfig(model=cfg, shape=ShapeConfig("serve", S, R,
+                                                     "decode"))
+    t0 = time.perf_counter()
+    _, key, server_m = secure.attested_session(cfg.arch_id)
+    attest_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (R, S), generator=g,
+                            device=dev, dtype=torch.int32)
+    max_seq = S + N
+    prefill = make_prefill_step(run_cfg, max_seq=max_seq)
+    secure.open_prompts(key, secure.seal_prompts(key, prompts, counter=1))
+    greedy_generate(run_cfg, params, prompts[:, :256], steps=2, max_seq=257)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = {}
+
+    def serve():
+        t0 = time.perf_counter()
+        sealed = secure.seal_prompts(key, prompts)
+        torch.cuda.synchronize()
+        t["seal"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        opened = secure.open_prompts(key, sealed)
+        torch.cuda.synchronize()
+        t["open"] = time.perf_counter() - t0
+        if not torch.equal(opened, prompts):
+            raise AssertionError("opened prompts differ from the sent ones")
+        t["after_open"] = build.launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": opened})[0]
+        first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None].cpu()
+        t["prefill"] = time.perf_counter() - t0
+        t["after_prefill"] = build.launch_counts()
+        t0 = time.perf_counter()
+        gen = greedy_generate(run_cfg, params, opened, steps=N + 1,
+                              max_seq=max_seq).cpu()
+        t["generate"] = time.perf_counter() - t0
+        return first, gen, logits
+    mode = "attention_free" if cfg.attention_free else "encrypted"
+    (first, gen, logits), launches = counted_run(
+        torch, f"secure_serve {arch}", mode, serve, engine="serve")
+    flash = "ss_flash_attention_fwd"
+    calls = (api.num_shared_attn(cfg) if cfg.family == "hybrid"
+             else 0 if cfg.attention_free else cfg.num_layers)
+    in_prefill = t["after_prefill"][flash] - t["after_open"][flash]
+    in_generate = {k: launches[k] - t["after_prefill"][k] for k in launches}
+    if in_prefill != calls or in_generate != {
+            k: calls if k == flash else 0 for k in launches}:
+        raise AssertionError(
+            f"{arch}: kernel 7 launched {in_prefill} times in the prefill "
+            f"(want {calls}); greedy_generate launched {in_generate} (want "
+            f"kernel 7 {calls} times in its prefill, none in decode)")
+    if not (bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+            R, cfg.vocab_size) and tuple(gen.shape) == (R, N + 1)
+            and torch.equal(gen[:, :1], first) and int(gen.min()) >= 0
+            and int(gen.max()) < cfg.vocab_size):
+        raise AssertionError(f"{arch}: malformed logits or tokens")
+    decode_s = t["generate"] - t["prefill"]
+    numbers = dict(
+        arch=arch, family=cfg.family, layers=cfg.num_layers,
+        d_model=cfg.d_model, head_dim=cfg.head_dim, params=n,
+        params_bf16_gb=2 * n / 1e9, requests=R, prompt=S, new_tokens=N,
+        init_params_s=init_s, init_peak_memory_gb=init_peak / 1e9,
+        attest_s=attest_s, measurement=server_m.hex()[:16],
+        seal_ms=t["seal"] * 1e3, open_ms=t["open"] * 1e3, mac_ok=True,
+        prefill_s=t["prefill"], prefill_tokens_per_s=R * S / t["prefill"],
+        ttft_ms=(t["open"] + t["prefill"]) * 1e3, generate_s=t["generate"],
+        decode_ms_per_step=decode_s / N * 1e3,
+        decode_tokens_per_s=R * N / decode_s,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        flash_launches_prefill=in_prefill)
+    phase("family_serve", card=CARD, **numbers)
+    print(f"   generated req0: {gen[0, :12].tolist()} ...", flush=True)
+    t0 = time.perf_counter()
+    shares = phase_serve_profile(torch, cfg, params, prompts[:, :short],
+                                 prefill, make_decode_step(run_cfg),
+                                 steps=FAMILY_PROFILE_STEPS)
+    numbers.update(prefill_busy_share=shares.get("prefill"),
+                   decode_busy_share=shares.get("decode"),
+                   profile_s=time.perf_counter() - t0)
+    return cfg, params, prompts, numbers, launches
+
+
+def _as_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _as_f32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in tree for t in _leaves(tree[k])]
+    return [tree]
+
+
+def layerwise_attention(torch, cfg, params, tokens, attentions):
+    """Walk the model with the plain attention; at every attention call
+    feed the same normed input to ``mha`` under each of ``attentions``
+    (None: kernel 7) and to the plain one, and compare the outputs.  ->
+    {name: largest relative L2 difference over the calls}"""
+    from repro_torch.models import api, mamba2 as M2
+    from repro_torch.models import layers as L
+    plain = _plain_bshd(torch)
+    x = api._embed(cfg, params, {"tokens": tokens})
+    B, S = tokens.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
+        B, S)
+    worst = {name: 0.0 for name in attentions}
+
+    def attend(p, x):
+        h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+
+        def mha():
+            return L.mha(p["attn"], h, cfg, positions=pos,
+                         attn_impl="pallas_flash")
+        ref = _with_attention(torch, plain, mha)
+        for name, attention in attentions.items():
+            out = _with_attention(torch, attention, mha)
+            worst[name] = max(worst[name], _rel_l2_max(torch, [out], [ref]))
+        return api._ffn_residual(p, x + ref, cfg)[0]
+    if cfg.family == "hybrid":
+        for start, size, has_attn in api._hybrid_groups(cfg):
+            for i in range(start, start + size):
+                p = L.layer(params["layers"], i)
+                x = x + M2.mamba2_forward(
+                    p["mamba"], L.rms_norm(x, p["ln"], cfg.rms_eps), cfg)
+            if has_attn:
+                x = attend(params["shared_attn"], x)
+    else:
+        for i in range(cfg.num_layers):
+            x = attend(L.layer(params["layers"], i), x)
+    return worst
+
+
+def kernel_vs_plain(torch, cfg, params, tokens):
+    """The prefill with kernel 7 against the same prefill with the plain
+    attention in its place (last logits, every attention layer's cached
+    keys and values; for MoE, every layer's top-k expert sets, beside a
+    prefill with the "hier" attention as the baseline of rounding
+    differences), then layer by layer with the kernel and the two wrong
+    attentions.  -> numbers; raises when a limit is missed or a wrong
+    attention meets the layer limit."""
+    from repro_torch.models import api
+    S = tokens.shape[1]
+
+    def prefill():
+        with _Routes() as r:
+            logits, cache = api.prefill(cfg, params, {"tokens": tokens})
+        return logits, _attn_cache_layers(cache), r.topi
+    lp, cp, rp = _with_attention(torch, _plain_bshd(torch), prefill)
+    lk, ck, rk = _with_attention(torch, None, prefill)
+    out = dict(logits_max_abs=(lk - lp).abs().max().item(),
+               logits_std=lp.std().item(),
+               cache_rel_l2=_rel_l2_max(torch, ck, cp))
+    del ck
+    lh, ch, rh = _with_attention(torch, _hier_bshd(torch), prefill)
+    out["hier_cache_rel_l2"] = _rel_l2_max(torch, ch, cp)
+    out["hier_logits_max_abs"] = (lh - lp).abs().max().item()
+    del ch
+    last_agrees = True
+    if rk:
+        for name, r in (("", rk), ("hier_", rh)):
+            differ = [_sets_differ(torch, a, b) for a, b in zip(r, rp)]
+            shares = [float(d.float().mean()) for d in differ]
+            out[f"{name}routing_sets_differ_share"] = sum(shares) / len(
+                shares)
+            out[f"{name}routing_share_by_layer"] = "/".join(
+                f"{x:.4f}" for x in (shares[0], shares[1],
+                                     shares[len(shares) // 2], shares[-1]))
+            if not name:
+                last_agrees = not any(bool(d.view(-1, S)[:, -1].any())
+                                      for d in differ)
+        out["last_token_routing_agrees"] = last_agrees
+    del cp
+    layer = layerwise_attention(torch, cfg, params, tokens, dict(
+        kernel=None, hier=_hier_bshd(torch), **_wrong_attentions(torch)))
+    out.update({f"layer_rel_l2_{k}": v for k, v in layer.items()})
+    ok = (layer["kernel"] <= LAYER_ATTN_RTOL
+          and all(v > LAYER_ATTN_RTOL for k, v in layer.items()
+                  if k.startswith("control")))
+    ok = ok and out["cache_rel_l2"] <= min(
+        FAMILY_CACHE_RTOL,
+        ROUTING_VS_BASELINE * out["hier_cache_rel_l2"] + ROUTING_SLACK) \
+        and (not last_agrees or out["logits_max_abs"] <= FAMILY_LOGIT_TOL)
+    if rk:
+        ok = ok and out["routing_sets_differ_share"] <= (
+            ROUTING_VS_BASELINE * out["hier_routing_sets_differ_share"]
+            + ROUTING_SLACK)
+    phase("family_kernel_vs_plain", card=CARD, arch=cfg.arch_id,
+          tokens="x".join(map(str, tokens.shape)), layer_rtol=LAYER_ATTN_RTOL,
+          logit_tol=FAMILY_LOGIT_TOL, routing_vs_baseline=ROUTING_VS_BASELINE,
+          routing_slack=ROUTING_SLACK, **out, ok=ok)
+    if not ok:
+        raise AssertionError(f"{cfg.arch_id}: kernel 7 against the plain "
+                             f"attention: {out}")
+    return out
+
+
+def decode_layerwise(torch, cfg, params, tokens):
+    """Decode at position S against prefill(S + 1) of ``tokens`` (B, S +
+    1), one layer at a time: each layer's prefill over all S + 1 tokens
+    (kernel 7) from the prefill's own input, and the decode step's layer
+    (``mha_decode`` over the prefill's first S keys and values, the MoE
+    at T = B) on token S's input; the two updates of token S compared
+    for the requests whose token S is routed alike in both.  -> (largest
+    relative L2 of the compared updates, share of (request, layer) pairs
+    routed alike)"""
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    B, S1 = tokens.shape
+    S = S1 - 1
+    x = api._embed(cfg, params, {"tokens": tokens})
+    pos = torch.arange(S1, dtype=torch.int32, device=x.device)[None].expand(
+        B, S1)
+    worst, alike, pairs = 0.0, 0, 0
+    for i in range(cfg.num_layers):
+        p = L.layer(params["layers"], i)
+        with _Routes() as rp:
+            h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+            att, (k, v) = L.mha(p["attn"], h, cfg, positions=pos,
+                                attn_impl="pallas_flash", return_kv=True)
+            y = api._ffn_residual(p, x + att, cfg)[0]
+        cache = {"k": torch.zeros_like(k), "v": torch.zeros_like(v)}
+        cache["k"][:, :S], cache["v"][:, :S] = k[:, :S], v[:, :S]
+        xs = x[:, S:]
+        with _Routes() as rd:
+            att1, _ = L.mha_decode(p["attn"], L.rms_norm(
+                xs, p["ln1"], cfg.rms_eps), cache, cfg, pos=S)
+            y1 = api._ffn_residual(p, xs + att1, cfg)[0]
+        same = ~_sets_differ(torch, rd.topi[0],
+                             rp.topi[0].view(B, S1, -1)[:, -1])
+        alike += int(same.sum())
+        pairs += B
+        got = (y1[:, 0] - xs[:, 0]).float()
+        want = (y[:, S] - xs[:, 0]).float()
+        rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+        if bool(same.any()):
+            worst = max(worst, float(rel[same].max()))
+        x = y
+    return worst, alike / pairs
+
+
+def continuation(torch, cfg, params, prompts, g, steps):
+    """prefill(S), then ``steps`` teacher-forced decode steps, each step's
+    logits against the forward pass over the S + ``steps`` tokens at the
+    same position (the prefill's function at every position).  -> the
+    max abs gap of each step's logits (a list)"""
+    from repro_torch.models import api
+    B, S = prompts.shape
+    cont = torch.randint(0, cfg.vocab_size, (B, steps), generator=g,
+                         device=prompts.device, dtype=torch.int32)
+    hidden, _ = api.forward(cfg, params, {"tokens": torch.cat(
+        [prompts, cont], dim=1)}, remat="none", attn_impl="pallas_flash")
+    w = api._lm_head_weight(cfg, params)
+    _, cache = api.prefill(cfg, params, {"tokens": prompts},
+                           max_seq=S + steps)
+    gaps = []
+    for j in range(steps):
+        logits, cache = api.decode_step(cfg, params, cont[:, j:j + 1],
+                                        S + j, cache)
+        gaps.append((logits - api._logits(hidden[:, S + j], w)).abs().max())
+    return torch.stack(gaps).tolist()
+
+
+def phase_moe_checks(torch, cfg, params, prompts):
+    """Phase 14b's checks: the share of assignments the real capacity
+    drops in the served prefill; kernel 7 against plain at 1 x S; decode
+    at position S against prefill(S + 1) on a copy of the config whose
+    capacity drops nothing (capacity factor X / k)."""
+    from repro_torch.models import api
+    from repro_torch.models.moe import _capacity
+    B, S = prompts.shape
+    moe = cfg.moe
+    with _Routes() as r:
+        api.prefill(cfg, params, {"tokens": prompts})
+    C = _capacity(B * S, moe.top_k, moe.num_experts, moe.capacity_factor)
+    dropped = [int((torch.bincount(t.reshape(-1), minlength=moe.num_experts)
+                    - C).clamp_min(0).sum()) / (B * S * moe.top_k)
+               for t in r.topi]
+    drop_share = sum(dropped) / len(dropped)
+    del r
+    out = dict(capacity=C, dropped_share=drop_share,
+               dropped_share_by_layer="/".join(
+                   f"{x:.4f}" for x in (dropped[0], dropped[1],
+                                        dropped[len(dropped) // 2],
+                                        dropped[-1])))
+    out.update(kernel_vs_plain(torch, cfg, params, prompts[:1]))
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    logits, cache = api.prefill(nodrop, params, {"tokens": prompts},
+                                max_seq=S + 1)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    logits_d, _ = api.decode_step(nodrop, params, tok, S, cache)
+    del cache
+    full = torch.cat([prompts, tok], dim=1)
+    logits_p, _ = api.prefill(nodrop, params, {"tokens": full})
+    layer_err, alike = decode_layerwise(torch, nodrop, params, full)
+    out.update(decode_vs_prefill_max_abs=(logits_d - logits_p).abs().max()
+               .item(), decode_layer_rel_l2=layer_err,
+               decode_routed_alike=alike, requests=B,
+               nodrop_capacity_factor=nodrop.moe.capacity_factor)
+    ok = layer_err <= LAYER_ATTN_RTOL and alike >= DECODE_ROUTED_ALIKE_MIN
+    phase("moe_decode_check", card=CARD, arch=cfg.arch_id,
+          layer_rtol=LAYER_ATTN_RTOL, alike_min=DECODE_ROUTED_ALIKE_MIN,
+          capacity=C, dropped_share=drop_share,
+          dropped_share_by_layer=out["dropped_share_by_layer"],
+          **{k: out[k] for k in ("decode_vs_prefill_max_abs",
+                                 "decode_layer_rel_l2", "decode_routed_alike",
+                                 "requests", "nodrop_capacity_factor")},
+          ok=ok)
+    if not ok:
+        raise AssertionError(f"{cfg.arch_id}: decode at S against "
+                             f"prefill(S + 1): {out}")
+    return out
+
+
+def phase_xlstm_checks(torch, dev, cfg, params, prompts, short):
+    """Phase 14d's own checks: the port's chunked_gla on the card against
+    its sequential oracle at one mLSTM layer's shape (f32), and the sLSTM
+    loop's share of a prefill (timed with a sync around each call)."""
+    from repro_torch.models import api, gla
+    from repro_torch.models import xlstm as XL
+    g = torch.Generator(device=dev).manual_seed(4)
+    dp, H, dh = XL._mlstm_dims(cfg)
+    B, S = 2, prompts.shape[1]
+    q, k, v = (torch.randn((B, S, H, dh), generator=g, device=dev) * 0.1
+               for _ in range(3))
+    log_f = torch.nn.functional.logsigmoid(
+        torch.randn((B, S, H), generator=g, device=dev) + 3)
+    i_gate = torch.sigmoid(torch.randn((B, S, H), generator=g, device=dev))
+    got = gla.chunked_gla(q, k, v, log_f, i_gate,
+                          chunk=cfg.xlstm.chunk_size, normalize=True)
+    want = gla.gla_reference(q, k, v, log_f, i_gate, normalize=True)
+    excess = ((got - want).abs() - GLA_TOL[0] - GLA_TOL[1] * want.abs()
+              ).max().item()
+    gla_err = (got - want).abs().max().item()
+    del q, k, v, got, want
+    real = XL.slstm_forward_with_state
+    spent = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+    XL.slstm_forward_with_state = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.prefill(cfg, params, {"tokens": prompts[:, :short]})
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        XL.slstm_forward_with_state = real
+    out = dict(gla_shape=f"{B}x{S}x{H}x{dh}", gla_max_abs_err=gla_err,
+               gla_tol=GLA_TOL, slstm_s=sum(spent), prefill_s=total,
+               slstm_share=sum(spent) / total, slstm_layers=len(spent),
+               slstm_prefill_tokens=f"{prompts.shape[0]}x{short}")
+    phase("xlstm_check", card=CARD, **out, ok=excess <= 0)
+    if excess > 0:
+        raise AssertionError(f"chunked_gla differs from gla_reference on "
+                             f"the card: {out}")
+    return out
+
+
+def slstm_growth(torch, dev, cfg, p):
+    """SLSTM_GROWTH's witness on layer 0's sLSTM of the weights ``p``: ->
+    the growth a step of a perturbation of the input's first position."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm as XL
+    T, eps = SLSTM_GROWTH
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2, T, cfg.d_model), generator=g, device=dev)
+    dx = torch.zeros_like(x)
+    dx[:, 0] = eps * torch.randn((2, cfg.d_model), generator=g, device=dev)
+    sl = L.layer(p["layers"], 0)["slstm"]
+    gap = (XL.slstm_forward(sl, x + dx, cfg) - XL.slstm_forward(sl, x, cfg)
+           ).abs().amax(dim=(0, 2))
+    return float((gap[-1] / gap[0]) ** (1 / (T - 1)))
+
+
+def family_continuation(torch, dev, cfg, params, prompts):
+    """Phase 14c/d's decode continuation in f32 (CONTINUE_F32_TOL), for
+    xlstm-125m on its contracting copy (SLSTM_R_SCALE, with the growth a
+    step of the real and the scaled sLSTM).  -> numbers; raises when a
+    step misses the limit or the scaled sLSTM does not contract."""
+    cont_prompt, cont_steps = FAMILY_SERVE[cfg.arch_id][4]
+    p = _as_f32(params)
+    out = {}
+    if cfg.family == "ssm":
+        out["slstm_growth_real"] = slstm_growth(torch, dev, cfg, p)
+        sl = p["layers"]["slstm"]
+        for g in "zifo":
+            sl[f"r_{g}"] = sl[f"r_{g}"] * SLSTM_R_SCALE
+        out.update(slstm_r_scale=SLSTM_R_SCALE,
+                   slstm_growth_scaled=slstm_growth(torch, dev, cfg, p))
+    gaps = continuation(torch, cfg, p, prompts[:2, :cont_prompt],
+                        torch.Generator(device=dev).manual_seed(5),
+                        cont_steps)
+    del p
+    worst = max(gaps)
+    out.update(continue_f32_max_abs=worst,
+               continue_f32_worst_step=gaps.index(worst),
+               **{f"continue_f32_step{j}": gaps[j]
+                  for j in (0, 15, 63, cont_steps - 1)})
+    ok = worst <= CONTINUE_F32_TOL and out.get("slstm_growth_scaled",
+                                                0.0) < 1.0
+    phase("family_continue", card=CARD, arch=cfg.arch_id, steps=cont_steps,
+          requests=2, prompt=cont_prompt, f32_tol=CONTINUE_F32_TOL, **out,
+          ok=ok)
+    if not ok:
+        raise AssertionError(f"{cfg.arch_id}: the decode steps after "
+                             f"prefill(S) against the forward pass in f32 "
+                             f"(or the scaled sLSTM's growth): {out}")
+    return out
+
+
+def phase_families(torch, dev):
+    """Phase 14: kernel 7's head dims, then moonshot-v1-16b-a3b,
+    zamba2-1.2b and xlstm-125m served at full width and depth, each
+    checked.  -> (row 7's per-head-dim numbers, {arch: kernel 7 launches
+    in its serving run}, {arch: numbers})"""
+    t0 = time.perf_counter()
+    phase("families_start", card=CARD,
+          allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    head_dims = phase_flash_head_dims(torch, dev)
+    launches, numbers = {}, {}
+    for arch in FAMILY_SERVE:
+        t1 = time.perf_counter()
+        cfg, params, prompts, nums, ran = serve_family(torch, dev, arch)
+        launches[arch] = ran["ss_flash_attention_fwd"]
+        nums["serve_s"] = time.perf_counter() - t1
+        if cfg.family == "moe":
+            nums.update(phase_moe_checks(torch, cfg, params, prompts))
+        elif cfg.family == "hybrid":
+            nums.update(kernel_vs_plain(torch, cfg, params, prompts[:1]))
+        else:
+            nums.update(phase_xlstm_checks(torch, dev, cfg, params, prompts,
+                                           FAMILY_SERVE[arch][3]))
+        nums["checks_s"] = time.perf_counter() - t1 - nums["serve_s"]
+        if cfg.family != "moe":
+            t2 = time.perf_counter()
+            nums.update(family_continuation(torch, dev, cfg, params,
+                                            prompts))
+            nums["continue_s"] = time.perf_counter() - t2
+        nums["seconds"] = time.perf_counter() - t1
+        numbers[arch] = nums
+        del params, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("families", card=CARD, seconds=round(time.perf_counter() - t0, 3),
+          **{f"{a}_{k}": round(n[k], 3) for a, n in numbers.items()
+             for k in ("seconds", "serve_s", "profile_s", "checks_s",
+                       "continue_s") if k in n})
+    return head_dims, launches, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -4188,6 +5010,13 @@ def main() -> int:
         if 12 in phases else ({}, {})
     train_launches, train_numbers = phase_training(torch, dev) \
         if 13 in phases else ({}, {})
+    # phase 13's memory, before 14's: its Trainer sits in a reference
+    # cycle (its timed save/restore wrap its own bound methods), which
+    # only the cycle collector frees, with ~25 GB of state and snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    head_dims, family_launches, family_numbers = phase_families(torch, dev) \
+        if 14 in phases else ({}, {}, {})
     for k in kernels:
         sym = k.pop("symbol")
         run = LAUNCHES_FROM[k["name"]]
@@ -4201,6 +5030,13 @@ def main() -> int:
             k["launches_secure_training"] = train_launches[k["name"]]
         if k["name"] == "flash_attention_fwd" and train_numbers:
             k["training"] = train_numbers
+        if k["name"] == "flash_attention_fwd" and head_dims:
+            k["head_dims"] = head_dims
+            k["launches_families"] = family_launches
+            k["families"] = {a: {f: n[f] for f in (
+                "ttft_ms", "prefill_tokens_per_s", "decode_ms_per_step",
+                "peak_memory_gb", "prefill_busy_share")}
+                for a, n in family_numbers.items()}
     phase("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,16 +6,59 @@ microbatches, seed), the optimizer by :class:`OptimizerConfig`,
 the secure-stream data path by :class:`SecureStreamConfig` and the
 logical-axis sharding rules by :class:`ShardingConfig` (read by
 :mod:`repro_torch.dist.meshctx`).  Plain frozen dataclasses with the
-reference's field names.  :class:`ModelConfig` holds the dense family's
-fields only; the reference's MoE, SSM, xLSTM and frontend configs come
-with the families that read them (ROADMAP Queue 1 item 7).
+reference's field names; every model family's sub-config
+(:class:`MoEConfig`, :class:`SSMConfig`, :class:`XLSTMConfig`) is the
+reference's, field for field.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Model-family sub-configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN configuration."""
+
+    num_experts: int
+    top_k: int
+    # Per-expert hidden width (the assignment tables give d_ff per expert).
+    d_expert: int
+    # Fixed-capacity routing: capacity per expert is
+    #   ceil(tokens * top_k / num_experts * capacity_factor), 8-aligned.
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # Load-balancing auxiliary loss weight (Switch-style).
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2-style state-space block configuration."""
+
+    state_dim: int = 64
+    conv_width: int = 4
+    expand: int = 2
+    headdim: int = 64
+    chunk_size: int = 256  # chunkwise-parallel scan block
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block stack configuration (alternating mLSTM / sLSTM)."""
+
+    # Indices (mod pattern length) that are sLSTM; remainder are mLSTM.
+    slstm_every: int = 2          # every 2nd block is sLSTM
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 1.333
+    chunk_size: int = 256         # chunkwise-parallel mLSTM scan block
+
 
 # ---------------------------------------------------------------------------
 # Model config
@@ -40,10 +83,30 @@ class ModelConfig:
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
 
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+
+    # hybrid: attention layer period (Zamba-style shared attention block).
+    attn_every: int = 0           # 0 -> attention in every layer (or none for ssm)
+    shared_attention: bool = False
+
+    # Modality frontend stub: "none" | "vision_patches" | "audio_frames".
+    frontend: str = "none"
+    frontend_dim: int = 0         # embedding dim of precomputed patch/frame inputs
+
+    # Whether attention is full quadratic (drives the long_500k skip rule).
+    attention_free: bool = False
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can run the 500k-token long-context decode."""
+        return self.family in ("ssm", "hybrid") or self.attention_free
 
     def param_count(self) -> int:
         """Exact parameter count, summed from the port's own param template
@@ -52,6 +115,16 @@ class ModelConfig:
         from repro_torch.models.layers import template_leaves
         return sum(math.prod(s.shape)
                    for s in template_leaves(param_template(self)))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE counts only top_k experts)."""
+        full = self.param_count()
+        if self.moe is None:
+            return full
+        expert_p = 3 * self.d_model * self.moe.d_expert
+        dead = self.num_layers * (self.moe.num_experts - self.moe.top_k) \
+            * expert_p
+        return full - dead
 
 
 # ---------------------------------------------------------------------------
@@ -163,16 +236,12 @@ class RunConfig:
 
 def reduce_for_smoke(m: ModelConfig) -> ModelConfig:
     """Shrink a full config to a CPU-runnable config of the same family
-    (the reference's dims: 2 layers, d_model 64, 4 heads of 16, d_ff 128,
-    vocab 256).  Only the dense family is ported."""
-    if m.family != "dense":
-        raise NotImplementedError(
-            f"family {m.family!r} is not ported to repro_torch yet "
-            f"(ROADMAP Queue 1 item 7)")
-    return ModelConfig(
+    (the reference's dims: 2 layers (7 for a hybrid), d_model 64, 4 heads
+    of 16, d_ff 128, vocab 256, and each family's small sub-config)."""
+    kw: Dict[str, Any] = dict(
         arch_id=m.arch_id + "-smoke",
         family=m.family,
-        num_layers=min(m.num_layers, 2),
+        num_layers=min(m.num_layers, 2 if m.family != "hybrid" else 7),
         d_model=64,
         num_heads=4,
         num_kv_heads=min(m.num_kv_heads, 4) if m.num_kv_heads > 1 else 1,
@@ -182,4 +251,19 @@ def reduce_for_smoke(m: ModelConfig) -> ModelConfig:
         qkv_bias=m.qkv_bias,
         mlp_type=m.mlp_type,
         tie_embeddings=m.tie_embeddings,
+        attn_every=m.attn_every,
+        shared_attention=m.shared_attention,
+        frontend=m.frontend,
+        frontend_dim=32 if m.frontend != "none" else 0,
+        attention_free=m.attention_free,
     )
+    if m.moe is not None:
+        kw["moe"] = MoEConfig(num_experts=8, top_k=2, d_expert=32,
+                              capacity_factor=m.moe.capacity_factor)
+    if m.ssm is not None:
+        kw["ssm"] = SSMConfig(state_dim=16, conv_width=4, expand=2, headdim=16,
+                              chunk_size=16)
+    if m.xlstm is not None:
+        kw["xlstm"] = XLSTMConfig(slstm_every=m.xlstm.slstm_every,
+                                  chunk_size=16)
+    return ModelConfig(**kw)

@@ -61,6 +61,17 @@
 //     copy); the maps are encoded on the host for each call
 //     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 //     the library links no -lcuda).
+// Head dims.  The kernel is one template over D, instantiated for D = 16,
+// 64, 112 and 128 (every head dim the configs and their smoke forms give
+// attention); any other D is refused.  A tile is computed at a padded width
+// Dp of whole 128-byte swizzle rows, 64 columns each: Dp = 64 for D <= 64,
+// Dp = 128 (two 64-column blocks, one TMA box each) for D = 112 and 128.
+// The tensor maps are D wide, so TMA zero-fills columns D..Dp-1 of Q, K and
+// V: they add nothing to Q K^T, give zero columns of O, and only the D real
+// columns are stored.  At Dp = 128 a K or V tile is 32 KB, so the ring holds
+// 2 stages (Q 32 KB + 4 x 32 KB), and the consumers' O accumulator doubles
+// to 64 registers (m64n128 P V): the register split is 24 / 240.  D = 64 is
+// the design above, tile for tile.
 // The f32 instantiation (one thread per query row, scalar FMAs) is the
 // algorithm's check at full precision; no path serves f32.
 #include <cuda.h>
@@ -71,7 +82,6 @@
 
 namespace {
 
-constexpr int kD = 64;              // the head dim instantiated (llama3.2-1b)
 constexpr float kNegInf = -1e30f;   // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -93,17 +103,30 @@ struct Params {
 constexpr int kConsumers = 2;       // consumer warpgroups, 64 rows each
 constexpr int kBM = 64 * kConsumers;  // query rows per block
 constexpr int kBN = 128;            // keys per KV tile
-constexpr int kStages = 4;          // K/V ring depth
 constexpr int kThreads = 128 * (1 + kConsumers);   // + the producer
-// registers a thread: 168 at launch (384 threads, one block an SM); after
-// setmaxnreg the producer keeps 40 and the consumers may take 232
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
-                  168 * kThreads,
-              "setmaxnreg asks for more registers than the block holds");
-constexpr int kQBytes = kBM * kD * 2;
-constexpr int kTileBytes = kBN * kD * 2;                  // 16 KB
-constexpr int kSmemBytes = kQBytes + 2 * kStages * kTileBytes + 1024 + 128;
+constexpr int kColBlock = 64;       // columns of a 128-byte swizzle row
+
+// the bf16 kernel's sizes for head dim D
+template <int D>
+struct Dims {
+  static_assert(D % 16 == 0 && D <= 128, "head dims are multiples of 16");
+  static constexpr int kDp = D <= 64 ? 64 : 128;   // the padded width
+  static constexpr int kCols = kDp / kColBlock;     // 64-column blocks
+  static constexpr int kStages = kDp == 64 ? 4 : 2;  // K/V ring depth
+  // registers a thread: 168 at launch (384 threads, one block an SM);
+  // after setmaxnreg the producer keeps 40 (24) and the consumers may take
+  // 232 (240) at Dp = 64 (128)
+  static constexpr int kProducerRegs = kDp == 64 ? 40 : 24;
+  static constexpr int kConsumerRegs = kDp == 64 ? 232 : 240;
+  static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                    168 * kThreads,
+                "setmaxnreg asks for more registers than the block holds");
+  static constexpr int kQBytes = kBM * kDp * 2;
+  static constexpr int kTileBytes = kBN * kDp * 2;   // 16 KB or 32 KB
+  static constexpr int kSmemBytes =
+      kQBytes + 2 * kStages * kTileBytes + 1024 + 128;
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may have");
+};
 
 // 4-D tensor map coordinates: the slot of each of (s, h, b) in dims 1..3
 struct Slots {
@@ -147,14 +170,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
+// one box: columns col..col+63 of `rows` rows at (row, h, b)
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int row, int h, int b,
-                                         Slots sl) {
+                                         Slots sl, int col) {
   int c[4];
 #pragma unroll
   for (int i = 1; i < 4; ++i)        // selects, no runtime-indexed array
     c[i] = sl.s == i ? row : (sl.h == i ? h : b);
-  c[0] = 0;
+  c[0] = col;
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
@@ -163,9 +187,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle; tiles 1024-B aligned
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+// shared-memory matrix descriptor, 128-byte swizzle; tiles 1024-B aligned.
+// `lbo`: an MN-major operand's stride from one 64-column block to the next
+// (read only when N spans more than one block)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
+                                               uint32_t lbo = 0) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) |        // 8 rows of 128 B
          (1ull << 62);
 }
@@ -256,6 +284,41 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (m64n128, f32) += P (m64k16 bf16 in registers) V (k16n128, MN-major,
+// two 64-column blocks `lbo` bytes apart)
+__device__ __forceinline__ void wgmma_pv128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -269,18 +332,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // the block's shared memory: Q, the K and V rings, then the mbarriers,
-// from a 1024-byte aligned base (128-byte swizzle needs it)
+// from a 1024-byte aligned base (128-byte swizzle needs it).  A tile of R
+// rows is kCols blocks of R x 128 bytes, one a 64-column block
+template <int D>
 struct Smem {
+  using Dm = Dims<D>;
+  static constexpr int kStages = Dm::kStages;
   uint32_t base;
   __device__ uint32_t q() const { return base; }
   __device__ uint32_t k(int st) const {
-    return base + kQBytes + st * kTileBytes;
+    return base + Dm::kQBytes + st * Dm::kTileBytes;
   }
   __device__ uint32_t v(int st) const {
-    return base + kQBytes + (kStages + st) * kTileBytes;
+    return base + Dm::kQBytes + (kStages + st) * Dm::kTileBytes;
   }
   __device__ uint32_t bar(int i) const {
-    return base + kQBytes + 2 * kStages * kTileBytes + 8 * i;
+    return base + Dm::kQBytes + 2 * kStages * Dm::kTileBytes + 8 * i;
   }
   __device__ uint32_t full_q() const { return bar(0); }
   __device__ uint32_t full_k(int st) const { return bar(1 + st); }
@@ -291,15 +358,18 @@ struct Smem {
 };
 
 // one consumer warpgroup's state for its 64 query rows
+template <int Dp>
 struct Rows {
-  float o[32];                      // O accumulator, m64n64 layout
+  float o[Dp / 2];                  // O accumulator, m64n(Dp) layout
   float m_a, m_b, l_a, l_b;         // rows g and g + 8 of this thread
 };
 
 // softmax of one S tile in place: scores masked where needed, the row
 // max and sum carried in `st`, p = exp2 of the scaled scores left in s
 // (f32).  -> the factors (rows g, g + 8) that rescale O to the new max
-__device__ __forceinline__ float2 softmax_tile(float (&s)[kBN / 2], Rows& st,
+template <int Dp>
+__device__ __forceinline__ float2 softmax_tile(float (&s)[kBN / 2],
+                                               Rows<Dp>& st,
                                                bool masked, int k0, int row_a,
                                                int Skv, bool causal,
                                                float scale2, int lane) {
@@ -345,11 +415,12 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[kBN / 2], Rows& st,
   return corr;
 }
 
-__device__ __forceinline__ void rescale(float (&o)[32], float2 corr) {
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], float2 corr) {
   // once the row maxima settle, every factor is 1: skip the multiplies
   if (__all_sync(0xffffffffu, corr.x == 1.f && corr.y == 1.f)) return;
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i) {
+  for (int i = 0; i < N / 4; ++i) {
     o[4 * i] *= corr.x;
     o[4 * i + 1] *= corr.x;
     o[4 * i + 2] *= corr.y;
@@ -367,21 +438,24 @@ __device__ __forceinline__ void to_bf16(const float (&s)[kBN / 2],
   }
 }
 
-// issue S = Q K^T for one KV tile (4 k-steps of 16 dims), committed
+// issue S = Q K^T for one KV tile (Dp/16 k-steps of 16 dims), committed.
+// k-step kk reads 32 bytes of 64-column block kk/4 of Q's and K's rows
+template <int Dp>
 __device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_addr,
                                         uint32_t k_addr) {
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_qk(s, sw128_desc(q_addr + kk * 32), sw128_desc(k_addr + kk * 32),
-             kk);
+  for (int kk = 0; kk < Dp / 16; ++kk)
+    wgmma_qk(s, sw128_desc(q_addr + (kk / 4) * kBM * 128 + (kk % 4) * 32),
+             sw128_desc(k_addr + (kk / 4) * kBN * 128 + (kk % 4) * 32), kk);
   wgmma_commit();
   fence_regs(s);
 }
 
 // issue O += P V for one KV tile (k-steps of 16 keys), committed
-__device__ __forceinline__ void issue_pv(float (&o)[32],
+template <int Dp>
+__device__ __forceinline__ void issue_pv(float (&o)[Dp / 2],
                                          uint32_t (&p)[kBN / 4],
                                          uint32_t v_addr) {
   fence_regs(o);
@@ -392,21 +466,28 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
     // P's A fragment for keys 16kk..16kk+15: S chunks 2kk and 2kk + 1
     const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                            p[4 * kk + 3]};
-    wgmma_pv(o, a, sw128_desc(v_addr + kk * 16 * 128));
+    if constexpr (Dp == 64)
+      wgmma_pv(o, a, sw128_desc(v_addr + kk * 16 * 128));
+    else
+      wgmma_pv128(o, a, sw128_desc(v_addr + kk * 16 * 128, kBN * 128));
   }
   wgmma_commit();
   fence_regs(o);
 }
 
+template <int D>
 struct Consumer {
-  const Smem& sm;
+  static constexpr int kDp = Dims<D>::kDp;
+  static constexpr int kStages = Dims<D>::kStages;
+  const Smem<D>& sm;
   const Params& p;
   uint32_t q_addr;
   int hi, q0w, row_a, lane;
   float scale2;
   bool lane0;
 
-  __device__ float2 softmax(int j, float (&s)[kBN / 2], Rows& st) const {
+  __device__ float2 softmax(int j, float (&s)[kBN / 2],
+                           Rows<kDp>& st) const {
     const int k0 = j * kBN;
     const bool masked =
         k0 + kBN > p.Skv || (p.causal && k0 + kBN - 1 > q0w);
@@ -416,12 +497,12 @@ struct Consumer {
   __device__ void qk(int j, float (&s)[kBN / 2]) const {
     const int st = j % kStages;
     mbar_wait(sm.full_k(st), (j / kStages) & 1);
-    issue_qk(s, q_addr, sm.k(st));
+    issue_qk<kDp>(s, q_addr, sm.k(st));
   }
-  __device__ void pv(int j, Rows& st, uint32_t (&pf)[kBN / 4]) const {
+  __device__ void pv(int j, Rows<kDp>& st, uint32_t (&pf)[kBN / 4]) const {
     const int s0 = j % kStages;
     mbar_wait(sm.full_v(s0), (j / kStages) & 1);
-    issue_pv(st.o, pf, sm.v(s0));
+    issue_pv<kDp>(st.o, pf, sm.v(s0));
   }
   __device__ void release(int j) const {
     if (lane0) mbar_arrive(sm.empty(j % kStages));
@@ -429,7 +510,7 @@ struct Consumer {
 
   // softmax(j), then P(j) V(j) and S(j+1) issued together: the other
   // consumer warpgroup's softmax runs under these products
-  __device__ void run(Rows& st) const {
+  __device__ void run(Rows<kDp>& st) const {
     float s[kBN / 2];
     uint32_t pf[kBN / 4];
     qk(0, s);
@@ -449,13 +530,16 @@ struct Consumer {
   }
 };
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, Params p,
                       Slots sq, Slots skv) {
+  using Dm = Dims<D>;
+  constexpr int kStages = Dm::kStages, kDp = Dm::kDp;
   extern __shared__ uint8_t smem_raw[];
-  const Smem sm{(smem_u32(smem_raw) + 1023) & ~1023u};
+  const Smem<D> sm{(smem_u32(smem_raw) + 1023) & ~1023u};
   const int tid = threadIdx.x, lane = tid % 32;
   // the warpgroup, provably uniform across each warp (setmaxnreg needs it)
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
@@ -477,36 +561,45 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (wg == 0) {
     // ---- producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(Dm::kProducerRegs));
     if (tid == 0) {
-      mbar_expect_tx(sm.full_q(), kQBytes);
-      tma_load(sm.q(), &map_q, sm.full_q(), q0, h, b, sq);
+      // one box a 64-column block; the barrier counts the whole tile
+      mbar_expect_tx(sm.full_q(), Dm::kQBytes);
+      for (int cb = 0; cb < Dm::kCols; ++cb)
+        tma_load(sm.q() + cb * kBM * 128, &map_q, sm.full_q(), q0, h, b, sq,
+                 cb * kColBlock);
       for (int j = 0; j < hi; ++j) {
         const int st = j % kStages;
         if (j >= kStages) mbar_wait(sm.empty(st), (j / kStages - 1) & 1);
-        mbar_expect_tx(sm.full_k(st), kTileBytes);
-        tma_load(sm.k(st), &map_k, sm.full_k(st), j * kBN, h, b, skv);
-        mbar_expect_tx(sm.full_v(st), kTileBytes);
-        tma_load(sm.v(st), &map_v, sm.full_v(st), j * kBN, h, b, skv);
+        mbar_expect_tx(sm.full_k(st), Dm::kTileBytes);
+        for (int cb = 0; cb < Dm::kCols; ++cb)
+          tma_load(sm.k(st) + cb * kBN * 128, &map_k, sm.full_k(st), j * kBN,
+                   h, b, skv, cb * kColBlock);
+        mbar_expect_tx(sm.full_v(st), Dm::kTileBytes);
+        for (int cb = 0; cb < Dm::kCols; ++cb)
+          tma_load(sm.v(st) + cb * kBN * 128, &map_v, sm.full_v(st), j * kBN,
+                   h, b, skv, cb * kColBlock);
       }
     }
   } else {
     // ---- consumers: warpgroup c owns query rows q0 + 64c .. + 63
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 ::"n"(Dm::kConsumerRegs));
     const int c = wg - 1, warp = (tid % 128) / 32;
     const int q0w = q0 + 64 * c;
     const int row_a = q0w + warp * 16 + (lane >> 2);
     const float scale2 = p.scale * kLog2e;
     const uint32_t q_addr = sm.q() + c * 64 * 128;
-    Rows st;
+    Rows<kDp> st;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) st.o[i] = 0.f;
+    for (int i = 0; i < kDp / 2; ++i) st.o[i] = 0.f;
     fence_regs(st.o);               // zeroed before the first wgmma is issued
     st.m_a = st.m_b = kNegInf;
     st.l_a = st.l_b = 0.f;
     mbar_wait(sm.full_q(), 0);
-    const Consumer con{sm, p, q_addr, hi, q0w, row_a, lane, scale2,
-                       lane == 0};
+    const Consumer<D> con{sm, p, q_addr, hi, q0w, row_a, lane, scale2,
+                          lane == 0};
     con.run(st);
 
 #pragma unroll
@@ -525,8 +618,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       if (row_a < p.Sq) lp[row_a] = fmaf(st.m_a, kLn2, logf(den_a));
       if (row_b < p.Sq) lp[row_b] = fmaf(st.m_b, kLn2, logf(den_b));
     }
+    // the D real columns (columns D..Dp-1 of O are zeros, not stored)
 #pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
+    for (int dt = 0; dt < D / 8; ++dt) {
       const int col = dt * 8 + col2;
       if (row_a < p.Sq)
         *reinterpret_cast<uint32_t*>(op + row_a * p.os + col) =
@@ -541,16 +635,25 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 // -------------------------------------------------------------- f32 path
 
 constexpr int kBM32 = 64;           // query rows (one thread each) per block
-constexpr int kBN32 = 64;           // keys per KV tile
 
+// keys per KV tile: 64, or 32 above D = 64 (two f32 tiles within the 48 KB
+// of static shared memory)
+template <int D>
+constexpr int kBN32Of = D <= 64 ? 64 : 32;
+
+template <int D>
 __device__ __forceinline__ int kv_tiles32(const Params& p, int q0) {
+  constexpr int kBN32 = kBN32Of<D>;
   int n = (p.Skv + kBN32 - 1) / kBN32;
   if (p.causal) n = min(n, (q0 + kBM32 + kBN32 - 1) / kBN32);
   return n;
 }
 
+// q and acc of D floats a thread live in registers; at D = 128 they spill
+template <int D>
 __global__ void __launch_bounds__(kBM32)
 flash_fwd_f32_kernel(Params p) {
+  constexpr int kD = D, kBN32 = kBN32Of<D>;
   __shared__ float sK[kBN32][kD];
   __shared__ float sV[kBN32][kD];
 
@@ -560,7 +663,7 @@ flash_fwd_f32_kernel(Params p) {
   const int row = q0 + tid;
   const float* kp = static_cast<const float*>(p.k) + b * p.kb + h * p.kh;
   const float* vp = static_cast<const float*>(p.v) + b * p.vb + h * p.vh;
-  const int hi = kv_tiles32(p, q0);
+  const int hi = kv_tiles32<D>(p, q0);
 
   float q[kD], acc[kD];
   const float* qrow = static_cast<const float*>(p.q) + b * p.qb + h * p.qh +
@@ -631,11 +734,11 @@ EncodeTiled encode_tiled() {
 }
 
 // a bf16 (D, s, h, b) tensor as a 4-D tensor map, its outer dims ordered
-// by stride; boxes of 64 x `rows` x 1 x 1, 128-byte swizzle, rows past
-// the end read as zeros.  -> 0 or a CUDA error
+// by stride; boxes of 64 columns x `rows` x 1 x 1, 128-byte swizzle; rows
+// past the end and columns past D read as zeros.  -> 0 or a CUDA error
 int make_map(EncodeTiled fn, CUtensorMap* map, Slots* slots, const void* base,
-             int rows, long long S, long long H, long long B, long long ss,
-             long long sh, long long sb) {
+             int D, int rows, long long S, long long H, long long B,
+             long long ss, long long sh, long long sb) {
   struct Dim {
     long long size, stride;
     cuuint32_t box;
@@ -647,12 +750,13 @@ int make_map(EncodeTiled fn, CUtensorMap* map, Slots* slots, const void* base,
       d[j] = d[j - 1];
       d[j - 1] = t;
     }
-  cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)d[0].size,
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)d[0].size,
                         (cuuint64_t)d[1].size, (cuuint64_t)d[2].size};
   cuuint64_t strides[3] = {(cuuint64_t)d[0].stride * 2,
                            (cuuint64_t)d[1].stride * 2,
                            (cuuint64_t)d[2].stride * 2};
-  cuuint32_t box[4] = {(cuuint32_t)kD, d[0].box, d[1].box, d[2].box};
+  cuuint32_t box[4] = {(cuuint32_t)kColBlock, d[0].box, d[1].box,
+                       d[2].box};
   cuuint32_t unit[4] = {1, 1, 1, 1};
   int* slot[3] = {&slots->s, &slots->h, &slots->b};
   for (int i = 0; i < 3; ++i) *slot[d[i].which] = i + 1;
@@ -665,28 +769,39 @@ int make_map(EncodeTiled fn, CUtensorMap* map, Slots* slots, const void* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+template <int D>
 int launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {
+  constexpr int kSmemBytes = Dims<D>::kSmemBytes;
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
   Slots sq, sk, sv;
   int err =
-      make_map(fn, &mq, &sq, p.q, kBM, p.Sq, H, B, p.qs, p.qh, p.qb);
+      make_map(fn, &mq, &sq, p.q, D, kBM, p.Sq, H, B, p.qs, p.qh, p.qb);
   if (!err)
-    err = make_map(fn, &mk, &sk, p.k, kBN, p.Skv, H, B, p.ks, p.kh, p.kb);
+    err = make_map(fn, &mk, &sk, p.k, D, kBN, p.Skv, H, B, p.ks, p.kh, p.kb);
   if (!err)
-    err = make_map(fn, &mv, &sv, p.v, kBN, p.Skv, H, B, p.vs, p.vh, p.vb);
+    err = make_map(fn, &mv, &sv, p.v, D, kBN, p.Skv, H, B, p.vs, p.vh, p.vb);
   if (err) return err;
   if (sk.s != sv.s || sk.h != sv.h || sk.b != sv.b)
     return (int)cudaErrorInvalidValue;        // k and v strides order alike
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((p.Sq + kBM - 1) / kBM), (unsigned)H,
                   (unsigned)B);
-  flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(mq, mk, mv,
-                                                                p, sq, sk);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, kSmemBytes, stream>>>(
+      mq, mk, mv, p, sq, sk);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const Params& p, int dtype, int B, int H, cudaStream_t stream) {
+  if (dtype == 0) return launch_bf16<D>(p, B, H, stream);
+  const dim3 grid((unsigned)((p.Sq + kBM32 - 1) / kBM32), (unsigned)H,
+                  (unsigned)B);
+  flash_fwd_f32_kernel<D><<<grid, kBM32, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -703,18 +818,30 @@ extern "C" int ss_flash_attention_fwd(const void* q, const void* k,
                                       const long long* strides,
                                       void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
-  if (D != kD || Skv <= 0 || (dtype != 0 && dtype != 1))
+  if (Skv <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, out, lse, Sq, Skv, causal ? 1 : 0, scale,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11]};
-  if (dtype == 0) return launch_bf16(p, B, H, (cudaStream_t)stream);
-  const dim3 grid((unsigned)((Sq + kBM32 - 1) / kBM32), (unsigned)H,
-                  (unsigned)B);
-  flash_fwd_f32_kernel<<<grid, kBM32, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return launch<16>(p, dtype, B, H, st);
+    case 64: return launch<64>(p, dtype, B, H, st);
+    case 112: return launch<112>(p, dtype, B, H, st);
+    case 128: return launch<128>(p, dtype, B, H, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// dynamic shared memory of one bf16 block, bytes (reported by chip_smoke.py)
-extern "C" int ss_flash_attention_smem_bytes() { return kSmemBytes; }
+// dynamic shared memory of one bf16 block at head dim D, bytes (reported
+// by chip_smoke.py); -1 for a head dim the kernel does not take
+extern "C" int ss_flash_attention_smem_bytes(int D) {
+  switch (D) {
+    case 16: return Dims<16>::kSmemBytes;
+    case 64: return Dims<64>::kSmemBytes;
+    case 112: return Dims<112>::kSmemBytes;
+    case 128: return Dims<128>::kSmemBytes;
+    default: return -1;
+  }
+}

@@ -10,7 +10,8 @@ it here:
 * :func:`window_from_numpy` / :func:`window_to_numpy` move a sealed
   window across, so a window sealed in one package opens in the other;
 * :func:`lm_params_from_numpy` turns the reference's LM parameter pytree
-  into the port's, so both packages serve the same weights;
+  (any model family's) into the port's, so both packages serve the same
+  weights;
 * :func:`opt_state_from_numpy` does the same for an optimizer state, so
   the port's optimizer continues the reference's.
 """

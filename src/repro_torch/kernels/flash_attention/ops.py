@@ -11,7 +11,9 @@ the (B, S, H, D) entry makes no transposed copy (the reference swaps
 axes to (B, H, S, D) for its BlockSpecs), and rows past the end read as
 zeros, so any S is taken (the reference needs S to be a multiple of its
 chunk); its tiles are fixed, so there are no chunk arguments.  K and V
-come already repeated to the H query heads.  ``return_lse=True`` also
+come already repeated to the H query heads.  On the card the head dim D
+is one of :data:`HEAD_DIMS`: another D raises ``ValueError`` naming them
+(it is not handed to the plain version, which on the CPU takes any D).  ``return_lse=True`` also
 returns each query row's log-sum-exp of its scaled scores (natural log,
 f32, (B, H, Sq)): the residual the flash backward
 (:mod:`repro_torch.models.flash`) recomputes the probabilities from.
@@ -33,13 +35,22 @@ KERNEL = build.Kernel("ss_flash_attention_fwd", [
     ctypes.c_float, build.VOIDP, build.VOIDP])
 #: the element types the kernel takes (0 and 1 in its dtype argument)
 DTYPES = (torch.bfloat16, torch.float32)
-#: the one head dim ``csrc/flash_attention.cu`` instantiates
-HEAD_DIM = 64
+#: the head dims ``csrc/flash_attention.cu`` instantiates: every head dim
+#: of the configs (64, 112, 128) and of their smoke forms (16)
+HEAD_DIMS = (16, 64, 112, 128)
 
 
-def smem_bytes() -> int:
-    """Dynamic shared memory of one bf16 block of the kernel, bytes."""
-    return int(build.library().ss_flash_attention_smem_bytes())
+def smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one bf16 block of the kernel at
+    ``head_dim``, bytes."""
+    _check_head_dim(head_dim)
+    return int(build.library().ss_flash_attention_smem_bytes(head_dim))
+
+
+def _check_head_dim(D: int) -> None:
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash attention: head dim {D}; the kernel is "
+                         f"built for {HEAD_DIMS}")
 
 
 def _check(q, k, v, seq: int, head: int) -> None:
@@ -63,9 +74,7 @@ def _check(q, k, v, seq: int, head: int) -> None:
 def _launch(q, k, v, out, lse, causal: bool, seq: int, head: int) -> None:
     build.require_cuda(q)
     D = q.shape[3]
-    if D != HEAD_DIM:
-        raise ValueError(f"flash attention kernel: head dim {D}, the "
-                         f"kernel is built for {HEAD_DIM}")
+    _check_head_dim(D)
     align = 16 // q.element_size()           # tensor maps: 16-byte strides
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(3) != 1 or any(t.stride(i) % align for i in range(3)) \

@@ -1,4 +1,4 @@
-"""Model API of the port for the dense family (``repro/models/api.py``).
+"""Model API of the port over every model family (``repro/models/api.py``).
 
 Public surface (used by :mod:`repro_torch.serve.engine` and
 :mod:`repro_torch.train.steps`):
@@ -11,11 +11,18 @@ Public surface (used by :mod:`repro_torch.serve.engine` and
 * ``prefill(cfg, params, batch)``               -> (last_logits, cache)
 * ``decode_step(cfg, params, tokens, pos, cache)`` -> (logits, cache)
 
-Only ``family="dense"`` is ported; ``moe``, ``ssm``, ``hybrid``, ``vlm``
-and ``audio`` raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
-The layer stack keeps the reference's stacked ``(L, ...)`` layout and is
-walked by a Python loop over layer views (the reference's ``lax.scan``),
-each layer under the remat policy (:func:`_maybe_remat`).
+The families are the reference's: ``dense``, ``vlm`` and ``audio`` (the
+dense block; the vision front end replaces the first P positions with
+projected patches, the audio front end adds projected frames), ``moe``
+(attention + :mod:`repro_torch.models.moe`), ``ssm`` (xLSTM: mLSTM /
+sLSTM pairs, :mod:`repro_torch.models.xlstm`) and ``hybrid`` (Zamba2:
+Mamba2 layers, :mod:`repro_torch.models.mamba2`, with one weight-shared
+attention + MLP block after every full group of ``attn_every`` layers).
+Layer stacks keep the reference's stacked ``(L, ...)`` layout and are
+walked by Python loops over layer views (the reference's ``lax.scan``),
+each layer under the remat policy (:func:`_maybe_remat`).  Caches are
+nested dicts of stacked tensors (``attn`` k/v, ``mamba`` conv and SSM
+state, ``mlstm``/``slstm`` state), written in place by the decode step.
 
 **Prefill attention differs from the reference on purpose.**  The
 reference's ``prefill`` runs ``mha(attn_impl="hier")``, a recursive-
@@ -24,8 +31,10 @@ the card the counterpart of the reference's attention kernel is the
 flash-attention kernel (``csrc/flash_attention.cu``), whose KV loop stops
 at the diagonal and so does the same ~S^2/2 work; the port's ``prefill``
 therefore calls ``mha(attn_impl="pallas_flash")``: one kernel launch per
-layer.  Both are exact causal attention and agree within the bf16
-tolerance (``tests/test_torch_lm.py`` holds the port against both).
+attention layer (every layer of the attention families, every shared-
+attention call of the hybrid, none in xLSTM).  Both are exact causal
+attention and agree within the bf16 tolerance (``tests/test_torch_lm.py``
+holds the port against both).
 
 **Logits in f32 from bf16 operands.**  The reference's LM head is an
 einsum with ``preferred_element_type=f32``: exact bf16 products summed
@@ -40,7 +49,7 @@ compute the same function.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,17 +58,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as XL
 from repro_torch.models.layers import ParamSpec, Params
 
 Batch = Dict[str, torch.Tensor]
-PORTED_FAMILIES = ("dense",)
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet "
-            f"(ROADMAP Queue 1 item 7); ported: {PORTED_FAMILIES}")
+#: the families whose every layer is attention + an FFN
+ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 # ---------------------------------------------------------------------------
@@ -98,17 +104,56 @@ def _dense_layer_template(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _moe_layer_template(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": _norm(cfg.d_model),
+        "attn": L.attention_template(cfg),
+        "ln2": _norm(cfg.d_model),
+        "moe": MOE.moe_template(cfg),
+    }
+
+
+def _xlstm_pair_template(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln_m": _norm(cfg.d_model),
+        "mlstm": XL.mlstm_template(cfg),
+        "ln_s": _norm(cfg.d_model),
+        "slstm": XL.slstm_template(cfg),
+    }
+
+
+def _mamba_layer_template(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln": _norm(cfg.d_model), "mamba": M2.mamba2_template(cfg)}
+
+
 def param_template(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     t: Dict[str, Any] = {
         "embed": ParamSpec((V, d), ("vocab", "embed"), scale=0.02),
         "final_norm": _norm(d),
-        "layers": L.stack_template(_dense_layer_template(cfg),
-                                   cfg.num_layers),
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((d, V), ("embed", "vocab"))
+    if cfg.frontend in ("vision_patches", "audio_frames"):
+        t["frontend_proj"] = ParamSpec((cfg.frontend_dim, d), (None, "embed"))
+
+    fam = cfg.family
+    if fam in ("dense", "vlm", "audio"):
+        t["layers"] = L.stack_template(_dense_layer_template(cfg),
+                                       cfg.num_layers)
+    elif fam == "moe":
+        t["layers"] = L.stack_template(_moe_layer_template(cfg),
+                                       cfg.num_layers)
+    elif fam == "ssm":  # xLSTM
+        assert cfg.num_layers % 2 == 0
+        t["layers"] = L.stack_template(_xlstm_pair_template(cfg),
+                                       cfg.num_layers // 2)
+    elif fam == "hybrid":  # Zamba2
+        t["layers"] = L.stack_template(_mamba_layer_template(cfg),
+                                       cfg.num_layers)
+        t["shared_attn"] = _dense_layer_template(cfg)
+    else:
+        raise ValueError(f"unknown family {fam!r}")
     return t
 
 
@@ -142,8 +187,21 @@ class _LogitsF32(torch.autograd.Function):
         return g @ w.T, h.T @ g
 
 
+def _frontend(feats: torch.Tensor, proj: torch.Tensor, dtype):
+    """(B, P, F) patch or frame embeddings through the (F, E) projector
+    in their promoted type (jnp's einsum promotes), rounded to ``dtype``."""
+    t = torch.promote_types(feats.dtype, proj.dtype)
+    return (feats.to(t) @ proj.to(t)).to(dtype)
+
+
 def _embed(cfg: ModelConfig, params: Params, batch: Batch) -> torch.Tensor:
-    return F.embedding(batch["tokens"], params["embed"])
+    x = F.embedding(batch["tokens"], params["embed"])
+    if cfg.frontend == "vision_patches" and "patches" in batch:
+        proj = _frontend(batch["patches"], params["frontend_proj"], x.dtype)
+        x = torch.cat([proj, x[:, proj.shape[1]:]], dim=1)
+    elif cfg.frontend == "audio_frames" and "frames" in batch:
+        x = x + _frontend(batch["frames"], params["frontend_proj"], x.dtype)
+    return x
 
 
 def _lm_head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -166,11 +224,35 @@ def _logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _dense_block(p, x, cfg, positions, attn_impl):
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     x = x + L.mha(p["attn"], h, cfg, positions=positions,
                   attn_impl=attn_impl)
-    return _dense_mlp_residual(p, x, cfg)
+    return _ffn_residual(p, x, cfg)
+
+
+def _xlstm_pair_block(p, x, cfg, positions, attn_impl):
+    h = L.rms_norm(x, p["ln_m"], cfg.rms_eps)
+    x = x + XL.mlstm_forward(p["mlstm"], h, cfg)
+    h = L.rms_norm(x, p["ln_s"], cfg.rms_eps)
+    return x + XL.slstm_forward(p["slstm"], h, cfg), _no_aux(x)
+
+
+def _mamba_block(p, x, cfg, positions, attn_impl):
+    h = L.rms_norm(x, p["ln"], cfg.rms_eps)
+    return x + M2.mamba2_forward(p["mamba"], h, cfg), _no_aux(x)
+
+
+#: a layer of each family: (p, x) -> (x, aux); the MoE layer is the dense
+#: one with the MoE FFN in its place (:func:`_ffn_residual`)
+_BLOCK_FNS = {
+    "dense": _dense_block, "vlm": _dense_block, "audio": _dense_block,
+    "moe": _dense_block, "ssm": _xlstm_pair_block, "hybrid": _mamba_block,
+}
 
 
 #: the ops whose results "selective" remat keeps: the products with no
@@ -203,26 +285,57 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
     raise ValueError(f"unknown remat {remat!r}")
 
 
+def _hybrid_groups(cfg: ModelConfig) -> List[Tuple[int, int, bool]]:
+    """[(start, size, has_attn_after), ...]: the shared attention block
+    runs after each full group of ``attn_every`` Mamba2 layers."""
+    period = cfg.attn_every or cfg.num_layers
+    groups = []
+    i = 0
+    while i < cfg.num_layers:
+        size = min(period, cfg.num_layers - i)
+        groups.append((i, size, size == period))
+        i += size
+    return groups
+
+
+def num_shared_attn(cfg: ModelConfig) -> int:
+    return sum(1 for _, _, a in _hybrid_groups(cfg) if a)
+
+
+def _stack_depth(cfg: ModelConfig) -> int:
+    """Entries of ``params["layers"]``: xLSTM stacks (mLSTM, sLSTM) pairs."""
+    return cfg.num_layers // 2 if cfg.family == "ssm" else cfg.num_layers
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
             remat: str = "full", attn_impl: str = "flash"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (hidden (B,S,E), aux_loss).
+    """Full-sequence forward. Returns (hidden (B,S,E), aux_loss), the aux
+    loss summed over the MoE layers (0 for the other families).
 
     ``attn_impl`` is the attention schedule of every layer: the
     reference's ``"flash"`` (kernel 7 forward, block-recompute backward)
     or ``"chunked"`` (plain torch, autograd through it)."""
-    _require_ported(cfg)
     x = _embed(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     block = _maybe_remat(functools.partial(
-        _dense_block, cfg=cfg, positions=positions, attn_impl=attn_impl),
-        remat)
-    for p in L.unstack(params["layers"], cfg.num_layers):
-        x = block(p, x)
+        _BLOCK_FNS[cfg.family], cfg=cfg, positions=positions,
+        attn_impl=attn_impl), remat)
+    layers = L.unstack(params["layers"], _stack_depth(cfg))
+    aux = _no_aux(x)
+    groups = _hybrid_groups(cfg) if cfg.family == "hybrid" \
+        else [(0, len(layers), False)]
+    for start, size, has_attn in groups:
+        for p in layers[start:start + size]:
+            x, a = block(p, x)
+            aux = aux + a
+        if has_attn:
+            x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
+                                attn_impl)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _chunk_loss(hx: torch.Tensor, lx: torch.Tensor, w: torch.Tensor):
@@ -241,7 +354,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Batch, *,
     streaming LM head: the (T, V) logits exist one of ``loss_chunks``
     chunks at a time, f32 from the bf16 operands, each chunk under the
     remat policy.  -> (loss + aux_weight * aux, {"loss", "aux",
-    "tokens"}); aux is 0 for the dense family."""
+    "tokens"}); aux is the MoE layers' load-balance loss (0 for the
+    other families)."""
     hidden, aux = forward(cfg, params, batch, remat=remat,
                           attn_impl=attn_impl)
     B, S, E = hidden.shape
@@ -264,16 +378,35 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Batch, *,
 
 
 # ---------------------------------------------------------------------------
-# KV caches
+# KV / state caches
 # ---------------------------------------------------------------------------
 
 
 def cache_template(cfg: ModelConfig, batch: int, max_seq: int,
                    dtype: str = "bfloat16") -> Dict[str, Any]:
-    _require_ported(cfg)
-    return {"attn": L.stack_template(
-        L.attention_cache_template(cfg, batch, max_seq, dtype),
-        cfg.num_layers)}
+    """``dtype`` is the activations' type: the attention keys and values
+    and the Mamba2 conv inputs are kept in it; recurrent states are f32."""
+    fam = cfg.family
+    if fam in ATTN_FAMILIES:
+        return {"attn": L.stack_template(
+            L.attention_cache_template(cfg, batch, max_seq, dtype),
+            cfg.num_layers)}
+    if fam == "ssm":
+        return {
+            "mlstm": L.stack_template(XL.mlstm_cache_template(cfg, batch),
+                                      cfg.num_layers // 2),
+            "slstm": L.stack_template(XL.slstm_cache_template(cfg, batch),
+                                      cfg.num_layers // 2),
+        }
+    if fam == "hybrid":
+        return {
+            "mamba": L.stack_template(
+                M2.mamba2_cache_template(cfg, batch, dtype), cfg.num_layers),
+            "attn": L.stack_template(
+                L.attention_cache_template(cfg, batch, max_seq, dtype),
+                num_shared_attn(cfg)),
+        }
+    raise ValueError(fam)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
@@ -283,23 +416,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
         cache_template(cfg, batch, max_seq, dtype))
 
 
+def _store(stack: Params, i: int, new: Params) -> None:
+    """Write one layer's state into entry ``i`` of a stacked cache tree."""
+    for k, v in stack.items():
+        v[i] = new[k]
+
+
 # ---------------------------------------------------------------------------
 # Prefill / decode
 # ---------------------------------------------------------------------------
 
 
-def _dense_mlp_residual(p, x, cfg):
+def _ffn_residual(p, x, cfg):
+    """x + the layer's FFN (MLP or MoE) of its second norm -> (x, aux)."""
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    return x + _apply_mlp(p["mlp"], h, cfg)
+    if "mlp" in p:
+        return x + _apply_mlp(p["mlp"], h, cfg), _no_aux(x)
+    out, aux = MOE.moe_ffn(p["moe"], h, cfg)
+    return x + out, aux
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Batch, *,
             max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Run the full prompt: -> (f32 logits of the last position (B, V),
-    cache).  The cache holds the prompt's keys and values at positions
-    0..S-1 of ``(L, B, max_seq, K, D)`` and zeros after (the reference's
-    zero padding), in the activations' type."""
-    _require_ported(cfg)
+    cache).  Attention caches hold the prompt's keys and values at
+    positions 0..S-1 of ``(n, B, max_seq, K, D)`` and zeros after (the
+    reference's zero padding), in the activations' type; recurrent caches
+    hold each layer's state after the prompt."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_seq = max_seq or S
@@ -310,14 +453,44 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch, *,
                              device=x.device)[None].expand(B, S)
     cache = init_cache(cfg, B, max_seq, x.device,
                        str(x.dtype).removeprefix("torch."))
-    for i in range(cfg.num_layers):
-        p = L.layer(params["layers"], i)
-        h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    fam = cfg.family
+
+    def attn_prefill(p, xx, i):
+        h = L.rms_norm(xx, p["ln1"], cfg.rms_eps)
         out, (k, v) = L.mha(p["attn"], h, cfg, positions=positions,
                             attn_impl="pallas_flash", return_kv=True)
-        x = _dense_mlp_residual(p, x + out, cfg)
         cache["attn"]["k"][i, :, :S] = k
         cache["attn"]["v"][i, :, :S] = v
+        return _ffn_residual(p, xx + out, cfg)[0]
+
+    if fam in ATTN_FAMILIES:
+        for i in range(cfg.num_layers):
+            x = attn_prefill(L.layer(params["layers"], i), x, i)
+    elif fam == "ssm":
+        for i in range(cfg.num_layers // 2):
+            p = L.layer(params["layers"], i)
+            h = L.rms_norm(x, p["ln_m"], cfg.rms_eps)
+            y, st = XL.mlstm_forward_with_state(p["mlstm"], h, cfg)
+            _store(cache["mlstm"], i, st)
+            x = x + y
+            h = L.rms_norm(x, p["ln_s"], cfg.rms_eps)
+            y, st = XL.slstm_forward_with_state(p["slstm"], h, cfg)
+            _store(cache["slstm"], i, st)
+            x = x + y
+    elif fam == "hybrid":
+        a = 0
+        for start, size, has_attn in _hybrid_groups(cfg):
+            for i in range(start, start + size):
+                p = L.layer(params["layers"], i)
+                h = L.rms_norm(x, p["ln"], cfg.rms_eps)
+                y, st = M2.mamba2_forward_with_state(p["mamba"], h, cfg)
+                _store(cache["mamba"], i, st)
+                x = x + y
+            if has_attn:
+                x = attn_prefill(params["shared_attn"], x, a)
+                a += 1
+    else:
+        raise ValueError(fam)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _logits(x[:, -1], _lm_head_weight(cfg, params)), cache
 
@@ -326,13 +499,46 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 pos: int, cache: Params) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, 1) int; ``pos`` a Python int (cache
     fill).  -> (f32 logits (B, V), cache), the cache updated in place."""
-    _require_ported(cfg)
     x = _embed(cfg, params, {"tokens": tokens})
-    for i in range(cfg.num_layers):
-        p = L.layer(params["layers"], i)
-        h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
-        out, _ = L.mha_decode(p["attn"], h, L.layer(cache["attn"], i), cfg,
-                              pos=pos)
-        x = _dense_mlp_residual(p, x + out, cfg)
+    fam = cfg.family
+
+    def attn_decode(p, xx, cache_l):
+        h = L.rms_norm(xx, p["ln1"], cfg.rms_eps)
+        out, _ = L.mha_decode(p["attn"], h, cache_l, cfg, pos=pos)
+        return _ffn_residual(p, xx + out, cfg)[0]
+
+    if fam in ATTN_FAMILIES:
+        for i in range(cfg.num_layers):
+            x = attn_decode(L.layer(params["layers"], i), x,
+                            L.layer(cache["attn"], i))
+    elif fam == "ssm":
+        for i in range(cfg.num_layers // 2):
+            p = L.layer(params["layers"], i)
+            h = L.rms_norm(x, p["ln_m"], cfg.rms_eps)
+            y, st = XL.mlstm_decode(p["mlstm"], h,
+                                    L.layer(cache["mlstm"], i), cfg)
+            _store(cache["mlstm"], i, st)
+            x = x + y
+            h = L.rms_norm(x, p["ln_s"], cfg.rms_eps)
+            y, st = XL.slstm_decode(p["slstm"], h,
+                                    L.layer(cache["slstm"], i), cfg)
+            _store(cache["slstm"], i, st)
+            x = x + y
+    elif fam == "hybrid":
+        a = 0
+        for start, size, has_attn in _hybrid_groups(cfg):
+            for i in range(start, start + size):
+                p = L.layer(params["layers"], i)
+                h = L.rms_norm(x, p["ln"], cfg.rms_eps)
+                y, st = M2.mamba2_decode(p["mamba"], h,
+                                         L.layer(cache["mamba"], i), cfg)
+                _store(cache["mamba"], i, st)
+                x = x + y
+            if has_attn:
+                x = attn_decode(params["shared_attn"], x,
+                                L.layer(cache["attn"], a))
+                a += 1
+    else:
+        raise ValueError(fam)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _logits(x[:, -1], _lm_head_weight(cfg, params)), cache

@@ -33,6 +33,10 @@ from repro_torch.models.flash import flash_attention, flash_forward_plain
 from repro_torch.models.hier_attn import hier_causal_attention
 
 Params = Any  # nested dict of tensors
+#: the most values a leaf is drawn in at once (1 GiB of f32): larger
+#: leaves are drawn in slabs (:meth:`ParamSpec.initialize`); every leaf of
+#: llama3.2-1b (its 128,256 x 2,048 embedding is 262,668,288) is drawn whole
+SLAB_ELEMENTS = 1 << 28
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +63,12 @@ class ParamSpec:
     def initialize(self, generator: torch.Generator,
                    device="cuda") -> torch.Tensor:
         """Draw the tensor from ``generator`` (which must live on
-        ``device``): N(0, std^2) in f32, then cast, as the reference."""
+        ``device``): N(0, std^2) in f32, then cast, as the reference.  The
+        leaf is drawn in slabs of at most :data:`SLAB_ELEMENTS` values
+        along its first axis (one slab, the whole leaf, for all but the
+        largest), each cast into the result as it is drawn, so the f32
+        temporary is one slab, not the leaf (moonshot's stacked expert
+        leaf, 8.86e9 values, would need 35 GB of f32)."""
         dt = self.torch_dtype
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dt, device=device)
@@ -67,9 +76,14 @@ class ParamSpec:
             return torch.ones(self.shape, dtype=dt, device=device)
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
         std = self.scale if self.scale is not None else 1.0 / math.sqrt(fan_in)
-        x = torch.randn(self.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return x.mul_(std).to(dt)
+        out = torch.empty(self.shape, dtype=dt, device=device)
+        rows = max(1, SLAB_ELEMENTS // (out.numel() // self.shape[0]))
+        for i in range(0, self.shape[0], rows):
+            part = out[i:i + rows]
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   dtype=torch.float32, device=device)
+                       .mul_(std))
+        return out
 
 
 def tree_map_specs(fn: Callable[[ParamSpec], Any], template: Params) -> Params:

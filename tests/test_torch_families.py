@@ -1,0 +1,35 @@
+"""The dense-attention configs of the port (qwen2.5-14b/32b and granite-34b,
+the vision front end of internvl2-76b, the audio front end of
+musicgen-large) at their ``reduce_for_smoke`` forms against the JAX
+reference on the CPU.
+
+The checks (f32 end to end, bf16 layer by layer, and their tolerances)
+are in ``tests/_torch_families.py``.
+"""
+import pytest
+
+from _torch_families import (check_bf16_layers_teacher_forced,
+                             check_forward_and_loss, check_prefill_and_decode,
+                             make_ctx)
+
+ARCHS = ['internvl2-76b', 'musicgen-large', 'qwen2.5-14b', 'qwen2.5-32b', 'granite-34b']
+
+
+@pytest.fixture(scope="module")
+def ctx():
+    return make_ctx()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_equal_reference(ctx, arch):
+    check_prefill_and_decode(ctx, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_and_loss_equal_reference(ctx, arch):
+    check_forward_and_loss(ctx, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_layers_teacher_forced(ctx, arch):
+    check_bf16_layers_teacher_forced(ctx, arch)

@@ -143,3 +143,23 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
         k, v = k[:, :, :0], v[:, :, :0]
     with pytest.raises(ValueError):
         ops.flash_attention_bhsd(q, k, v)
+
+
+def test_kernel_head_dims_cover_every_config():
+    """The head dims kernel 7 is built for are every head dim that a
+    config or its ``reduce_for_smoke`` form gives attention (xlstm-125m's
+    192 is attention-free); any other raises on the card's path, naming
+    the set."""
+    from repro_torch import configs
+    assert ops.HEAD_DIMS == (16, 64, 112, 128)
+    need = set()
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_model_config(arch)
+        if not cfg.attention_free:
+            need |= {cfg.head_dim,
+                     configs.reduce_for_smoke(cfg).head_dim}
+    assert need == set(ops.HEAD_DIMS)
+    for D in ops.HEAD_DIMS:
+        ops._check_head_dim(D)
+    with pytest.raises(ValueError, match=r"\(16, 64, 112, 128\)"):
+        ops._check_head_dim(96)

@@ -649,6 +649,122 @@ def test_prefill_launches_kernel_7_once_per_layer_and_decode_never(cuda):
     assert torch.isfinite(logits2).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 64, 112, 128])
+def test_flash_kernel_at_each_head_dim_equals_plain(cuda, D, dtype):
+    """Every head dim the kernel instantiates, causal and not, ragged
+    Sq < Skv, with its log-sum-exp, head-major and through (B, S, H, D)
+    views with a head stride (a slice of wider heads)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    for B, H, Sq, Skv, causal in ((2, 4, 333, 333, True),
+                                  (1, 3, 130, 700, False),
+                                  (1, 2, 1000, 1000, True)):
+        q, k, v = _qkv(cuda, B, H, Sq, Skv, dtype, seed=D + Sq, D=D)
+        want, want_lse = attention_ref(q, k, v, causal=causal,
+                                       return_lse=True)
+        before = flash_ops.KERNEL.launches
+        got, lse = flash_ops.flash_attention_bhsd(q, k, v, causal=causal,
+                                                  return_lse=True)
+        assert flash_ops.KERNEL.launches == before + 1
+        _assert_flash_close(got, want, q, k, v, causal)
+        assert (lse - want_lse).abs().max().item() <= LSE_TOL
+    wide = [t.transpose(1, 2) for t in _qkv(cuda, 2, 10, 257, 257, dtype,
+                                            seed=D, D=D)]
+    q, k, v = (t[:, :, 3:9] for t in wide)          # (2, 257, 6, D) views
+    assert not q.is_contiguous()
+    got = flash_ops.flash_attention(q, k, v)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    _assert_flash_close(got.transpose(1, 2), attention_ref(q, k, v),
+                        q, k, v, True)
+
+
+def test_flash_kernel_refuses_head_dim_96(cuda):
+    """A head dim the kernel does not instantiate raises ValueError
+    naming the set, launches nothing and is not handed to the plain
+    version."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16, D=96)
+    before = flash_ops.KERNEL.launches
+    with pytest.raises(ValueError, match=r"\(16, 64, 112, 128\)"):
+        flash_ops.flash_attention_bhsd(q, k, v)
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+    assert flash_ops.KERNEL.launches == before
+
+
+FAMILY_ARCHS = ["moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "zamba2-1.2b",
+                "xlstm-125m", "internvl2-76b", "musicgen-large",
+                "qwen2.5-14b", "qwen2.5-32b", "granite-34b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch):
+    """The smoke form of every family, f32 weights: prefill (kernel 7,
+    f32, at head dim 16, once per attention call) and one decode step on
+    the card equal the same model on the CPU (plain versions): logits and
+    every cache leaf within f32's 2e-5 + 1e-5·|want| (MoE: 4e-3 +
+    2^-8·|want|, its combine rounds to bf16, tests/_torch_families.py)."""
+    from repro_torch.configs import get_model_config, reduce_for_smoke
+    from repro_torch.models import api
+    cfg = reduce_for_smoke(get_model_config(arch))
+    params = api.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+
+    def tree(t, fn):
+        return {k: tree(v, fn) for k, v in t.items()} \
+            if isinstance(t, dict) else fn(t)
+    params = tree(params, lambda t: t.float())
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(4))
+    atol, rtol = (4e-3, 2 ** -8) if cfg.family == "moe" else (2e-5, 1e-5)
+
+    def close(got, want):
+        excess = (got.cpu() - want).abs() - (atol + rtol * want.abs())
+        assert excess.max().item() <= 0, excess.max().item()
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree(params, lambda t: t.to(dev))
+        build.reset_launch_counts()
+        logits, cache = api.prefill(cfg, p, {"tokens": toks.to(dev)},
+                                    max_seq=65)
+        nxt = logits.cpu().argmax(-1).to(torch.int32)[:, None]
+        prefill_launches = build.launch_counts()["ss_flash_attention_fwd"]
+        logits2, cache = api.decode_step(cfg, p, nxt.to(dev), 64, cache)
+        runs[str(dev)] = (logits, logits2, cache, prefill_launches)
+    (lc, lc2, cc, _), (lg, lg2, cg, n) = runs["cpu"], runs[str(cuda)]
+    calls = (api.num_shared_attn(cfg) if cfg.family == "hybrid"
+             else 0 if cfg.attention_free else cfg.num_layers)
+    assert n == calls
+    close(lg, lc)
+    close(lg2, lc2)
+    flat = lambda t, pre="": [x for k, v in t.items() for x in (  # noqa
+        flat(v, pre + k) if isinstance(v, dict) else [(pre + k, v)])]
+    for (name, g), (_, c) in zip(flat(cg), flat(cc)):
+        close(g.float(), c.float())
+
+
+def test_moe_ffn_on_the_card_is_deterministic(cuda):
+    """The MoE combine adds each token's k terms in a fixed order (no
+    atomics): two calls on the same input are bit-equal, at a capacity
+    that drops tokens and at one that drops none."""
+    import dataclasses
+    from repro_torch.configs import get_model_config, reduce_for_smoke
+    from repro_torch.models import api, moe
+    cfg = reduce_for_smoke(get_model_config("moonshot-v1-16b-a3b"))
+    p = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(5),
+                        cuda)["layers"]["moe"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn((4, 512, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6)
+                    ).to(torch.bfloat16)
+    for cf in (0.5, cfg.moe.num_experts / cfg.moe.top_k):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        a, aux_a = moe.moe_ffn(p, x, c)
+        b, aux_b = moe.moe_ffn(p, x, c)
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
 # ------------------------------------------------------- the secure wire
 
 

@@ -25,12 +25,17 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
         "    importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
+        "need = {'repro_torch.models.' + m for m in\n"
+        "        ('gla', 'moe', 'mamba2', 'xlstm')}\n"
+        "import repro_torch.configs as c\n"
+        "need |= set(c._ARCH_MODULES.values())\n"
+        "assert need <= set(names), need - set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30      # every module was imported
+    assert int(out.stdout.strip()) >= 43      # every module was imported
 
 
 def test_no_source_imports_jax_or_repro():

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs as j_configs
 from repro.configs import get_model_config as j_get_model_config
 from repro.configs import get_run_config as j_get_run_config
 from repro.configs.base import ModelConfig as JModelConfig
@@ -290,17 +291,36 @@ def test_llama_template_equals_reference_without_allocating():
 
 
 def test_registry_ports_llama_only_and_names_the_queue():
-    assert configs.ARCH_IDS == ["llama3.2-1b"]
+    """Every architecture of the reference is ported now: the registry
+    lists the reference's ten in its order, every family builds a
+    template, and an unknown arch still raises ``KeyError``."""
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    assert configs.ARCH_IDS == J_ARCH_IDS and len(configs.ARCH_IDS) == 10
     assert configs.get_model_config("llama3.2-1b").num_layers == 16
-    for arch in configs.NOT_PORTED:
-        with pytest.raises(KeyError, match="Queue 1"):
-            configs.get_model_config(arch)
+    assert not hasattr(configs, "NOT_PORTED")
+    assert not hasattr(api, "PORTED_FAMILIES")
     with pytest.raises(KeyError, match="unknown"):
         configs.get_model_config("gpt-2")
     for fam in ("moe", "ssm", "hybrid", "vlm", "audio"):
-        cfg = ModelConfig(**dict(BASE, family=fam))
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            api.param_template(cfg)
+        kw = dict(BASE, family=fam)
+        if fam in ("vlm", "audio"):
+            kw.update(frontend="vision_patches" if fam == "vlm"
+                      else "audio_frames", frontend_dim=32)
+        cfg = ModelConfig(**kw, **{
+            "moe": dict(moe=configs.MoEConfig(4, 2, 16)),
+            "ssm": dict(xlstm=configs.XLSTMConfig()),
+            "hybrid": dict(ssm=configs.SSMConfig(16, 4, 2, 16, 16),
+                           attn_every=1),
+        }.get(fam, {}))
+        jcfg = JModelConfig(**{f: getattr(cfg, f) for f in (
+            "arch_id", "family", "num_layers", "d_model", "num_heads",
+            "num_kv_heads", "d_ff", "vocab_size", "head_dim",
+            "tie_embeddings", "attn_every", "frontend", "frontend_dim")},
+            **{"moe": dict(moe=j_configs.MoEConfig(4, 2, 16)),
+               "ssm": dict(xlstm=j_configs.XLSTMConfig()),
+               "hybrid": dict(ssm=j_configs.SSMConfig(16, 4, 2, 16, 16))
+               }.get(fam, {}))
+        assert cfg.param_count() == jcfg.param_count(), fam
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
@@ -320,7 +340,7 @@ def test_run_config_equals_reference(shape):
     assert (run.remat, run.microbatches, run.seed) == (
         jrun.remat, jrun.microbatches, jrun.seed)
     with pytest.raises(KeyError):
-        configs.get_run_config("qwen2.5-14b", shape)
+        configs.get_run_config("gpt-2", shape)
 
 
 def test_lm_params_from_numpy_refuses_a_mismatched_tree():
