@@ -187,7 +187,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    of a profiled step, kernel 7 launches a step, sealed ingest ms a step,
    checkpoint save and restore seconds, peak memory.
 14. the other model families (every number beside the card's name and
-   power limit).  (a) kernel 7 at head dims 16, 112 and 128 (bf16 and
+   power limit).  (a) kernel 7 at head dims 16, 32, 96, 112 and 128 (bf16 and
    f32, with and without the lse, head-major and through the model's
    (B, S, H, D) layout; ragged, Sq < Skv, causal and not) against its
    plain version; every instantiation's registers, spills and shared
@@ -2263,19 +2263,17 @@ SERVE_CACHE_RTOL = 0.05
 
 def flash_pairs(B, H, Sq, Skv, causal):
     """Attended (query, key) pairs: causal (top-left) row i attends
-    min(i+1, Skv) keys; each costs one exp2 in the softmax."""
-    if causal:
-        full = min(Sq, Skv)
-        pairs = full * (full + 1) // 2 + max(Sq - Skv, 0) * Skv
-    else:
-        pairs = Sq * Skv
-    return B * H * pairs
+    min(i+1, Skv) keys; each costs one exp2 in the softmax (the kernel's
+    own count, which its FLOP formula for the dry run reads too)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    return flash_ops.attended_pairs(B, H, Sq, Skv, causal)
 
 
 def flash_flops(B, H, Sq, Skv, D, causal):
     """FLOPs kernel 7 needs: 2*D for q.k and 2*D for p*v per attended
-    (query, key) pair."""
-    return 4 * D * flash_pairs(B, H, Sq, Skv, causal)
+    (query, key) pair (``ops.flops``: the dry run's count of it)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    return flash_ops.flops(B, H, Sq, Skv, D, causal)
 
 
 def _plain_bshd(torch, keep=None):
@@ -2360,8 +2358,10 @@ def flash_pace(torch, run, full_ms):
 
 
 def flash_instantiations(report: str) -> dict:
-    """Kernel 7's ptxas entries by (type, head dim), from the template
-    argument in the mangled names (``flash_fwd_bf16_kernelILi128E...``)."""
+    """Kernel 7's ptxas entries by (type, padded width), from the template
+    argument in the mangled names (``flash_fwd_bf16_kernelILi128E...``):
+    bf16 64 and 128, f32 16, 32, 64 and 128; any D up to 128 runs on the
+    instantiation of the next width up."""
     import re
     from repro_torch.kernels import build
     out = {}
@@ -4185,13 +4185,20 @@ def phase_training(torch, dev):
 #: (B, H, Sq, Skv): ragged, Sq < Skv and short
 FAMILY_FLASH_CHECKS = ((2, 4, 1000, 1000), (1, 3, 130, 700), (2, 4, 128, 128))
 #: ... and its timed shapes, (B, H, S, D): the prefills of the configs
-#: that take each head dim (and every config's reduce_for_smoke form)
+#: that take each head dim (and every config's reduce_for_smoke form),
+#: and D = 32 and 96, which no config has (computed at the padded widths
+#: 64 and 128), at moonshot's B, H and S
 FAMILY_FLASH_TIMED = {
     "moonshot-v1-16b-a3b": (4, 16, 2048, 128),
     "qwen2.5-14b": (4, 40, 2048, 128),
     "kimi-k2-1t-a32b": (1, 64, 2048, 112),
     "reduce_for_smoke": (8, 4, 2048, 16),
+    "no config, D = 32": (4, 16, 2048, 32),
+    "no config, D = 96": (4, 16, 2048, 96),
 }
+#: the head dims phase 14a checks against the plain version (phase 9
+#: checks 64): the configs' others and two that no config has
+FAMILY_FLASH_DIMS = (16, 32, 96, 112, 128)
 #: kernel 7 at D = 64 at phase 9's shape (8 x 32 x 4096): the most it may
 #: take, ms.  Before the head-dim template it read 1.446 ms, and the
 #: template's D = 64 read 1.4498-1.4699 ms in the runs of this script that
@@ -4336,7 +4343,7 @@ def _sets_differ(torch, a, b):
 
 
 def phase_flash_head_dims(torch, dev):
-    """Phase 14a: kernel 7 at D = 16, 112 and 128 (bf16 and f32, with and
+    """Phase 14a: kernel 7 at FAMILY_FLASH_DIMS (bf16 and f32, with and
     without the lse, head-major and through the model's (B, S, H, D)
     layout) against its plain version; each instantiation's registers,
     spills and shared memory; its time beside its bound, the plain
@@ -4348,7 +4355,7 @@ def phase_flash_head_dims(torch, dev):
         BF16_ROW_RTOL, attention_ref, bf16_mismatch)
     for (dt, D), k in sorted(flash_instantiations(
             build.ptxas_report()).items()):
-        phase("flash_instance", card=CARD, dtype=dt, head_dim=D,
+        phase("flash_instance", card=CARD, dtype=dt, padded_width=D,
               registers=k["registers"], spill_stores=k["spill_stores"],
               spill_loads=k["spill_loads"],
               smem_bytes=flash_ops.smem_bytes(D) if dt == "bf16"
@@ -4369,7 +4376,7 @@ def phase_flash_head_dims(torch, dev):
         return (got[0].transpose(1, 2), got[1]) if lse \
             else got.transpose(1, 2)
     failed, numbers = [], {}
-    for D in (16, 112, 128):
+    for D in FAMILY_FLASH_DIMS:
         cases = [(sh, c) for sh in FAMILY_FLASH_CHECKS for c in (True, False)]
         cases += [((B, H, S, S), True) for B, H, S, Dt in
                   FAMILY_FLASH_TIMED.values() if Dt == D]

@@ -61,19 +61,22 @@
 //     copy); the maps are encoded on the host for each call
 //     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 //     the library links no -lcuda).
-// Head dims.  The kernel is one template over D, instantiated for D = 16,
-// 64, 112 and 128 (every head dim the configs and their smoke forms give
-// attention); any other D is refused.  A tile is computed at a padded width
-// Dp of whole 128-byte swizzle rows, 64 columns each: Dp = 64 for D <= 64,
-// Dp = 128 (two 64-column blocks, one TMA box each) for D = 112 and 128.
+// Head dims.  The kernel takes any head dim 1 <= D <= 128 (the real D is a
+// runtime value); it is one template over the padded width Dp that a tile
+// is computed at, whole 128-byte swizzle rows of 64 columns each: Dp = 64
+// for D <= 64, Dp = 128 (two 64-column blocks, one TMA box each) above.
 // The tensor maps are D wide, so TMA zero-fills columns D..Dp-1 of Q, K and
 // V: they add nothing to Q K^T, give zero columns of O, and only the D real
-// columns are stored.  At Dp = 128 a K or V tile is 32 KB, so the ring holds
+// columns are stored.  TMA needs every global stride to be a multiple of 16
+// bytes, so in the (B, S, H, D) and (B, H, S, D) layouts D is a multiple of
+// 8 in bf16 (4 in f32); the wrapper refuses other strides.  At Dp = 128 a K or V tile is 32 KB, so the ring holds
 // 2 stages (Q 32 KB + 4 x 32 KB), and the consumers' O accumulator doubles
 // to 64 registers (m64n128 P V): the register split is 24 / 240.  D = 64 is
 // the design above, tile for tile.
-// The f32 instantiation (one thread per query row, scalar FMAs) is the
-// algorithm's check at full precision; no path serves f32.
+// The f32 kernel (one thread per query row, scalar FMAs) is the algorithm's
+// check at full precision; no path serves f32.  It is a template over a
+// padded width too, Dp = 16, 32, 64 or 128, with columns past D read as
+// zeros (adding exact zeros to each score) and not stored.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +96,7 @@ struct Params {
   void* o;
   float* lse;                       // (B, H, Sq) f32, or null: not written
   int Sq, Skv, causal;
+  int D;                            // the real head dim, <= the padded Dp
   float scale;                      // 1 / sqrt(D)
   // element strides of batch, sequence and head for q, k, v, o
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
@@ -106,11 +110,11 @@ constexpr int kBN = 128;            // keys per KV tile
 constexpr int kThreads = 128 * (1 + kConsumers);   // + the producer
 constexpr int kColBlock = 64;       // columns of a 128-byte swizzle row
 
-// the bf16 kernel's sizes for head dim D
-template <int D>
+// the bf16 kernel's sizes at padded width Dp
+template <int Dp>
 struct Dims {
-  static_assert(D % 16 == 0 && D <= 128, "head dims are multiples of 16");
-  static constexpr int kDp = D <= 64 ? 64 : 128;   // the padded width
+  static_assert(Dp == 64 || Dp == 128, "whole 64-column blocks, at most 2");
+  static constexpr int kDp = Dp;
   static constexpr int kCols = kDp / kColBlock;     // 64-column blocks
   static constexpr int kStages = kDp == 64 ? 4 : 2;  // K/V ring depth
   // registers a thread: 168 at launch (384 threads, one block an SM);
@@ -334,9 +338,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // the block's shared memory: Q, the K and V rings, then the mbarriers,
 // from a 1024-byte aligned base (128-byte swizzle needs it).  A tile of R
 // rows is kCols blocks of R x 128 bytes, one a 64-column block
-template <int D>
+template <int Dp>
 struct Smem {
-  using Dm = Dims<D>;
+  using Dm = Dims<Dp>;
   static constexpr int kStages = Dm::kStages;
   uint32_t base;
   __device__ uint32_t q() const { return base; }
@@ -475,11 +479,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[Dp / 2],
   fence_regs(o);
 }
 
-template <int D>
+template <int Dp>
 struct Consumer {
-  static constexpr int kDp = Dims<D>::kDp;
-  static constexpr int kStages = Dims<D>::kStages;
-  const Smem<D>& sm;
+  static constexpr int kDp = Dp;
+  static constexpr int kStages = Dims<Dp>::kStages;
+  const Smem<Dp>& sm;
   const Params& p;
   uint32_t q_addr;
   int hi, q0w, row_a, lane;
@@ -530,16 +534,16 @@ struct Consumer {
   }
 };
 
-template <int D>
+template <int Dp>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, Params p,
                       Slots sq, Slots skv) {
-  using Dm = Dims<D>;
+  using Dm = Dims<Dp>;
   constexpr int kStages = Dm::kStages, kDp = Dm::kDp;
   extern __shared__ uint8_t smem_raw[];
-  const Smem<D> sm{(smem_u32(smem_raw) + 1023) & ~1023u};
+  const Smem<Dp> sm{(smem_u32(smem_raw) + 1023) & ~1023u};
   const int tid = threadIdx.x, lane = tid % 32;
   // the warpgroup, provably uniform across each warp (setmaxnreg needs it)
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
@@ -598,8 +602,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     st.m_a = st.m_b = kNegInf;
     st.l_a = st.l_b = 0.f;
     mbar_wait(sm.full_q(), 0);
-    const Consumer<D> con{sm, p, q_addr, hi, q0w, row_a, lane, scale2,
-                          lane == 0};
+    const Consumer<Dp> con{sm, p, q_addr, hi, q0w, row_a, lane, scale2,
+                           lane == 0};
     con.run(st);
 
 #pragma unroll
@@ -618,10 +622,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       if (row_a < p.Sq) lp[row_a] = fmaf(st.m_a, kLn2, logf(den_a));
       if (row_b < p.Sq) lp[row_b] = fmaf(st.m_b, kLn2, logf(den_b));
     }
-    // the D real columns (columns D..Dp-1 of O are zeros, not stored)
+    // the D real columns (columns D..Dp-1 of O are zeros, not stored; D is
+    // a multiple of 8, so a column pair lies wholly on one side)
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < kDp / 8; ++dt) {
       const int col = dt * 8 + col2;
+      if (col >= p.D) break;
       if (row_a < p.Sq)
         *reinterpret_cast<uint32_t*>(op + row_a * p.os + col) =
             pack_bf16(st.o[4 * dt] / den_a, st.o[4 * dt + 1] / den_a);
@@ -636,24 +642,25 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 
 constexpr int kBM32 = 64;           // query rows (one thread each) per block
 
-// keys per KV tile: 64, or 32 above D = 64 (two f32 tiles within the 48 KB
-// of static shared memory)
-template <int D>
-constexpr int kBN32Of = D <= 64 ? 64 : 32;
+// keys per KV tile: 64, or 32 above Dp = 64 (two f32 tiles within the 48
+// KB of static shared memory)
+template <int Dp>
+constexpr int kBN32Of = Dp <= 64 ? 64 : 32;
 
-template <int D>
+template <int Dp>
 __device__ __forceinline__ int kv_tiles32(const Params& p, int q0) {
-  constexpr int kBN32 = kBN32Of<D>;
+  constexpr int kBN32 = kBN32Of<Dp>;
   int n = (p.Skv + kBN32 - 1) / kBN32;
   if (p.causal) n = min(n, (q0 + kBM32 + kBN32 - 1) / kBN32);
   return n;
 }
 
-// q and acc of D floats a thread live in registers; at D = 128 they spill
-template <int D>
+// q and acc of Dp floats a thread live in registers; at Dp = 128 they
+// spill.  Columns D..Dp-1 are zeros in q, K and V
+template <int Dp>
 __global__ void __launch_bounds__(kBM32)
 flash_fwd_f32_kernel(Params p) {
-  constexpr int kD = D, kBN32 = kBN32Of<D>;
+  constexpr int kD = Dp, kBN32 = kBN32Of<Dp>;
   __shared__ float sK[kBN32][kD];
   __shared__ float sV[kBN32][kD];
 
@@ -663,14 +670,14 @@ flash_fwd_f32_kernel(Params p) {
   const int row = q0 + tid;
   const float* kp = static_cast<const float*>(p.k) + b * p.kb + h * p.kh;
   const float* vp = static_cast<const float*>(p.v) + b * p.vb + h * p.vh;
-  const int hi = kv_tiles32<D>(p, q0);
+  const int hi = kv_tiles32<Dp>(p, q0);
 
   float q[kD], acc[kD];
   const float* qrow = static_cast<const float*>(p.q) + b * p.qb + h * p.qh +
                       (long long)row * p.qs;
 #pragma unroll
   for (int d = 0; d < kD; ++d) {
-    q[d] = row < p.Sq ? qrow[d] : 0.f;
+    q[d] = row < p.Sq && d < p.D ? qrow[d] : 0.f;
     acc[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -680,7 +687,7 @@ flash_fwd_f32_kernel(Params p) {
     __syncthreads();                  // the previous tile is consumed
     for (int i = tid; i < kBN32 * kD; i += kBM32) {
       const int r = i / kD, d = i % kD;
-      const bool ok = k0 + r < p.Skv;
+      const bool ok = k0 + r < p.Skv && d < p.D;
       sK[r][d] = ok ? kp[(long long)(k0 + r) * p.ks + d] : 0.f;
       sV[r][d] = ok ? vp[(long long)(k0 + r) * p.vs + d] : 0.f;
     }
@@ -705,7 +712,8 @@ flash_fwd_f32_kernel(Params p) {
                   (long long)row * p.os;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < kD; ++d) orow[d] = acc[d] / den;
+    for (int d = 0; d < kD; ++d)
+      if (d < p.D) orow[d] = acc[d] / den;
     if (p.lse != nullptr)
       p.lse[((long long)b * gridDim.y + h) * p.Sq + row] = m + logf(den);
   }
@@ -769,9 +777,10 @@ int make_map(EncodeTiled fn, CUtensorMap* map, Slots* slots, const void* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int Dp>
 int launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {
-  constexpr int kSmemBytes = Dims<D>::kSmemBytes;
+  constexpr int kSmemBytes = Dims<Dp>::kSmemBytes;
+  const int D = p.D;
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
@@ -786,24 +795,25 @@ int launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {
   if (sk.s != sv.s || sk.h != sv.h || sk.b != sv.b)
     return (int)cudaErrorInvalidValue;        // k and v strides order alike
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_bf16_kernel<Dp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((p.Sq + kBM - 1) / kBM), (unsigned)H,
                   (unsigned)B);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_fwd_bf16_kernel<Dp><<<grid, kThreads, kSmemBytes, stream>>>(
       mq, mk, mv, p, sq, sk);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch(const Params& p, int dtype, int B, int H, cudaStream_t stream) {
-  if (dtype == 0) return launch_bf16<D>(p, B, H, stream);
+template <int Dp>
+int launch_f32(const Params& p, int B, int H, cudaStream_t stream) {
   const dim3 grid((unsigned)((p.Sq + kBM32 - 1) / kBM32), (unsigned)H,
                   (unsigned)B);
-  flash_fwd_f32_kernel<D><<<grid, kBM32, 0, stream>>>(p);
+  flash_fwd_f32_kernel<Dp><<<grid, kBM32, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+constexpr int kMaxHeadDim = 128;
 
 }  // namespace
 
@@ -820,28 +830,24 @@ extern "C" int ss_flash_attention_fwd(const void* q, const void* k,
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (Skv <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, out, lse, Sq, Skv, causal ? 1 : 0, scale,
+  if (D < 1 || D > kMaxHeadDim) return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, out, lse, Sq, Skv, causal ? 1 : 0, D, scale,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11]};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return launch<16>(p, dtype, B, H, st);
-    case 64: return launch<64>(p, dtype, B, H, st);
-    case 112: return launch<112>(p, dtype, B, H, st);
-    case 128: return launch<128>(p, dtype, B, H, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    return D <= 64 ? launch_bf16<64>(p, B, H, st)
+                   : launch_bf16<128>(p, B, H, st);
+  if (D <= 16) return launch_f32<16>(p, B, H, st);
+  if (D <= 32) return launch_f32<32>(p, B, H, st);
+  if (D <= 64) return launch_f32<64>(p, B, H, st);
+  return launch_f32<128>(p, B, H, st);
 }
 
 // dynamic shared memory of one bf16 block at head dim D, bytes (reported
 // by chip_smoke.py); -1 for a head dim the kernel does not take
 extern "C" int ss_flash_attention_smem_bytes(int D) {
-  switch (D) {
-    case 16: return Dims<16>::kSmemBytes;
-    case 64: return Dims<64>::kSmemBytes;
-    case 112: return Dims<112>::kSmemBytes;
-    case 128: return Dims<128>::kSmemBytes;
-    default: return -1;
-  }
+  if (D < 1 || D > kMaxHeadDim) return -1;
+  return D <= 64 ? Dims<64>::kSmemBytes : Dims<128>::kSmemBytes;
 }

@@ -12,18 +12,29 @@ axes to (B, H, S, D) for its BlockSpecs), and rows past the end read as
 zeros, so any S is taken (the reference needs S to be a multiple of its
 chunk); its tiles are fixed, so there are no chunk arguments.  K and V
 come already repeated to the H query heads.  On the card the head dim D
-is one of :data:`HEAD_DIMS`: another D raises ``ValueError`` naming them
-(it is not handed to the plain version, which on the CPU takes any D).  ``return_lse=True`` also
-returns each query row's log-sum-exp of its scaled scores (natural log,
-f32, (B, H, Sq)): the residual the flash backward
-(:mod:`repro_torch.models.flash`) recomputes the probabilities from.
+is any of 1..:data:`MAX_HEAD_DIM` whose strides TMA takes (16-byte
+multiples: D a multiple of 8 in bf16, of 4 in f32); another D raises
+``ValueError`` (it is not handed to the plain version, which on the CPU
+takes any D).  ``return_lse=True`` also returns each query row's
+log-sum-exp of its scaled scores (natural log, f32, (B, H, Sq)): the
+residual the flash backward (:mod:`repro_torch.models.flash`) recomputes
+the probabilities from.
+
+Both entries go through one operator, ``torch.ops.repro_torch.
+flash_attention_fwd``, so that a step traced on ``meta`` tensors (the dry
+run, :mod:`repro_torch.launch.analysis`) passes through it: its fake
+implementation makes outputs of the right shapes and launches nothing, and
+its FLOP formula (:func:`flops`, registered with ``torch.utils.
+flop_counter``) counts the kernel's work as ``chip_smoke.py``'s bounds do.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -35,9 +46,11 @@ KERNEL = build.Kernel("ss_flash_attention_fwd", [
     ctypes.c_float, build.VOIDP, build.VOIDP])
 #: the element types the kernel takes (0 and 1 in its dtype argument)
 DTYPES = (torch.bfloat16, torch.float32)
-#: the head dims ``csrc/flash_attention.cu`` instantiates: every head dim
-#: of the configs (64, 112, 128) and of their smoke forms (16)
-HEAD_DIMS = (16, 64, 112, 128)
+#: the largest head dim ``csrc/flash_attention.cu`` takes: it computes a
+#: tile at a padded width of 64 or 128 columns (no config attends above 128)
+MAX_HEAD_DIM = 128
+#: the head dims the kernel takes, stride rule aside
+HEAD_DIMS = range(1, MAX_HEAD_DIM + 1)
 
 
 def smem_bytes(head_dim: int) -> int:
@@ -49,8 +62,25 @@ def smem_bytes(head_dim: int) -> int:
 
 def _check_head_dim(D: int) -> None:
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash attention: head dim {D}; the kernel is "
-                         f"built for {HEAD_DIMS}")
+        raise ValueError(f"flash attention: head dim {D}; the kernel takes "
+                         f"1 <= D <= {MAX_HEAD_DIM}")
+
+
+def attended_pairs(B: int, H: int, Sq: int, Skv: int, causal: bool) -> int:
+    """Attended (query, key) pairs: causal (top-left) row i attends
+    min(i+1, Skv) keys; each costs one exp2 in the softmax."""
+    if causal:
+        full = min(Sq, Skv)
+        pairs = full * (full + 1) // 2 + max(Sq - Skv, 0) * Skv
+    else:
+        pairs = Sq * Skv
+    return B * H * pairs
+
+
+def flops(B: int, H: int, Sq: int, Skv: int, D: int, causal: bool) -> int:
+    """FLOPs the kernel needs: 2*D for q.k and 2*D for p*v per attended
+    (query, key) pair, at the real D (not the padded width)."""
+    return 4 * D * attended_pairs(B, H, Sq, Skv, causal)
 
 
 def _check(q, k, v, seq: int, head: int) -> None:
@@ -79,9 +109,12 @@ def _launch(q, k, v, out, lse, causal: bool, seq: int, head: int) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(3) != 1 or any(t.stride(i) % align for i in range(3)) \
                 or t.data_ptr() % 16:
-            raise ValueError(f"flash attention kernel: {name} needs a unit "
-                             f"D stride and 16-byte aligned rows, got "
-                             f"strides {t.stride()}")
+            raise ValueError(
+                f"flash attention kernel: {name} needs a unit D stride, a "
+                f"16-byte aligned base and (batch, sequence, head) strides "
+                f"that are multiples of 16 bytes (TMA's rule: {align} "
+                f"elements of {q.dtype}), got strides {t.stride()} at "
+                f"D = {D}")
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in (0, seq, head)])
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -90,12 +123,49 @@ def _launch(q, k, v, out, lse, causal: bool, seq: int, head: int) -> None:
            ctypes.addressof(strides), build.stream_of(q))
 
 
-def _run(q, k, v, causal: bool, return_lse: bool, seq: int, head: int):
+def _lse_shape(q, seq: int, head: int, return_lse: bool):
+    return (q.shape[0], q.shape[head], q.shape[seq]) if return_lse else (0,)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         seq: int, head: int, return_lse: bool
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (out, lse): lse is (B, H, Sq) f32, or empty without
+    ``return_lse``.  A CPU tensor runs the plain version, a CUDA tensor the
+    kernel."""
+    if q.device.type == "cpu":
+        bhsd = (lambda t: t) if seq == 2 else (lambda t: t.transpose(1, 2))
+        got = attention_ref(bhsd(q), bhsd(k), bhsd(v), causal=causal,
+                            return_lse=return_lse)
+        if return_lse:
+            return bhsd(got[0]), got[1]
+        return bhsd(got), q.new_empty((0,), dtype=torch.float32)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty((q.shape[0], q.shape[head], q.shape[seq]),
-                      dtype=torch.float32, device=q.device) \
-        if return_lse else None
-    _launch(q, k, v, out, lse, causal, seq=seq, head=head)
+    lse = torch.empty(_lse_shape(q, seq, head, return_lse),
+                      dtype=torch.float32, device=q.device)
+    _launch(q, k, v, out, lse if return_lse else None, causal, seq=seq,
+            head=head)
+    return out, lse
+
+
+@_fwd.register_fake
+def _fwd_fake(q, k, v, causal, seq, head, return_lse):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(_lse_shape(q, seq, head, return_lse),
+                        dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, causal, seq, head, return_lse,
+               *args, out_shape=None, **kwargs) -> int:
+    return flops(q_shape[0], q_shape[head], q_shape[seq], k_shape[seq],
+                 q_shape[3], causal)
+
+
+def _run(q, k, v, causal: bool, return_lse: bool, seq: int, head: int):
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, causal, seq, head, return_lse)
     return (out, lse) if return_lse else out
 
 
@@ -106,8 +176,6 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp.  Causal masking is top-left aligned (row i sees keys
     0..i), as the TPU kernel's."""
     _check(q, k, v, seq=2, head=1)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, return_lse=return_lse)
     return _run(q, k, v, causal, return_lse, seq=2, head=1)
 
 
@@ -117,11 +185,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     H heads -> (B, Sq, H, D), and with ``return_lse`` the (B, H, Sq) f32
     log-sum-exp (head-major, the layout the backward reads)."""
     _check(q, k, v, seq=1, head=2)
-    if q.device.type == "cpu":
-        got = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal,
-                            return_lse=return_lse)
-        if return_lse:
-            return got[0].transpose(1, 2), got[1]
-        return got.transpose(1, 2)
     return _run(q, k, v, causal, return_lse, seq=1, head=2)

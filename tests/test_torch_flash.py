@@ -146,20 +146,42 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_head_dims_cover_every_config():
-    """The head dims kernel 7 is built for are every head dim that a
-    config or its ``reduce_for_smoke`` form gives attention (xlstm-125m's
-    192 is attention-free); any other raises on the card's path, naming
-    the set."""
+    """Kernel 7 takes every head dim 1 <= D <= 128, which holds every head
+    dim that a config or its ``reduce_for_smoke`` form gives attention
+    (xlstm-125m's 192 is attention-free) and the tests' D = 32; D = 0 and
+    D > 128 raise on the card's path, naming the limit."""
     from repro_torch import configs
-    assert ops.HEAD_DIMS == (16, 64, 112, 128)
-    need = set()
+    assert ops.MAX_HEAD_DIM == 128
+    assert list(ops.HEAD_DIMS) == list(range(1, 129))
+    need = {32}
     for arch in configs.ARCH_IDS:
         cfg = configs.get_model_config(arch)
         if not cfg.attention_free:
             need |= {cfg.head_dim,
                      configs.reduce_for_smoke(cfg).head_dim}
-    assert need == set(ops.HEAD_DIMS)
-    for D in ops.HEAD_DIMS:
+    assert need == {16, 32, 64, 112, 128}
+    for D in sorted(need) + [1, 8, 96, 120]:
         ops._check_head_dim(D)
-    with pytest.raises(ValueError, match=r"\(16, 64, 112, 128\)"):
-        ops._check_head_dim(96)
+    for D in (0, 129, 160, 192):
+        with pytest.raises(ValueError, match=r"1 <= D <= 128"):
+            ops._check_head_dim(D)
+
+
+def test_flash_flops_count_the_causal_pairs():
+    """The operator's FLOP formula (what the dry run counts on meta
+    tensors) is 4 * D * the attended pairs, top-left causal."""
+    assert ops.attended_pairs(1, 1, 4, 4, True) == 10
+    assert ops.attended_pairs(1, 1, 6, 4, True) == 10 + 2 * 4
+    assert ops.attended_pairs(2, 3, 4, 5, False) == 2 * 3 * 20
+    assert ops.flops(2, 3, 4, 4, 96, True) == 4 * 96 * 2 * 3 * 10
+    from torch.utils.flop_counter import FlopCounterMode
+    q = torch.empty((2, 7, 3, 96), dtype=torch.bfloat16, device="meta")
+    with FlopCounterMode(display=False) as fc:
+        out, lse = ops.flash_attention(q, q, q, return_lse=True)
+        out2 = ops.flash_attention_bhsd(q.transpose(1, 2), q.transpose(1, 2),
+                                        q.transpose(1, 2), causal=False)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert lse.shape == (2, 3, 7) and lse.dtype == torch.float32
+    assert out2.shape == (2, 3, 7, 96)
+    assert fc.get_total_flops() == ops.flops(2, 3, 7, 7, 96, True) + \
+        ops.flops(2, 3, 7, 7, 96, False)

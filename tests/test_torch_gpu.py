@@ -517,7 +517,7 @@ def test_flash_wrapper_refuses_on_the_card(cuda):
     before = flash_ops.KERNEL.launches
     for bad in ((q.half(), k.half(), v.half()),              # dtype
                 (q, k.cpu(), v),                            # device mix
-                (q[..., :32], k[..., :32], v[..., :32]),    # head dim
+                (q[..., :36], k[..., :36], v[..., :36]),    # 72-byte rows
                 (q.transpose(2, 3), k.transpose(2, 3),      # D stride
                  v.transpose(2, 3))):
         with pytest.raises(ValueError):
@@ -650,9 +650,10 @@ def test_prefill_launches_kernel_7_once_per_layer_and_decode_never(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [16, 64, 112, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 112, 128])
 def test_flash_kernel_at_each_head_dim_equals_plain(cuda, D, dtype):
-    """Every head dim the kernel instantiates, causal and not, ragged
+    """The configs' head dims and two others (32 and 96, computed at the
+    padded widths 64 and 128), causal and not, ragged
     Sq < Skv, with its log-sum-exp, head-major and through (B, S, H, D)
     views with a head stride (a slice of wider heads)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -679,17 +680,21 @@ def test_flash_kernel_at_each_head_dim_equals_plain(cuda, D, dtype):
                         q, k, v, True)
 
 
-def test_flash_kernel_refuses_head_dim_96(cuda):
-    """A head dim the kernel does not instantiate raises ValueError
-    naming the set, launches nothing and is not handed to the plain
-    version."""
+def test_flash_kernel_refuses_head_dim_160(cuda):
+    """A head dim above 128 raises ValueError naming the limit, launches
+    nothing and is not handed to the plain version; so does a head dim
+    whose rows are not 16-byte multiples (D = 36 in bf16: TMA's stride
+    rule)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16, D=96)
+    q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16, D=160)
     before = flash_ops.KERNEL.launches
-    with pytest.raises(ValueError, match=r"\(16, 64, 112, 128\)"):
+    with pytest.raises(ValueError, match=r"1 <= D <= 128"):
         flash_ops.flash_attention_bhsd(q, k, v)
-    with pytest.raises(ValueError, match="head dim 96"):
+    with pytest.raises(ValueError, match="head dim 160"):
         flash_ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+    q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16, D=36)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_ops.flash_attention_bhsd(q, k, v)
     assert flash_ops.KERNEL.launches == before
 
 
