@@ -19,6 +19,7 @@ reference bit-casts to uint32.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from collections import OrderedDict
@@ -100,6 +101,21 @@ _DISPATCHES = _METRICS.counter("device.dispatches")
 _DISP_EXCHANGE = _METRICS.counter("device.dispatches.dist.exchange")
 
 
+#: callables told of each collective, as (kind, bytes it moves between
+#: workers): the dry run's analyzer (:mod:`repro_torch.launch.analysis`)
+_OBSERVERS: list = []
+
+
+@contextlib.contextmanager
+def observe(fn):
+    """Within the block, call ``fn(kind, nbytes)`` for every collective."""
+    _OBSERVERS.append(fn)
+    try:
+        yield
+    finally:
+        _OBSERVERS.remove(fn)
+
+
 def exchange_call_count() -> int:
     """Total :func:`exchange` collectives issued (tests/benchmarks assert
     the sealed path costs exactly ONE collective per round).  Shim over
@@ -117,6 +133,8 @@ def exchange(x: torch.Tensor, mesh: Mesh, axis: str = "model", *,
     W = _axis_size(mesh, axis)
     _check_mailbox(x, W)
     check_on_mesh("exchange", x, mesh)
+    for fn in _OBSERVERS:       # the off-diagonal blocks change workers
+        fn("all-to-all", x.numel() * x.element_size() * (W - 1) // W)
     with tracer.span("dist.exchange", cat="dispatch", track="dist",
                      W=W, shape=str(tuple(x.shape))):
         return x.transpose(0, 1).contiguous()

@@ -157,6 +157,11 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
     return t
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameters' shapes and types on ``meta``: nothing allocated."""
+    return L.abstract_from_template(param_template(cfg))
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random weights drawn from ``generator`` (on ``device``)."""
@@ -407,6 +412,12 @@ def cache_template(cfg: ModelConfig, batch: int, max_seq: int,
                 num_shared_attn(cfg)),
         }
     raise ValueError(fam)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype: str = "bfloat16") -> Params:
+    """The cache's shapes and types on ``meta``: nothing allocated."""
+    return L.abstract_from_template(cache_template(cfg, batch, max_seq, dtype))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",

@@ -99,6 +99,13 @@ def template_leaves(template: Params) -> List[ParamSpec]:
     return [s for k in sorted(template) for s in template_leaves(template[k])]
 
 
+def abstract_from_template(template: Params) -> Params:
+    """Every leaf as an empty ``meta`` tensor of its shape and type: the
+    tree without its data (the reference's ``ShapeDtypeStruct``s)."""
+    return tree_map_specs(lambda s: torch.empty(s.shape, dtype=s.torch_dtype,
+                                                device="meta"), template)
+
+
 def init_from_template(template: Params, generator: torch.Generator,
                        device="cuda") -> Params:
     """Every leaf drawn in turn from one generator, keys in sorted order."""

@@ -60,8 +60,11 @@ def dispatch(topi: torch.Tensor, X: int, C: int):
     a_eid = topi.reshape(-1)
     order = torch.argsort(a_eid, stable=True)
     s_eid = a_eid[order]
-    counts = torch.bincount(s_eid, minlength=X)
-    starts = torch.cumsum(counts, 0) - counts
+    # each expert's first sorted assignment: a search of the sorted ids
+    # (the same as cumsum(bincount) - bincount, and its output's size does
+    # not hang on the data, so a meta trace takes it too)
+    starts = torch.searchsorted(s_eid, torch.arange(X, dtype=s_eid.dtype,
+                                                    device=s_eid.device))
     slot = torch.arange(Tk, device=topi.device) - starts[s_eid]
     keep = slot < C
     dest = torch.where(keep, s_eid * C + slot,

@@ -191,17 +191,25 @@ def _slstm_ffn(p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
     return (g * u) @ p["ff_down"]
 
 
-def _slstm_core(p: Params, x: torch.Tensor, cfg, *, with_state: bool = False):
-    B, S, d = x.shape
-    pre = {g: x @ p[f"w_{g}"] for g in "zifo"}
-    r32 = _recurrent_f32(p)
-    state = {k: torch.zeros((B, d), dtype=torch.float32, device=x.device)
-             for k in ("c", "n", "h", "m")}
+def _slstm_scan(p: Params, cfg, state, pre, r32):
+    """The sLSTM over the sequence, one step a token (the reference's
+    ``lax.scan``).  pre: each gate's projected inputs, (B, S, d).  ->
+    (the final state, [h_t] for each t).  The dry run's analyzer counts
+    this loop from two trips (:mod:`repro_torch.launch.analysis`)."""
     hs = []
-    for t in range(S):
+    for t in range(pre["z"].shape[1]):
         state = _slstm_step(p, cfg, state, {g: pre[g][:, t] for g in pre},
                             r32)
         hs.append(state["h"])
+    return state, hs
+
+
+def _slstm_core(p: Params, x: torch.Tensor, cfg, *, with_state: bool = False):
+    B, S, d = x.shape
+    pre = {g: x @ p[f"w_{g}"] for g in "zifo"}
+    state = {k: torch.zeros((B, d), dtype=torch.float32, device=x.device)
+             for k in ("c", "n", "h", "m")}
+    state, hs = _slstm_scan(p, cfg, state, pre, _recurrent_f32(p))
     h = torch.stack(hs, dim=1).to(x.dtype)                     # (B,S,d)
     out = _slstm_ffn(p, h, cfg)
     if with_state:
