@@ -269,10 +269,13 @@ import numpy as np
 # SM has 64 INT32 lanes, and nvcc sends adds, moves and shifts to its
 # FP32 lanes as IMAD, so integer work can use all 128 lanes an SM issues
 # to per clock: counting the INT32 lanes alone would understate the peak.
-HBM_BYTES_PER_S = 3.35e12
+# HBM_BYTES_PER_S and BF16_TC_FLOPS (the dense tensor cores' bf16 peak,
+# kernel 7's bound) are the dry run's own constants
+# (repro_torch.launch.dryrun HBM_BW and PEAK_FLOPS), read by main() once
+# the port is importable, so the bounds and the dry run cannot drift apart
+HBM_BYTES_PER_S = BF16_TC_FLOPS = None
 INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
-# dense tensor-core bf16 and CUDA-core f32 peaks (data sheet): kernel 7
-BF16_TC_FLOPS = 989e12
+# the CUDA cores' f32 peak (data sheet): kernel 7's f32 check path
 F32_FLOPS = 67e12
 #: exp2 results per second of the special-function units: 16 per SM per
 #: clock (4 per sub-partition), 132 SMs x 1.98 GHz — kernel 7's softmax
@@ -4154,7 +4157,11 @@ def phase_secure_training(torch, dev):
         "flash_attention_fwd": launches["ss_flash_attention_fwd"],
     }
     return rows_launches, dict(steps_executed=executed,
-                               kernel7_per_step=flash_per_step)
+                               kernel7_per_step=flash_per_step,
+                               sec_per_step=step_s,
+                               mfu=model_flops / step_s / BF16_TC_FLOPS,
+                               model_flops=model_flops,
+                               trainer_peak_memory_gb=peak / 1e9)
 
 
 def phase_training(torch, dev):
@@ -4462,14 +4469,15 @@ def phase_flash_head_dims(torch, dev):
     return numbers
 
 
-def serve_family(torch, dev, arch):
+def serve_family(torch, dev, arch, plan=None):
     """Secure serving of ``arch`` at full width and depth, as phase 10
     serves llama3.2-1b: weights drawn from a seed on the card, a client
     attests the enclave, FAMILY_SERVE's prompts are sealed and opened
     (MAC checked), prefilled through ``make_prefill_step`` (the time to
     first token) and generated through ``greedy_generate``; kernel 7
     launched once per attention call of each prefill and never in
-    decode.  -> (cfg, params, prompts, numbers, launches)"""
+    decode.  ``plan``: FAMILY_SERVE's tuple for ``arch`` unless given.  ->
+    (cfg, params, prompts, numbers, launches)"""
     from repro_torch.configs import get_model_config
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.kernels import build
@@ -4477,7 +4485,7 @@ def serve_family(torch, dev, arch):
     from repro_torch.serve import secure
     from repro_torch.serve.engine import (greedy_generate, make_decode_step,
                                           make_prefill_step)
-    R, S, N, short, _ = FAMILY_SERVE[arch]
+    R, S, N, short, _ = plan or FAMILY_SERVE[arch]
     cfg = get_model_config(arch)
     g = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
@@ -4719,7 +4727,8 @@ def decode_layerwise(torch, cfg, params, tokens):
                 xs, p["ln1"], cfg.rms_eps), cache, cfg, pos=S)
             y1 = api._ffn_residual(p, xs + att1, cfg)[0]
         same = ~_sets_differ(torch, rd.topi[0],
-                             rp.topi[0].view(B, S1, -1)[:, -1])
+                             rp.topi[0].view(B, S1, -1)[:, -1]) if rd.topi \
+            else torch.ones(B, dtype=torch.bool, device=x.device)
         alike += int(same.sum())
         pairs += B
         got = (y1[:, 0] - xs[:, 0]).float()
@@ -4753,6 +4762,26 @@ def continuation(torch, cfg, params, prompts, g, steps):
     return torch.stack(gaps).tolist()
 
 
+def decode_vs_prefill(torch, cfg, params, prompts):
+    """Decode at position S (after prefill(S) of ``prompts``, its greedy
+    token) against prefill(S + 1) of the prompts and that token: the last
+    logits' max abs gap, and layer by layer (:func:`decode_layerwise`).
+    -> numbers"""
+    from repro_torch.models import api
+    B, S = prompts.shape
+    logits, cache = api.prefill(cfg, params, {"tokens": prompts},
+                                max_seq=S + 1)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    logits_d, _ = api.decode_step(cfg, params, tok, S, cache)
+    del cache
+    full = torch.cat([prompts, tok], dim=1)
+    logits_p, _ = api.prefill(cfg, params, {"tokens": full})
+    layer_err, alike = decode_layerwise(torch, cfg, params, full)
+    return dict(decode_vs_prefill_max_abs=(logits_d - logits_p).abs().max()
+                .item(), decode_layer_rel_l2=layer_err,
+                decode_routed_alike=alike, requests=B)
+
+
 def phase_moe_checks(torch, cfg, params, prompts):
     """Phase 14b's checks: the share of assignments the real capacity
     drops in the served prefill; kernel 7 against plain at 1 x S; decode
@@ -4778,18 +4807,9 @@ def phase_moe_checks(torch, cfg, params, prompts):
     out.update(kernel_vs_plain(torch, cfg, params, prompts[:1]))
     nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
         moe, capacity_factor=moe.num_experts / moe.top_k))
-    logits, cache = api.prefill(nodrop, params, {"tokens": prompts},
-                                max_seq=S + 1)
-    tok = logits.argmax(-1).to(torch.int32)[:, None]
-    logits_d, _ = api.decode_step(nodrop, params, tok, S, cache)
-    del cache
-    full = torch.cat([prompts, tok], dim=1)
-    logits_p, _ = api.prefill(nodrop, params, {"tokens": full})
-    layer_err, alike = decode_layerwise(torch, nodrop, params, full)
-    out.update(decode_vs_prefill_max_abs=(logits_d - logits_p).abs().max()
-               .item(), decode_layer_rel_l2=layer_err,
-               decode_routed_alike=alike, requests=B,
+    out.update(decode_vs_prefill(torch, nodrop, params, prompts),
                nodrop_capacity_factor=nodrop.moe.capacity_factor)
+    layer_err, alike = out["decode_layer_rel_l2"], out["decode_routed_alike"]
     ok = layer_err <= LAYER_ATTN_RTOL and alike >= DECODE_ROUTED_ALIKE_MIN
     phase("moe_decode_check", card=CARD, arch=cfg.arch_id,
           layer_rtol=LAYER_ATTN_RTOL, alike_min=DECODE_ROUTED_ALIKE_MIN,
@@ -4948,11 +4968,251 @@ def phase_families(torch, dev):
     return head_dims, launches, numbers
 
 
+# ------------------------------------------------------------------ phase 15
+
+#: the dry run's peak estimate against the measured peak of the same step
+#: on the card (15a's train step, 15b's prefill): within this share either
+#: way.  Stated before the first card run (PERF.md section 6, PR 21)
+DRYRUN_PEAK_BAND = 0.25
+#: the dry run's exact terms against the card's count (FLOPs by formula)
+DRYRUN_FLOP_RTOL = 1e-9
+#: records of phase 15's dry-run cells (the ignored build directory)
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "phase15_dryrun"
+#: 15b: qwen2.5-14b served at full width and depth: requests x prompt
+#: tokens, new tokens, the profiled prefill's prompt tokens (as
+#: FAMILY_SERVE)
+QWEN_ARCH = "qwen2.5-14b"
+QWEN_SERVE = (4, 2048, 32, 2048, None)
+
+
+def _norm_params(cfg) -> int:
+    """Parameters that take part in no matrix product: the norms' gains
+    (every leaf named ``ln*``, ``*norm*``)."""
+    from repro_torch.models import api
+    from repro_torch.models.layers import ParamSpec
+
+    def walk(t, name=""):
+        if isinstance(t, ParamSpec):
+            return math.prod(t.shape) if ("ln" in name or "norm" in name) \
+                else 0
+        return sum(walk(v, k) for k, v in t.items())
+    return walk(api.param_template(cfg))
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _measured_peak(torch, args_bytes: int, fn):
+    """``fn()`` with the allocator's peak reset: -> (result, seconds, its
+    peak less whatever else is alive that is not one of its arguments,
+    which the dry run counts as ``args_bytes``)."""
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - args_bytes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() - other
+
+
+def _peak_ok(est: int, got: int) -> bool:
+    return abs(est - got) <= DRYRUN_PEAK_BAND * got
+
+
+def phase_dryrun_training(torch, dev, train_numbers):
+    """Phase 15a: the dry run of llama3.2-1b's train step at phase 13's
+    shape, remat and optimizer beside that step on the card.  -> numbers"""
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    from repro_torch.train.steps import make_train_step
+    run = _train_run()
+    cfg = run.model
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(TRAIN_ARCH, "train_4k", out_dir=str(DRYRUN_DIR),
+                          force=True, overrides=dict(shape=run.shape,
+                                                     remat=run.remat))
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 15a: the dry run failed: {rec}")
+    none, _ = dryrun.trace_cell(dataclasses.replace(run, remat="none"))
+    trace_s = time.perf_counter() - t0
+    # the same step on the card, from seeded weights and phase 13's data
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        run.seed), dev)
+    step_fn, opt = make_train_step(run)
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             train_data_fn(cfg.vocab_size)(0).items()}
+    warm = step_fn(params, state, batch, 0)               # warm-up
+    del warm
+    gc.collect()
+    args = _tree_bytes(params) + _tree_bytes(state) + _tree_bytes(batch)
+    (out, step_s, peak), launches = counted_run(
+        torch, "dryrun_train_step", "flash",
+        lambda: _measured_peak(torch, args, lambda: step_fn(
+            params, state, batch, 0)), engine="train_step")
+    loss = float(out[2]["loss"])
+    del out, params, state, batch
+    torch.cuda.empty_cache()
+    r, m = rec["roofline"], rec["memory"]
+    B, S, L = run.shape.global_batch, run.shape.seq_len, cfg.num_layers
+    ff = flash_flops(B, cfg.num_heads, S, S, cfg.head_dim, True)
+    T = B * S
+    n, n_norm = cfg.param_count(), _norm_params(cfg)
+    k7 = rec["flops_by_op"].get("repro_torch.flash_attention_fwd", 0.0)
+    k7_card = launches["ss_flash_attention_fwd"] * ff
+    # phase 13's model FLOPs, 6 N T + 3 L ff, term by term: the weight
+    # products (the norms' gains take part in none), kernel 7 (the same
+    # formula as the card's count), its backward counted as 2 L ff there
+    model13 = 6 * n * T + 3 * L * ff
+    dense_none = none.flops_by_op.get("aten.mm", 0.0)
+    k7_none = none.flops_by_op.get("repro_torch.flash_attention_fwd", 0.0)
+    terms = dict(
+        dense_products=(dense_none, 6 * (n - n_norm) * T),
+        kernel7_forward=(k7_none, L * ff),
+        kernel7_remat_full=(k7, k7_card))
+    flops_ok = all(abs(a - b) <= DRYRUN_FLOP_RTOL * b for a, b in
+                   terms.values())
+    peak_ok = _peak_ok(m["peak_estimate_bytes"], peak)
+    numbers = dict(
+        arch=TRAIN_ARCH, batch=B, seq=S, remat=run.remat,
+        optimizer=run.optimizer.name, trace_s=trace_s,
+        model_flops_per_chip=r["model_flops_per_chip"],
+        counted_flops=r["hlo_flops_per_chip"],
+        counted_flops_remat_none=none.flops,
+        flops_by_op="/".join(f"{k}:{v:.6e}" for k, v in
+                             sorted(rec["flops_by_op"].items())),
+        plain_backward_flops_remat_none=none.flops_by_op.get("aten.bmm", 0.0),
+        phase13_backward_as_2x_forward=2 * L * ff,
+        phase13_model_flops=model13,
+        counted_over_phase13=r["hlo_flops_per_chip"] / model13,
+        **{f"{k}_dryrun": a for k, (a, _) in terms.items()},
+        **{f"{k}_formula": b for k, (_, b) in terms.items()},
+        norm_params=n_norm,
+        peak_estimate_gb=m["peak_estimate_bytes"] / 1e9,
+        argument_gb=m["argument_bytes"] / 1e9,
+        t_compute_s=r["t_compute_s"], t_mem_s=r["t_mem_s"],
+        roofline_fraction=r["roofline_fraction"],
+        measured_step_s=step_s, measured_peak_gb=peak / 1e9,
+        measured_args_gb=args / 1e9, loss=loss,
+        measured_mfu=model13 / step_s / BF16_TC_FLOPS,
+        step_over_t_compute=step_s / r["t_compute_s"],
+        kernel7_launches=launches["ss_flash_attention_fwd"],
+        phase13_sec_per_step=train_numbers.get("sec_per_step"),
+        phase13_mfu=train_numbers.get("mfu"),
+        phase13_trainer_peak_gb=train_numbers.get("trainer_peak_memory_gb"),
+        peak_band=DRYRUN_PEAK_BAND,
+        peak_estimate_over_measured=m["peak_estimate_bytes"] / peak,
+        flops_ok=flops_ok, peak_ok=peak_ok)
+    phase("dryrun_train", card=CARD, **numbers)
+    if not (flops_ok and peak_ok and math.isfinite(loss)):
+        raise AssertionError(f"phase 15a: the dry run against the card: "
+                             f"{numbers}")
+    return numbers
+
+
+def _dryrun_shape(arch, shape, S, B, kind):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, shape, out_dir=str(DRYRUN_DIR), force=True,
+                          overrides=dict(shape=ShapeConfig(shape, S, B,
+                                                           kind)))
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 15b: the dry run of {arch} {shape} "
+                             f"failed: {rec}")
+    return rec
+
+
+def phase_qwen_serve(torch, dev):
+    """Phase 15b: qwen2.5-14b served at full width and depth (as phase 14
+    serves its families), checked as moonshot is (kernel 7 against the
+    plain attention end to end and layer by layer at 1 x S, decode at S
+    against prefill(S + 1) layer by layer), beside the dry run's prefill
+    and decode records at the served shape.  -> (kernel 7 launches,
+    numbers)"""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.serve.engine import make_prefill_step
+    R, S, N, _, _ = QWEN_SERVE
+    t0 = time.perf_counter()
+    cfg, params, prompts, nums, ran = serve_family(torch, dev, QWEN_ARCH,
+                                                   QWEN_SERVE)
+    nums["serve_s"] = time.perf_counter() - t0
+    pre = _dryrun_shape(QWEN_ARCH, "prefill_32k", S, R, "prefill")
+    dec = _dryrun_shape(QWEN_ARCH, "decode_32k", S + N, R, "decode")
+    # the dry run's prefill on the card: max_seq S, the params and the
+    # prompts its arguments
+    prefill = make_prefill_step(RunConfig(model=cfg, shape=ShapeConfig(
+        "prefill_32k", S, R, "prefill")), max_seq=S)
+    args = _tree_bytes(params) + prompts.numel() * prompts.element_size()
+    (logits, _), prefill_s, peak = _measured_peak(
+        torch, args, lambda: prefill(params, {"tokens": prompts}))
+    del logits
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    nums.update(kernel_vs_plain(torch, cfg, params, prompts[:1]))
+    nums.update(decode_vs_prefill(torch, cfg, params, prompts))
+    nums["checks_s"] = time.perf_counter() - t1
+    peak_ok = _peak_ok(pre["memory"]["peak_estimate_bytes"], peak)
+    decode_ok = nums["decode_layer_rel_l2"] <= LAYER_ATTN_RTOL and \
+        nums["decode_routed_alike"] == 1.0
+    rp, rd = pre["roofline"], dec["roofline"]
+    nums.update(
+        dryrun_prefill_trace_s=pre["lower_s"],
+        dryrun_prefill_counted_flops=rp["hlo_flops_per_chip"],
+        dryrun_prefill_t_compute_s=rp["t_compute_s"],
+        dryrun_prefill_t_mem_s=rp["t_mem_s"],
+        dryrun_prefill_peak_gb=pre["memory"]["peak_estimate_bytes"] / 1e9,
+        dryrun_prefill_fits_one_card=pre["fits_one_card"],
+        measured_prefill_s=prefill_s, measured_prefill_peak_gb=peak / 1e9,
+        prefill_s_over_t_compute=prefill_s / rp["t_compute_s"],
+        peak_estimate_over_measured=pre["memory"]["peak_estimate_bytes"]
+        / peak,
+        dryrun_decode_t_compute_s=rd["t_compute_s"],
+        dryrun_decode_t_mem_s=rd["t_mem_s"],
+        dryrun_decode_peak_gb=dec["memory"]["peak_estimate_bytes"] / 1e9,
+        decode_ms_over_t_mem=nums["decode_ms_per_step"] / 1e3
+        / rd["t_mem_s"],
+        peak_band=DRYRUN_PEAK_BAND, peak_ok=peak_ok, decode_ok=decode_ok,
+        seconds=time.perf_counter() - t0)
+    phase("qwen_serve", card=CARD, **{k: v for k, v in nums.items()
+                                      if not isinstance(v, dict)})
+    del params, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (peak_ok and decode_ok):
+        raise AssertionError(f"phase 15b: {QWEN_ARCH}: {nums}")
+    return ran["ss_flash_attention_fwd"], nums
+
+
+def phase_dryrun(torch, dev, train_numbers):
+    """Phase 15: 15a and 15b.  -> (kernel 7 launches in 15b's serving run,
+    {"train": 15a's numbers, "qwen": 15b's})"""
+    t0 = time.perf_counter()
+    train = phase_dryrun_training(torch, dev, train_numbers)
+    t1 = time.perf_counter()
+    launches, qwen = phase_qwen_serve(torch, dev)
+    phase("dryrun", card=CARD, seconds=round(time.perf_counter() - t0, 3),
+          train_s=round(t1 - t0, 3), qwen_s=round(time.perf_counter() - t1,
+                                                   3))
+    return launches, {"train": train, "qwen": qwen}
+
+
+def read_peaks() -> None:
+    """The card's memory rate and bf16 peak from the dry run's constants
+    (the port must be importable)."""
+    global HBM_BYTES_PER_S, BF16_TC_FLOPS
+    from repro_torch.launch import dryrun
+    HBM_BYTES_PER_S, BF16_TC_FLOPS = dryrun.HBM_BW, dryrun.PEAK_FLOPS
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -4968,6 +5228,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    read_peaks()
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -5024,6 +5285,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     head_dims, family_launches, family_numbers = phase_families(torch, dev) \
         if 14 in phases else ({}, {}, {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_launches, dryrun_numbers = phase_dryrun(torch, dev, train_numbers) \
+        if 15 in phases else (None, {})
     for k in kernels:
         sym = k.pop("symbol")
         run = LAUNCHES_FROM[k["name"]]
@@ -5044,6 +5309,12 @@ def main() -> int:
                 "ttft_ms", "prefill_tokens_per_s", "decode_ms_per_step",
                 "peak_memory_gb", "prefill_busy_share")}
                 for a, n in family_numbers.items()}
+        if k["name"] == "flash_attention_fwd" and dryrun_numbers:
+            q = dryrun_numbers["qwen"]
+            k["launches_qwen"] = qwen_launches
+            k["qwen"] = {f: q[f] for f in (
+                "ttft_ms", "prefill_tokens_per_s", "decode_ms_per_step",
+                "peak_memory_gb", "prefill_busy_share")}
     phase("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

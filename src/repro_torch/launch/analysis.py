@@ -161,20 +161,30 @@ _ACTIVE: List[_Counter] = []
 
 
 class _LoopEntry(torch.autograd.Function):
-    """Identity on the scaled trip's inputs.  Its backward is the last of
-    the trip's backward nodes to run (it was created before all of them,
-    and the engine runs ready nodes latest-created first): it ends the
-    backward's scaling and frees the skipped trips' block."""
+    """Identity on the scaled trip's inputs, the first ``n_inv`` of them
+    the loop's invariants (weights every trip reads).  Its backward is the
+    last of the trip's backward nodes to run (it was created before all
+    of them, and the engine runs ready nodes latest-created first): it
+    ends the backward's scaling, frees the skipped trips' block, and
+    counts the sums of the skipped trips' gradients into each invariant
+    (one add of its size a trip, which the engine makes at the invariant
+    after this node)."""
 
     @staticmethod
-    def forward(ctx, counter, *xs):
-        ctx.counter, ctx.block = counter, None
+    def forward(ctx, counter, rest, n_inv, *xs):
+        ctx.counter, ctx.rest, ctx.n_inv, ctx.block = counter, rest, n_inv, \
+            None
         return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
     def backward(ctx, *grads):
-        ctx.counter.scale, ctx.block = 1.0, None
-        return (None,) + grads
+        c = ctx.counter
+        c.scale, ctx.block = 1.0, None
+        for g in grads[:ctx.n_inv]:
+            if g is not None:
+                c.out.bytes += (ctx.rest - 1) * 3 * _nbytes(g)
+                c.out.ops += ctx.rest - 1
+        return (None, None, None) + grads
 
 
 class _LoopExit(torch.autograd.Function):
@@ -204,18 +214,26 @@ def _scaled_slstm_scan(counter: _Counter, records: List[Dict[str, Any]]):
         S = pre["z"].shape[1]
         if S <= 2:
             return real(p, cfg, state, pre, r32)
+        steps = {g: v.unbind(1) for g, v in pre.items()}
         state = xlstm._slstm_step(p, cfg, state,
-                                  {g: v[:, 0] for g, v in pre.items()}, r32)
+                                  {g: v[0] for g, v in steps.items()}, r32)
         keys, gates = sorted(state), sorted(pre)
+        bias = [f"b_{g}" for g in gates]
         rest = S - 1
         before = counter.live_bytes
-        ys = _LoopEntry.apply(counter, *[state[k] for k in keys],
-                              *[pre[g][:, 1] for g in gates])
+        inv = [r32[g] for g in gates] + [p[b] for b in bias]
+        ys = _LoopEntry.apply(counter, rest, len(inv), *inv,
+                              *[state[k] for k in keys],
+                              *[steps[g][1] for g in gates])
         entry = ys[0].grad_fn
+        n_g, n_k = len(gates), len(keys)
+        p1 = dict(p, **dict(zip(bias, ys[n_g:2 * n_g])))
         counter.scale = float(rest)
         try:
-            st = xlstm._slstm_step(p, cfg, dict(zip(keys, ys[:len(keys)])),
-                                   dict(zip(gates, ys[len(keys):])), r32)
+            st = xlstm._slstm_step(
+                p1, cfg, dict(zip(keys, ys[2 * n_g:2 * n_g + n_k])),
+                dict(zip(gates, ys[2 * n_g + n_k:])),
+                dict(zip(gates, ys[:n_g])))
         finally:
             counter.scale = 1.0
         out = dict(zip(keys, _LoopExit.apply(counter, float(rest),

@@ -23,6 +23,7 @@ card's 80 GB).  ``chip_smoke.py`` phase 15 sets it beside measured steps.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -141,8 +142,9 @@ def run_cell(arch: str, shape: str, mesh: str = "card",
              overrides: Optional[Dict[str, Any]] = None,
              scale_loops: bool = True) -> Dict[str, Any]:
     """Count one cell and write its record (or return the one written
-    before, unless ``force``).  ``overrides`` go to ``get_run_config``,
-    e.g. ``shape=ShapeConfig(...)`` for a card-sized shape."""
+    before, unless ``force``).  ``overrides`` go to ``get_run_config``;
+    ``shape=ShapeConfig(...)`` among them replaces the cell's shape (a
+    card-sized one, say) while the record keeps the cell's name."""
     if mesh != "card":
         raise ValueError(f"dryrun: mesh {mesh!r}; the port's production "
                          f"mesh is one card ('card')")
@@ -161,7 +163,11 @@ def run_cell(arch: str, shape: str, mesh: str = "card",
             json.dump(rec, f, indent=2)
         return rec
 
-    run = get_run_config(arch, shape, **(overrides or {}))
+    ov = dict(overrides or {})
+    shape_cfg = ov.pop("shape", None)     # the positional name takes it
+    run = get_run_config(arch, shape, **ov)
+    if shape_cfg is not None:
+        run = dataclasses.replace(run, shape=shape_cfg)
     nchips = math.prod(make_production_mesh(device="meta").shape.values())
     t0 = time.time()
     try:

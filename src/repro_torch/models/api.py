@@ -219,8 +219,8 @@ def _logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(T, E) @ (E, V) -> (T, V) f32: the products of the operands' own
     values summed in f32 (the reference's ``preferred_element_type``),
     differentiable (the loss)."""
-    if h.is_cuda and h.dtype != torch.float32:
-        return _LogitsF32.apply(h, w)
+    if h.device.type != "cpu" and h.dtype != torch.float32:
+        return _LogitsF32.apply(h, w)       # the card's (and a meta trace's)
     return h.float() @ w.float()
 
 

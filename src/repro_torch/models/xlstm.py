@@ -193,12 +193,15 @@ def _slstm_ffn(p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
 
 def _slstm_scan(p: Params, cfg, state, pre, r32):
     """The sLSTM over the sequence, one step a token (the reference's
-    ``lax.scan``).  pre: each gate's projected inputs, (B, S, d).  ->
-    (the final state, [h_t] for each t).  The dry run's analyzer counts
+    ``lax.scan``).  pre: each gate's projected inputs, (B, S, d), read a
+    step at a time through one ``unbind`` (whose backward is one stack,
+    where a slice a step would make a zeroed (B, S, d) gradient a step).
+    -> (the final state, [h_t] for each t).  The dry run's analyzer counts
     this loop from two trips (:mod:`repro_torch.launch.analysis`)."""
+    steps = {g: v.unbind(1) for g, v in pre.items()}   # one stack back
     hs = []
     for t in range(pre["z"].shape[1]):
-        state = _slstm_step(p, cfg, state, {g: pre[g][:, t] for g in pre},
+        state = _slstm_step(p, cfg, state, {g: steps[g][t] for g in steps},
                             r32)
         hs.append(state["h"])
     return state, hs

@@ -29,6 +29,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
         "        ('gla', 'moe', 'mamba2', 'xlstm')}\n"
         "import repro_torch.configs as c\n"
         "need |= set(c._ARCH_MODULES.values())\n"
+        "need |= {'repro_torch.launch.' + m for m in\n"
+        "         ('mesh', 'analysis', 'dryrun')}\n"
         "assert need <= set(names), need - set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
