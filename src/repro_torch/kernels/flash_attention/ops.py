@@ -46,11 +46,10 @@ KERNEL = build.Kernel("ss_flash_attention_fwd", [
     ctypes.c_float, build.VOIDP, build.VOIDP])
 #: the element types the kernel takes (0 and 1 in its dtype argument)
 DTYPES = (torch.bfloat16, torch.float32)
-#: the largest head dim ``csrc/flash_attention.cu`` takes: it computes a
-#: tile at a padded width of 64 or 128 columns (no config attends above 128)
+#: the largest head dim ``csrc/flash_attention.cu`` takes (any D from 1):
+#: it computes a tile at a padded width of 64 or 128 columns (no config
+#: attends above 128)
 MAX_HEAD_DIM = 128
-#: the head dims the kernel takes, stride rule aside
-HEAD_DIMS = range(1, MAX_HEAD_DIM + 1)
 
 
 def smem_bytes(head_dim: int) -> int:
@@ -61,7 +60,7 @@ def smem_bytes(head_dim: int) -> int:
 
 
 def _check_head_dim(D: int) -> None:
-    if D not in HEAD_DIMS:
+    if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash attention: head dim {D}; the kernel takes "
                          f"1 <= D <= {MAX_HEAD_DIM}")
 

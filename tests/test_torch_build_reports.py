@@ -3,6 +3,7 @@
 on the CPU, while the reports themselves come from ``nvcc`` on a GPU
 machine (``chip_smoke.py`` phase 1)."""
 from repro_torch.kernels.build import ptxas_kernels, sass_mix
+from _torch_threads import one_torch_thread  # noqa: F401
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem

@@ -18,6 +18,7 @@ from repro_torch.configs.base import SecureStreamConfig
 from repro_torch.core import enclave, observable, router
 from repro_torch.core.pipeline import Pipeline, Stage
 from repro_torch.u32 import from_numpy, to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 # ------------------------------------------- scalar paths of the executor

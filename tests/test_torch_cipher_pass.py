@@ -5,7 +5,8 @@ plain versions here (CPU tensors); the reference is the JAX package's
 batched ``_cipher_pass`` and ``_mac_keys_rows``, its single-message
 ``_fused_stream`` and ``derive_mac_keys``, and its public seal/open
 functions.  Inputs come from a seeded numpy generator; every comparison
-is bit equality.  The reference functions are jitted once per shape."""
+is bit equality.  The reference functions are jitted once per shape.
+The public seal/open functions: ``tests/test_torch_cipher_pass_aead.py``."""
 import functools
 
 import jax
@@ -20,6 +21,7 @@ from repro_torch.kernels.chacha20 import ops as chacha_ops
 from repro_torch.kernels.chacha20.ref import cipher_pass_ref
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.u32 import from_numpy, to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 BATCHES = [1, 3, 8]
@@ -96,46 +98,6 @@ def test_cipher_pass_message_equals_reference(n):
     want = _ref_derive(jnp.asarray(key), jnp.asarray(nonce))
     got = aead.derive_mac_keys(_t(key), _t(nonce))
     assert all(_same(g, w) for g, w in zip(got, want))
-
-
-@pytest.mark.parametrize("B,n,per_item", [(1, 1, False), (3, 16, True),
-                                           (3, 37, False), (8, 5003, True)])
-def test_seal_open_many_and_mac_keys_equal_reference(B, n, per_item):
-    key, nonces, words = _inputs(B, n, per_item, seed=50 + n)
-    jk, jn = jnp.asarray(key), jnp.asarray(nonces)
-    jct, jtags = j_aead.seal_many(jk, jn, jnp.asarray(words), backend="jnp")
-    ct, tags = aead.seal_many(_t(key), _t(nonces), _t(words))
-    assert _same(ct, jct) and _same(tags, jtags)
-    # tamper: one ciphertext word of the first item, one tag word of the
-    # last; the verdicts are the reference's, item by item
-    bad_ct, bad_tags = to_numpy(ct).copy(), to_numpy(tags).copy()
-    bad_ct[0, n // 2] ^= 1
-    bad_tags[-1, 1] ^= 1
-    for c, tg in ((to_numpy(ct), to_numpy(tags)), (bad_ct, to_numpy(tags)),
-                  (to_numpy(ct), bad_tags)):
-        jpt, jok = j_aead.open_many(jk, jn, jnp.asarray(c), jnp.asarray(tg),
-                                    backend="jnp")
-        pt, ok = aead.open_many(_t(key), _t(nonces), _t(c), _t(tg))
-        assert _same(pt, jpt)
-        assert ok.tolist() == np.asarray(jok).tolist()
-    assert _same(aead.derive_mac_keys_many(_t(key), _t(nonces)),
-                 j_aead.derive_mac_keys_many(jk, jn))
-
-
-@pytest.mark.parametrize("n", [1, 17, 5003])
-def test_scalar_seal_open_equal_reference(n):
-    key, nonce = _u32(8, 3 * n), _u32(3, 3 * n + 1)
-    words = _u32(n, 3 * n + 2)
-    jk, jn = jnp.asarray(key), jnp.asarray(nonce)
-    jct, jtag = _ref_seal(jk, jn, jnp.asarray(words))
-    ct, tag = aead.seal(_t(key), _t(nonce), _t(words))
-    assert _same(ct, jct) and _same(tag, jtag)
-    bad = to_numpy(ct).copy()
-    bad[-1] ^= 1 << 31
-    for c in (to_numpy(ct), bad):
-        jpt, jok = _ref_open(jk, jn, jnp.asarray(c), jtag)
-        pt, ok = aead.open_(_t(key), _t(nonce), _t(c), tag)
-        assert _same(pt, jpt) and bool(ok) == bool(jok)
 
 
 def test_cipher_pass_counts_dispatches_as_before():

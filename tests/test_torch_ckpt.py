@@ -26,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.crypto import keys, poly1305_host
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.obs.metrics import REGISTRY
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

@@ -35,6 +35,7 @@ from repro_torch.crypto import aead
 from repro_torch.dist import collectives as col
 from repro_torch.dist.meshctx import make_mesh
 from repro_torch.obs.metrics import REGISTRY
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"

@@ -16,6 +16,7 @@ from repro.models import layers as j_layers
 from repro_torch import configs
 from repro_torch.models import api
 from repro_torch.models.layers import ParamSpec
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _asdict(cfg):

@@ -21,6 +21,7 @@ from repro_torch.kernels.chacha20 import ops as chacha_ops
 from repro_torch.kernels.cwmac import ops as cwmac_ops
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.u32 import from_numpy, to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # RFC 7539 §2.3.2 key/nonce (word-little-endian), as in
 # tests/test_aead_fastpath.py

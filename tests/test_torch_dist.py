@@ -26,6 +26,7 @@ from repro_torch.dist import pipeline_parallel as pp
 from repro_torch.dist.meshctx import (MeshContext, local_mesh_context,
                                       make_mesh, make_smoke_mesh)
 from repro_torch.obs.metrics import REGISTRY
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

@@ -23,6 +23,7 @@ from repro_torch.dsl import (REDUCERS, SpecError, load_spec,
                              register_reducer, stream)
 from repro_torch.dsl.reducers import resolve_reducer
 from repro_torch.dsl.spec import parse_toml
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_RECORDS, CHUNK = 512, 64           # 8 chunks of 64 records
 SPEC_PATH = os.path.join(os.path.dirname(__file__), "..", "examples",

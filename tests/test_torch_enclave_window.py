@@ -24,6 +24,7 @@ from repro_torch.kernels.enclave_map.enclave_map import OPS
 from repro_torch.kernels.enclave_map.ref import enclave_map_window_ref
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.u32 import from_numpy, to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CONST = {"identity": 0.0, "scale_f32": -2.5, "relu_f32": 0.0,
          "square_f32": 0.0, "threshold_mask": 0.25,

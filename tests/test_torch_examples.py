@@ -9,12 +9,14 @@ import sys
 from pathlib import Path
 
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
 def _run(tmp_path, *args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")     # one torch thread, as in-process
     out = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]

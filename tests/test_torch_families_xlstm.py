@@ -9,6 +9,7 @@ import pytest
 from _torch_families import (check_bf16_layers_teacher_forced,
                              check_forward_and_loss, check_prefill_and_decode,
                              make_ctx)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ['xlstm-125m']
 

@@ -22,6 +22,7 @@ from repro.kernels.flash_attention import ref as j_ref
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention_bhsd as j_flash_bhsd
 from repro_torch.kernels.flash_attention import ops, ref
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -152,7 +153,6 @@ def test_kernel_head_dims_cover_every_config():
     D > 128 raise on the card's path, naming the limit."""
     from repro_torch import configs
     assert ops.MAX_HEAD_DIM == 128
-    assert list(ops.HEAD_DIMS) == list(range(1, 129))
     need = {32}
     for arch in configs.ARCH_IDS:
         cfg = configs.get_model_config(arch)

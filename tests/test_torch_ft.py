@@ -35,6 +35,7 @@ from repro_torch.ft import (BackupDispatcher, ChaosPlan, FaultSpec,
 from repro_torch.kernels.enclave_map import ops as enclave_ops
 from repro_torch.obs import REGISTRY
 from repro_torch.u32 import from_numpy, to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_CHUNKS = 12
 CHUNK = 64

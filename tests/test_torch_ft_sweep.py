@@ -16,6 +16,7 @@ import pytest
 from repro.ft.chaos import ChaosPlan as JChaosPlan, FaultSpec as JFaultSpec
 from repro_torch.ft import ChaosPlan, FaultSpec
 from test_torch_ft import TOPOLOGY, _build, _oracle, _policy, _run
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", range(20))

@@ -15,6 +15,7 @@ import torch
 
 from repro.models import gla as j_gla
 from repro_torch.models import gla
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _close(got, want, atol=2e-5, rtol=1e-5):

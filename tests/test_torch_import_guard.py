@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

@@ -18,6 +18,7 @@ from repro_torch.core import enclave
 from repro_torch.core.pipeline import Pipeline, Stage
 from repro_torch.data.synthetic import flight_chunks
 from repro_torch.u32 import to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 STAGES = [("sgx_mapper", "identity", 0.0), ("sgx_filter",
                                             "delay_filter_u32", 15.0)]

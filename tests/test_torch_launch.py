@@ -28,6 +28,7 @@ from repro_torch.dist import collectives, meshctx
 from repro_torch.launch import analysis as A
 from repro_torch.launch import dryrun, mesh
 from repro_torch.models import api
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CELLS = [(a, s) for a in ARCH_IDS for s in SHAPES]

@@ -14,6 +14,7 @@ from repro_torch import configs
 from repro_torch.configs import ARCH_IDS, SHAPES
 from repro_torch.kernels import build
 from repro_torch.launch import dryrun
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

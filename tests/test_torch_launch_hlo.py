@@ -46,6 +46,7 @@ from repro_torch.configs import reduce_for_smoke
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.launch import dryrun
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "llama3.2-1b"
 B, S = 2, 256

@@ -41,6 +41,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.models import api, layers
 from repro_torch.serve.engine import greedy_generate
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(arch_id="lm-test", family="dense", num_layers=2, d_model=64,
             num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,

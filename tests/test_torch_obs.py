@@ -35,6 +35,7 @@ from repro_torch.obs import (NULL_MONITOR, NULL_TRACER, REGISTRY, AuditLog,
                              PipelineMonitor, SLORule, Tracer, Watchdog,
                              prometheus_text, serve_metrics, snapshot_json)
 from repro_torch.obs.trace import _NOOP_SPAN
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(

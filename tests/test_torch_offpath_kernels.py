@@ -22,6 +22,7 @@ from repro_torch.kernels.enclave_map import ops as em_ops
 from repro_torch.kernels.enclave_map.enclave_map import OPS
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.u32 import from_numpy, to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P31 = 2 ** 31 - 1
 

@@ -19,6 +19,7 @@ from repro_torch.kernels.enclave_map.enclave_map import OPS, const_bits
 from repro_torch.kernels.enclave_map.ref import enclave_apply_rows_ref
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.u32 import from_numpy, to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SPECIAL = np.array([
     0x7FC00000, 0x7F800001, 0xFFC00001, 0x7FA00000,   # NaNs (s and q)

@@ -26,6 +26,7 @@ from repro.optim.schedules import warmup_cosine as j_warmup_cosine
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.optim import optimizers
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = {"a": ((3, 4), "float32"),
           "b": {"c": ((2, 3, 5), "bfloat16"),      # stacked (L, ...) leaf

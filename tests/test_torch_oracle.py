@@ -21,6 +21,7 @@ from repro_torch.core import pipeline as pipeline_mod
 from repro_torch.core.pipeline import Pipeline, Stage
 from repro_torch.data.synthetic import flight_chunks, flight_records
 from repro_torch.dsl.reducers import resolve_reducer
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RECORDS = 192
 CHUNK = 64                      # 3 chunks of 64 records (1024 words)

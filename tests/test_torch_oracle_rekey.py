@@ -10,6 +10,7 @@ from repro.core import pipeline as j_pipeline
 from repro_torch.core import pipeline as pipeline_mod
 from test_torch_oracle import (_equal, _jax, _np, _numpy, _port,
                                _revoking, _stage_accounting)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RECORDS = 256                   # 4 chunks: rekeyed once, one revocation
 

@@ -20,6 +20,7 @@ from repro_torch.core.pipeline import Pipeline, Stage
 from repro_torch.dsl import stream
 from repro_torch.dsl.reducers import resolve_reducer
 from repro_torch.u32 import from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 U32_MAX = 2 ** 32 - 1
 

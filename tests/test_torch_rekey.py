@@ -9,6 +9,7 @@ from repro.core.pipeline import Pipeline as JPipeline
 from repro_torch.core.pipeline import Pipeline
 from repro_torch.data.synthetic import flight_chunks
 from test_torch_pipeline import CHUNK, RECORDS, _jax, _port
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_rekey_revocation_matches_reference_run():

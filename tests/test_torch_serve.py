@@ -33,6 +33,7 @@ from repro_torch.kernels import build
 from repro_torch.serve import secure
 from repro_torch.serve.engine import greedy_generate
 from repro_torch.u32 import to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # examples/secure_serve.py's model and flow, at a small size
 CFG = dict(arch_id="serve-demo", family="dense", num_layers=2, d_model=128,

@@ -17,6 +17,7 @@ from repro_torch.core import pipeline as pipeline_mod
 from repro_torch.core.pipeline import Pipeline, Stage
 from repro_torch.dsl.reducers import resolve_reducer
 from repro_torch.obs.metrics import dispatch_count, reset_dispatch_count
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CONSTS = [1.0 + 0.0625 * i for i in range(8)]
 N_CHUNKS, WORDS = 24, 64

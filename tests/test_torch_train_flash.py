@@ -30,6 +30,7 @@ from repro.models import layers as j_layers
 from repro.models.hier_attn import hier_causal_attention as j_hier
 from repro_torch.models import flash
 from repro_torch.models.hier_attn import hier_causal_attention
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B, H, D = 2, 4, 16
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2 ** -7)}

@@ -47,6 +47,7 @@ from repro_torch.ft import failures
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B, S = 4, 16
 LR = 5e-3
