@@ -216,6 +216,22 @@ Phases, each printed on its own line; any failure exits non-zero:
    after 4 prompt tokens for 4 steps (its random sLSTM is chaotic),
    the port's ``chunked_gla`` on the card against its sequential oracle
    at an mLSTM layer's shape, and the sLSTM loop's share of a prefill.
+15. the dry run (``repro_torch.launch.dryrun``, a step counted on meta
+   tensors) beside the card.  (a) llama3.2-1b's train step at phase 13's
+   4 x 2,048, remat "full" and AdamW: its dry-run record (counted FLOPs
+   by op, peak estimate, t_compute) beside the same step run on the card
+   (seconds, MFU, peak memory, kernel 7 launches) and phase 13's
+   numbers when it ran; the FLOP terms must equal their formulas (the
+   weight products 6 (N - norm gains) T at remat "none", kernel 7's
+   launches x ``flash_flops``) and the peak estimate lie within
+   DRYRUN_PEAK_BAND of the measured peak.  (b) qwen2.5-14b (48 layers,
+   14.77 B parameters, 29.5 GB bf16 drawn on the card) served as phase
+   14 serves its families: 4 sealed prompts of 2,048 tokens, 32 decode
+   steps, kernel 7 48 times a prefill (D = 128) and never in decode;
+   kernel 7 against the plain attention end to end and layer by layer at
+   1 x S, decode at S against prefill(S + 1) layer by layer; its dry-run
+   prefill and decode records at the served shape beside TTFT, decode
+   ms a step and a prefill's measured peak (within DRYRUN_PEAK_BAND).
 
 Every pipeline run of phases 3-7 and 11, the serving runs of phases 10
 and 14, the sealed and plain runs of phase 12 and the train steps and
@@ -226,7 +242,8 @@ engine were launched (window engine: the cipher pass and kernels 2-3 in
 enclave mode, the pass and 2 in encrypted mode; per-chunk engine: the
 pass and kernels 5-6, and the pass and 5; plain mode none; serving: the
 pass, 5 and 7, kernel 7 once per layer in the prefill and never in
-decode (phase 14: once per attention call, none for xLSTM); phase 12's
+decode (phase 14 and 15b: once per attention call, none for xLSTM;
+15a's bare train step: kernel 7 alone); phase 12's
 sealed runs: the cipher pass and kernel 2, its plain runs none; phase 13: kernel 7 alone in a "flash" step, nothing in
 a "chunked" one, the pass and kernels 5 and 7 in the uninterrupted
 training run, and kernel 2 as well in the checkpointed one).  Kernel 3
@@ -240,8 +257,8 @@ kernels 4-6, phase 10's serving run for kernel 7; rows 1 and 4 both
 count the cipher pass, each on its own path; rows 1 and 2 also carry
 phase 12's launches and their numbers at the checkpoint's shape; rows 1,
 2, 4, 5 and 7 carry phase 13's launches in its recovered training run
-and row 7 its training numbers, its numbers per head dim and phase 14's
-serving launches and numbers), and as the last line
+and row 7 its training numbers, its numbers per head dim, phase 14's
+serving launches and numbers and phase 15b's), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is available.
 
