@@ -20,12 +20,13 @@ log-sum-exp of its scaled scores (natural log, f32, (B, H, Sq)): the
 residual the flash backward (:mod:`repro_torch.models.flash`) recomputes
 the probabilities from.
 
-Both entries go through one operator, ``torch.ops.repro_torch.
-flash_attention_fwd``, so that a step traced on ``meta`` tensors (the dry
+On ``meta`` tensors both entries call one operator, ``torch.ops.
+repro_torch.flash_attention_fwd``, so that a step traced on them (the dry
 run, :mod:`repro_torch.launch.analysis`) passes through it: its fake
 implementation makes outputs of the right shapes and launches nothing, and
 its FLOP formula (:func:`flops`, registered with ``torch.utils.
 flop_counter``) counts the kernel's work as ``chip_smoke.py``'s bounds do.
+A CPU or CUDA tensor takes the same paths as before the operator existed.
 """
 from __future__ import annotations
 
@@ -126,10 +127,7 @@ def _lse_shape(q, seq: int, head: int, return_lse: bool):
     return (q.shape[0], q.shape[head], q.shape[seq]) if return_lse else (0,)
 
 
-@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
-def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-         seq: int, head: int, return_lse: bool
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _forward(q, k, v, causal: bool, seq: int, head: int, return_lse: bool):
     """-> (out, lse): lse is (B, H, Sq) f32, or empty without
     ``return_lse``.  A CPU tensor runs the plain version, a CUDA tensor the
     kernel."""
@@ -148,6 +146,15 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out, lse
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         seq: int, head: int, return_lse: bool
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator, for a trace on meta tensors (its fake
+    below); on a real tensor it is :func:`_forward`."""
+    return _forward(q, k, v, causal, seq, head, return_lse)
+
+
 @_fwd.register_fake
 def _fwd_fake(q, k, v, causal, seq, head, return_lse):
     return (torch.empty_like(q, memory_format=torch.contiguous_format),
@@ -163,8 +170,12 @@ def _fwd_flops(q_shape, k_shape, v_shape, causal, seq, head, return_lse,
 
 
 def _run(q, k, v, causal: bool, return_lse: bool, seq: int, head: int):
-    out, lse = torch.ops.repro_torch.flash_attention_fwd(
-        q, k, v, causal, seq, head, return_lse)
+    # a meta tensor goes through the operator (its fake and FLOP formula);
+    # a CPU or CUDA tensor calls the plain version or the kernel directly,
+    # with no dispatcher between the caller and the launch
+    fwd = torch.ops.repro_torch.flash_attention_fwd \
+        if q.device.type == "meta" else _forward
+    out, lse = fwd(q, k, v, causal, seq, head, return_lse)
     return (out, lse) if return_lse else out
 
 
