@@ -279,18 +279,17 @@ from pathlib import Path
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 at
-# 3.35 TB/s; 32-bit integer ops on the CUDA cores at the issue limit,
-# 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz boost = 33.5 T ops/s (the
-# data sheet lists no int32 rate; the kernels do integer work only).  An
+# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): 32-bit
+# integer ops on the CUDA cores at the issue limit, 132 SMs x 4
+# schedulers x 32 lanes x 1.98 GHz boost = 33.5 T ops/s (the data sheet
+# lists no int32 rate; the kernels do integer work only).  An
 # SM has 64 INT32 lanes, and nvcc sends adds, moves and shifts to its
 # FP32 lanes as IMAD, so integer work can use all 128 lanes an SM issues
 # to per clock: counting the INT32 lanes alone would understate the peak.
-# HBM_BYTES_PER_S and BF16_TC_FLOPS (the dense tensor cores' bf16 peak,
-# kernel 7's bound) are the dry run's own constants
-# (repro_torch.launch.dryrun HBM_BW and PEAK_FLOPS), read by main() once
-# the port is importable, so the bounds and the dry run cannot drift apart
-HBM_BYTES_PER_S = BF16_TC_FLOPS = None
+# The memory rate and the dense tensor cores' bf16 peak (kernel 7's bound)
+# are the dry run's own constants, repro_torch.launch.dryrun HBM_BW and
+# PEAK_FLOPS, read where a bound is computed, so the bounds and the dry
+# run cannot drift apart.
 INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 # the CUDA cores' f32 peak (data sheet): kernel 7's f32 check path
 F32_FLOPS = 67e12
@@ -392,7 +391,8 @@ def phase(tag: str, **kv) -> None:
 def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S):
     """Least ms for the work: bytes over the memory rate or operations
     over ``ops_per_s`` (int32 issue rate unless named), the larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    from repro_torch.launch.dryrun import HBM_BW
+    t_bytes = nbytes / HBM_BW * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -2400,6 +2400,7 @@ def phase_flash(torch, dev):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
         BF16_ROW_RTOL, attention_ref, bf16_mismatch)
+    from repro_torch.launch.dryrun import PEAK_FLOPS
     D = 64                          # llama3.2-1b's head dim
     inst = flash_instantiations(build.ptxas_report())
     ptxas = {"bf16": inst[("bf16", D)], "f32": inst[("f32", D)]}
@@ -2449,7 +2450,7 @@ def phase_flash(torch, dev):
                           .scaled_dot_product_attention(q, k, v,
                                                         is_causal=True), 20)
     flops = flash_flops(B, H, S, S, D, True)
-    b, by = bound(4 * q.numel() * q.element_size(), flops, BF16_TC_FLOPS)
+    b, by = bound(4 * q.numel() * q.element_size(), flops, PEAK_FLOPS)
     exp2 = flash_pairs(B, H, S, S, True)
     exp2_ms = exp2 / SFU_EXP2_PER_S * 1e3
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -3770,6 +3771,7 @@ def phase_train_attention(torch, dev):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
         BF16_ROW_RTOL, NEG_INF, attention_ref, bf16_mismatch)
+    from repro_torch.launch.dryrun import PEAK_FLOPS
     from repro_torch.models.flash import flash_attention
     cfg = _train_run().model
     B, H, S, D = TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, cfg.head_dim
@@ -3835,7 +3837,7 @@ def phase_train_attention(torch, dev):
     no_lse_ms, lse_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     flops = flash_flops(B, H, S, S, D, True)
     fwd_bound, fwd_by = bound(4 * q.numel() * 2 + B * H * S * 4, flops,
-                              BF16_TC_FLOPS)
+                              PEAK_FLOPS)
     # the backward: the Function's (plain torch), autograd through plain
     # attention, SDPA's; each over one retained forward graph
     def backward_ms(fn, inputs, grad, iters):
@@ -3855,7 +3857,7 @@ def phase_train_attention(torch, dev):
     # score recompute, dv, dp, dk, dq) = 2.5x the forward's; bytes: q, k,
     # v, out, do read, dq, dk, dv written (bf16), lse read (f32)
     bwd_bound, bwd_by = bound(8 * q.numel() * 2 + B * H * S * 4,
-                              2.5 * flops, BF16_TC_FLOPS)
+                              2.5 * flops, PEAK_FLOPS)
     phase("flash_lse_time", card=CARD, shape=f"{B}x{S}x{H}x{D} bf16 causal",
           ms_without_lse=no_lse_ms, ms_with_lse=lse_ms,
           lse_cost=lse_ms / no_lse_ms - 1, bound_ms=fwd_bound,
@@ -4017,6 +4019,7 @@ def phase_secure_training(torch, dev):
     import shutil
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.ft.failures import FailureInjector
+    from repro_torch.launch.dryrun import PEAK_FLOPS
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.train.trainer import Trainer, TrainerConfig
     run = _train_run()
@@ -4131,7 +4134,7 @@ def phase_secure_training(torch, dev):
           steps=TRAIN_STEPS, steps_executed=executed,
           sec_per_step=step_s, secs="/".join(f"{x:.4f}" for x in secs),
           tokens_per_s=tokens / step_s,
-          mfu=model_flops / step_s / BF16_TC_FLOPS,
+          mfu=model_flops / step_s / PEAK_FLOPS,
           model_tflop_per_step=model_flops / 1e12,
           device_busy_share=round(busy / prof_wall, 4),
           profiled_step_s=prof_wall,
@@ -4176,7 +4179,7 @@ def phase_secure_training(torch, dev):
     return rows_launches, dict(steps_executed=executed,
                                kernel7_per_step=flash_per_step,
                                sec_per_step=step_s,
-                               mfu=model_flops / step_s / BF16_TC_FLOPS,
+                               mfu=model_flops / step_s / PEAK_FLOPS,
                                model_flops=model_flops,
                                trainer_peak_memory_gb=peak / 1e9)
 
@@ -4377,6 +4380,7 @@ def phase_flash_head_dims(torch, dev):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
         BF16_ROW_RTOL, attention_ref, bf16_mismatch)
+    from repro_torch.launch.dryrun import PEAK_FLOPS
     for (dt, D), k in sorted(flash_instantiations(
             build.ptxas_report()).items()):
         phase("flash_instance", card=CARD, dtype=dt, padded_width=D,
@@ -4461,7 +4465,7 @@ def phase_flash_head_dims(torch, dev):
         del qf, kf, vf
         flops = flash_flops(B, H, S, S, D, True)
         b, by = bound(4 * q.numel() * q.element_size(), flops,
-                      BF16_TC_FLOPS)
+                      PEAK_FLOPS)
         exp2 = flash_pairs(B, H, S, S, True)
         row = dict(shape=f"B={B} H={H} S={S} D={D} bf16 causal", ms=ms,
                    first_ms=first_ms, lse_ms=lse_ms, bshd_ms=bshd_ms, plain_ms=plain_ms,
@@ -5114,7 +5118,7 @@ def phase_dryrun_training(torch, dev, train_numbers):
         roofline_fraction=r["roofline_fraction"],
         measured_step_s=step_s, measured_peak_gb=peak / 1e9,
         measured_args_gb=args / 1e9, loss=loss,
-        measured_mfu=model13 / step_s / BF16_TC_FLOPS,
+        measured_mfu=model13 / step_s / dryrun.PEAK_FLOPS,
         step_over_t_compute=step_s / r["t_compute_s"],
         kernel7_launches=launches["ss_flash_attention_fwd"],
         phase13_sec_per_step=train_numbers.get("sec_per_step"),
@@ -5216,14 +5220,6 @@ def phase_dryrun(torch, dev, train_numbers):
     return launches, {"train": train, "qwen": qwen}
 
 
-def read_peaks() -> None:
-    """The card's memory rate and bf16 peak from the dry run's constants
-    (the port must be importable)."""
-    global HBM_BYTES_PER_S, BF16_TC_FLOPS
-    from repro_torch.launch import dryrun
-    HBM_BYTES_PER_S, BF16_TC_FLOPS = dryrun.HBM_BW, dryrun.PEAK_FLOPS
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
@@ -5245,7 +5241,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    read_peaks()
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)

@@ -83,10 +83,10 @@ def input_specs(run: RunConfig) -> Dict[str, torch.Tensor]:
     return out
 
 
-def trace_cell(run: RunConfig, *, scale_loops: bool = True
-               ) -> Tuple[A.Analysis, Any]:
-    """Run the cell's step once on meta tensors under the analyzer.  ->
-    (its analysis, the step's result)."""
+def trace_cell(run: RunConfig) -> Tuple[A.Analysis, Any]:
+    """Run the cell's step once on meta tensors under the analyzer, its
+    loops scaled (:func:`repro_torch.launch.analysis.analyze`).  -> (its
+    analysis, the step's result)."""
     cfg, shape = run.model, run.shape
     params = model_api.abstract_params(cfg)
     batch = input_specs(run)
@@ -94,15 +94,15 @@ def trace_cell(run: RunConfig, *, scale_loops: bool = True
         step_fn, opt = make_train_step(run)
         opt_state = opt.init(params)
         return A.analyze(step_fn, params, opt_state, batch, 0,
-                         scale_loops=scale_loops)
+                         scale_loops=True)
     if shape.kind == "prefill":
         step_fn = make_prefill_step(run, max_seq=shape.seq_len)
-        return A.analyze(step_fn, params, batch, scale_loops=scale_loops)
+        return A.analyze(step_fn, params, batch, scale_loops=True)
     # decode: the last position of a full cache of S
     B, S = shape.global_batch, shape.seq_len
     cache = model_api.abstract_cache(cfg, B, S)
     return A.analyze(make_decode_step(run), params, batch["tokens"], S - 1,
-                     cache, scale_loops=scale_loops)
+                     cache, scale_loops=True)
 
 
 def model_flops(run: RunConfig) -> float:
@@ -139,8 +139,7 @@ def roofline(run: RunConfig, analysis: A.Analysis,
 
 def run_cell(arch: str, shape: str, mesh: str = "card",
              out_dir: str = OUT_DIR, force: bool = False,
-             overrides: Optional[Dict[str, Any]] = None,
-             scale_loops: bool = True) -> Dict[str, Any]:
+             overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Count one cell and write its record (or return the one written
     before, unless ``force``).  ``overrides`` go to ``get_run_config``;
     ``shape=ShapeConfig(...)`` among them replaces the cell's shape (a
@@ -171,7 +170,7 @@ def run_cell(arch: str, shape: str, mesh: str = "card",
     nchips = math.prod(make_production_mesh(device="meta").shape.values())
     t0 = time.time()
     try:
-        an, _ = trace_cell(run, scale_loops=scale_loops)
+        an, _ = trace_cell(run)
         peak = an.peak_live_bytes
         rec.update(
             status="ok",
