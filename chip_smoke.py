@@ -210,8 +210,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    decode steps, the same kernel-versus-plain checks (each beside a
    prefill whose attention sums in another order), and 256
    teacher-forced decode steps after prefill(S), each against the
-   forward pass over S + 256 tokens at its position, in f32 (the first
-   16 gated) and bf16.  (d) xlstm-125m (6 mLSTM / sLSTM pairs, no
+   forward pass over S + 256 tokens at its position, in f32, every one
+   gated.  (d) xlstm-125m (6 mLSTM / sLSTM pairs, no
    kernel 7): 8 prompts of 2,048, 64 decode steps, the continuation
    after 4 prompt tokens for 4 steps (its random sLSTM is chaotic),
    the port's ``chunked_gla`` on the card against its sequential oracle
@@ -232,6 +232,26 @@ Phases, each printed on its own line; any failure exits non-zero:
    1 x S, decode at S against prefill(S + 1) layer by layer; its dry-run
    prefill and decode records at the served shape beside TTFT, decode
    ms a step and a prefill's measured peak (within DRYRUN_PEAK_BAND).
+16. the other families trained on the card (FAMILY_TRAIN), seeded
+   weights drawn there at full width: zamba2-1.2b at 4 x 2,048 (38 + 6
+   shared), xlstm-125m at 4 x 256 (its sLSTM loop is per token),
+   moonshot-v1-16b-a3b cut to 4 layers (2 when the dry run's estimate at
+   4 is over MOE_TRAIN_PEAK_LIMIT) at 2 x 2,048 and musicgen-large (48
+   layers, with frames) at 2 x 2,048 (1 x when the dry run says 2 do not
+   fit), AdamW, remat "full".  Each beside its dry-run train record: the
+   FLOP terms equal their formulas (the weight products
+   ``_mm_flops_formula`` at remat "none", kernel 7's FLOPs its attention
+   calls, at "none" and at the step's remat, and its launches, x
+   ``flash_flops``), the peak of a step within
+   DRYRUN_PEAK_BAND of the estimate; each step's loss finite and
+   printed; s a step, tokens/s, MFU, busy share, kernel 7 launches a
+   step; at 1 x S the gradients of a step with kernel 7 against the same
+   step with the plain attention (f32 and bf16, FAMILY_GRAD_*); the MoE
+   step run twice from one state, bit-equal.  (b) xlstm-125m's
+   ``Trainer`` with sealed data and checkpoints, a failure and a restore,
+   bit-equal to an uninterrupted run.  (e) musicgen-large served at full
+   width and depth as 15b serves qwen2.5-14b, with sealed frames beside
+   the prompts.
 
 Every pipeline run of phases 3-7 and 11, the serving runs of phases 10
 and 14, the sealed and plain runs of phase 12 and the train steps and
@@ -246,7 +266,9 @@ decode (phase 14 and 15b: once per attention call, none for xLSTM;
 15a's bare train step: kernel 7 alone); phase 12's
 sealed runs: the cipher pass and kernel 2, its plain runs none; phase 13: kernel 7 alone in a "flash" step, nothing in
 a "chunked" one, the pass and kernels 5 and 7 in the uninterrupted
-training run, and kernel 2 as well in the checkpointed one).  Kernel 3
+training run, and kernel 2 as well in the checkpointed one; phase 16:
+kernel 7 alone in a train step, nothing in xlstm-125m's, whose Trainer
+run launches the pass and kernels 2 and 5).  Kernel 3
 is ``ss_enclave_map_window`` there; the rows entry runs on no path.  The fault-tolerant engine (phase 11) is the window
 engine's path: retries, failovers, backups and replays re-execute a
 share through the same kernels, the window hop with ``nonces_out``.
@@ -258,7 +280,8 @@ count the cipher pass, each on its own path; rows 1 and 2 also carry
 phase 12's launches and their numbers at the checkpoint's shape; rows 1,
 2, 4, 5 and 7 carry phase 13's launches in its recovered training run
 and row 7 its training numbers, its numbers per head dim, phase 14's
-serving launches and numbers and phase 15b's), and as the last line
+serving launches and numbers, phase 15b's, and phase 16's launches a
+train step and its numbers), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is available.
 
@@ -342,6 +365,7 @@ KERNELS = {
     "train_step": {
         "flash": ("ss_flash_attention_fwd",),
         "chunked": (),
+        "attention_free": (),
     },
     "train_steps": {
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
@@ -350,6 +374,8 @@ KERNELS = {
     "train": {
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
                       "ss_cwmac_tags", "ss_flash_attention_fwd"),
+        "attention_free": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
+                           "ss_cwmac_tags"),
     },
 }
 #: the run whose launch counts go into each row of the JSON line (rows
@@ -2381,7 +2407,8 @@ def flash_instantiations(report: str) -> dict:
     """Kernel 7's ptxas entries by (type, padded width), from the template
     argument in the mangled names (``flash_fwd_bf16_kernelILi128E...``):
     bf16 64 and 128, f32 16, 32, 64 and 128; any D up to 128 runs on the
-    instantiation of the next width up."""
+    instantiation of the next width up; the wide kernel, which takes 128 <
+    D <= 256, is ("wide_bf16", 256) and ("wide_f32", 256)."""
     import re
     from repro_torch.kernels import build
     out = {}
@@ -2389,6 +2416,10 @@ def flash_instantiations(report: str) -> dict:
         m = re.search(r"flash_fwd_(bf16|f32)_kernelILi(\d+)E", k["name"])
         if m:
             out[(m.group(1), int(m.group(2)))] = k
+        m = re.search(r"flash_fwd_wide_kernelI(13__nv_bfloat16|f)E",
+                      k["name"])
+        if m:
+            out[("wide_f32" if m.group(1) == "f" else "wide_bf16", 256)] = k
     return out
 
 
@@ -3877,9 +3908,9 @@ def phase_train_attention(torch, dev):
 
 
 class _Recorded:
-    """Wraps ``module.name`` and keeps each call's result (the clipped
-    gradients and the global norm of ``optimizers._clip_by_global_norm``)
-    and its first argument."""
+    """Wraps ``module.name`` and keeps each call's first argument and its
+    result (of ``optimizers._global_norm``: the gradients before clipping
+    and their global norm)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -3909,13 +3940,13 @@ def _train_step_grads(torch, run, impl, params, batch, what):
     state = opt.init(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with _Recorded(optimizers, "_clip_by_global_norm") as rec:
+    with _Recorded(optimizers, "_global_norm") as rec:
         t0 = time.perf_counter()
         (_, _, metrics), launches = counted_run(
             torch, what, impl, lambda: step(params, state, batch, 0),
             engine="train_step")
         secs = time.perf_counter() - t0
-    grads, (_, norm) = rec.calls[0]
+    grads, norm = rec.calls[0]
     return dict(loss=float(metrics["loss"]), norm=float(norm), grads=grads,
                 s=secs, peak=torch.cuda.max_memory_allocated(),
                 flash=launches.get("ss_flash_attention_fwd", 0))
@@ -4222,10 +4253,16 @@ FAMILY_FLASH_TIMED = {
     "reduce_for_smoke": (8, 4, 2048, 16),
     "no config, D = 32": (4, 16, 2048, 32),
     "no config, D = 96": (4, 16, 2048, 96),
+    "no config, D = 20 (padded)": (4, 16, 2048, 20),
+    "no config, D = 100 (padded)": (4, 16, 2048, 100),
+    "no config, D = 192 (wide)": (4, 16, 2048, 192),
+    "no config, D = 256 (wide)": (4, 16, 2048, 256),
 }
 #: the head dims phase 14a checks against the plain version (phase 9
-#: checks 64): the configs' others and two that no config has
-FAMILY_FLASH_DIMS = (16, 32, 96, 112, 128)
+#: checks 64): the configs' others, two that no config has, two whose
+#: rows are not 16-byte multiples in bf16 (zero-padded to 24 and 104 by
+#: the wrapper) and two above 128 (the wide kernel)
+FAMILY_FLASH_DIMS = (16, 32, 96, 112, 128, 20, 100, 192, 256)
 #: kernel 7 at D = 64 at phase 9's shape (8 x 32 x 4096): the most it may
 #: take, ms.  Before the head-dim template it read 1.446 ms, and the
 #: template's D = 64 read 1.4498-1.4699 ms in the runs of this script that
@@ -4245,8 +4282,9 @@ FAMILY_SERVE = {
 #: decode steps in each family's profile: torch.profiler's host-side
 #: processing of a trace grows with its events (~0.5 ms a kernel on the
 #: H100 host, most of phase 14's time at 16 steps: PERF.md section 4),
-#: and the steps are alike, so their busy share is read from 4
-FAMILY_PROFILE_STEPS = 4
+#: and the steps are alike, so their busy share is read from 2 (4 until
+#: phase 16 joined the script, for its time limit)
+FAMILY_PROFILE_STEPS = 2
 #: one layer's attention output with kernel 7 against the plain attention
 #: on the same input (phase 10's cache limit): bf16 rounding of each side
 #: alone, where the wrong attentions move it by 0.3 and more
@@ -4277,7 +4315,8 @@ GLA_TOL = (1e-4, 1e-4)
 #: the decode continuation in f32 (the weights cast to f32; kernel 7's f32
 #: instantiation): each of the 256 teacher-forced decode steps after
 #: prefill(S) against the forward pass over the S + 256 tokens at the same
-#: position, within this max abs gap.  zamba2-1.2b read 4.4e-4 to 9.4e-4
+#: position, within this max abs gap (256: the forward pass's sequence
+#: must stay a multiple of zamba2's and xlstm's scan chunk, 256).  zamba2-1.2b read 4.4e-4 to 9.4e-4
 #: over the steps; in bf16 its 38 random layers turn rounding into gaps of
 #: order 1, so bf16 is not held to it
 CONTINUE_F32_TOL = 1e-2
@@ -4386,7 +4425,7 @@ def phase_flash_head_dims(torch, dev):
         phase("flash_instance", card=CARD, dtype=dt, padded_width=D,
               registers=k["registers"], spill_stores=k["spill_stores"],
               spill_loads=k["spill_loads"],
-              smem_bytes=flash_ops.smem_bytes(D) if dt == "bf16"
+              smem_bytes=flash_ops.smem_bytes(D) if dt != "f32"
               else "static")
     g = torch.Generator(device=dev).manual_seed(14)
 
@@ -4497,8 +4536,10 @@ def serve_family(torch, dev, arch, plan=None):
     (MAC checked), prefilled through ``make_prefill_step`` (the time to
     first token) and generated through ``greedy_generate``; kernel 7
     launched once per attention call of each prefill and never in
-    decode.  ``plan``: FAMILY_SERVE's tuple for ``arch`` unless given.  ->
-    (cfg, params, prompts, numbers, launches)"""
+    decode.  An audio model's prompts come with seeded frames (R, S,
+    frontend_dim) in bf16, sealed and opened beside them and added to the
+    prefill's embeddings.  ``plan``: FAMILY_SERVE's tuple for ``arch``
+    unless given.  -> (cfg, params, prompts, numbers, launches)"""
     from repro_torch.configs import get_model_config
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.kernels import build
@@ -4526,10 +4567,15 @@ def serve_family(torch, dev, arch, plan=None):
     attest_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab_size, (R, S), generator=g,
                             device=dev, dtype=torch.int32)
+    frames = torch.randn((R, S, cfg.frontend_dim), generator=g, device=dev
+                         ).to(torch.bfloat16) \
+        if cfg.frontend == "audio_frames" else None
     max_seq = S + N
     prefill = make_prefill_step(run_cfg, max_seq=max_seq)
     secure.open_prompts(key, secure.seal_prompts(key, prompts, counter=1))
-    greedy_generate(run_cfg, params, prompts[:, :256], steps=2, max_seq=257)
+    greedy_generate(run_cfg, params, prompts[:, :256], steps=2, max_seq=257,
+                    extra=None if frames is None else {
+                        "frames": frames[:, :256]})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = {}
@@ -4545,15 +4591,23 @@ def serve_family(torch, dev, arch, plan=None):
         t["open"] = time.perf_counter() - t0
         if not torch.equal(opened, prompts):
             raise AssertionError("opened prompts differ from the sent ones")
+        extra = {}
+        if frames is not None:
+            got = secure.open_prompts(key, secure.seal_prompts(
+                key, frames, counter=2))
+            if not torch.equal(got, frames):
+                raise AssertionError("opened frames differ from the sent "
+                                     "ones")
+            extra["frames"] = got
         t["after_open"] = build.launch_counts()
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": opened})[0]
+        logits = prefill(params, {"tokens": opened, **extra})[0]
         first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None].cpu()
         t["prefill"] = time.perf_counter() - t0
         t["after_prefill"] = build.launch_counts()
         t0 = time.perf_counter()
         gen = greedy_generate(run_cfg, params, opened, steps=N + 1,
-                              max_seq=max_seq).cpu()
+                              max_seq=max_seq, extra=extra).cpu()
         t["generate"] = time.perf_counter() - t0
         return first, gen, logits
     mode = "attention_free" if cfg.attention_free else "encrypted"
@@ -4580,6 +4634,7 @@ def serve_family(torch, dev, arch, plan=None):
         arch=arch, family=cfg.family, layers=cfg.num_layers,
         d_model=cfg.d_model, head_dim=cfg.head_dim, params=n,
         params_bf16_gb=2 * n / 1e9, requests=R, prompt=S, new_tokens=N,
+        frames=None if frames is None else "x".join(map(str, frames.shape)),
         init_params_s=init_s, init_peak_memory_gb=init_peak / 1e9,
         attest_s=attest_s, measurement=server_m.hex()[:16],
         seal_ms=t["seal"] * 1e3, open_ms=t["open"] * 1e3, mac_ok=True,
@@ -5141,34 +5196,45 @@ def _dryrun_shape(arch, shape, S, B, kind):
                           overrides=dict(shape=ShapeConfig(shape, S, B,
                                                            kind)))
     if rec["status"] != "ok":
-        raise AssertionError(f"phase 15b: the dry run of {arch} {shape} "
-                             f"failed: {rec}")
+        raise AssertionError(f"the dry run of {arch} {shape} failed: "
+                             f"{rec}")
     return rec
 
 
 def phase_qwen_serve(torch, dev):
-    """Phase 15b: qwen2.5-14b served at full width and depth (as phase 14
-    serves its families), checked as moonshot is (kernel 7 against the
-    plain attention end to end and layer by layer at 1 x S, decode at S
-    against prefill(S + 1) layer by layer), beside the dry run's prefill
-    and decode records at the served shape.  -> (kernel 7 launches,
-    numbers)"""
+    """Phase 15b: qwen2.5-14b served at full width and depth.  ->
+    (kernel 7 launches, numbers)"""
+    return phase_full_serve(torch, dev, QWEN_ARCH, QWEN_SERVE, "qwen_serve")
+
+
+def phase_full_serve(torch, dev, arch, plan, tag):
+    """``arch`` served at full width and depth (as phase 14 serves its
+    families; an audio model with sealed frames), checked as moonshot is
+    (kernel 7 against the plain attention end to end and layer by layer
+    at 1 x S, decode at S against prefill(S + 1) layer by layer, both on
+    tokens alone), beside the dry run's prefill and decode records at the
+    served shape.  -> (kernel 7 launches, numbers)"""
     from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch.dryrun import input_specs
     from repro_torch.serve.engine import make_prefill_step
-    R, S, N, _, _ = QWEN_SERVE
+    R, S, N, _, _ = plan
     t0 = time.perf_counter()
-    cfg, params, prompts, nums, ran = serve_family(torch, dev, QWEN_ARCH,
-                                                   QWEN_SERVE)
+    cfg, params, prompts, nums, ran = serve_family(torch, dev, arch, plan)
     nums["serve_s"] = time.perf_counter() - t0
-    pre = _dryrun_shape(QWEN_ARCH, "prefill_32k", S, R, "prefill")
-    dec = _dryrun_shape(QWEN_ARCH, "decode_32k", S + N, R, "decode")
+    pre = _dryrun_shape(arch, "prefill_32k", S, R, "prefill")
+    dec = _dryrun_shape(arch, "decode_32k", S + N, R, "decode")
     # the dry run's prefill on the card: max_seq S, the params and the
-    # prompts its arguments
-    prefill = make_prefill_step(RunConfig(model=cfg, shape=ShapeConfig(
-        "prefill_32k", S, R, "prefill")), max_seq=S)
-    args = _tree_bytes(params) + prompts.numel() * prompts.element_size()
+    # prompts (with an audio model's frames, as its input specs) its
+    # arguments
+    run = RunConfig(model=cfg, shape=ShapeConfig("prefill_32k", S, R,
+                                                 "prefill"))
+    prefill = make_prefill_step(run, max_seq=S)
+    batch = {k: prompts if k == "tokens" else torch.zeros(
+        v.shape, dtype=v.dtype, device=dev)
+        for k, v in input_specs(run).items()}
+    args = _tree_bytes(batch) + _tree_bytes(params)
     (logits, _), prefill_s, peak = _measured_peak(
-        torch, args, lambda: prefill(params, {"tokens": prompts}))
+        torch, args, lambda: prefill(params, batch))
     del logits
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -5197,13 +5263,13 @@ def phase_qwen_serve(torch, dev):
         / rd["t_mem_s"],
         peak_band=DRYRUN_PEAK_BAND, peak_ok=peak_ok, decode_ok=decode_ok,
         seconds=time.perf_counter() - t0)
-    phase("qwen_serve", card=CARD, **{k: v for k, v in nums.items()
-                                      if not isinstance(v, dict)})
-    del params, prompts
+    phase(tag, card=CARD, **{k: v for k, v in nums.items()
+                             if not isinstance(v, dict)})
+    del params, prompts, batch
     gc.collect()
     torch.cuda.empty_cache()
     if not (peak_ok and decode_ok):
-        raise AssertionError(f"phase 15b: {QWEN_ARCH}: {nums}")
+        raise AssertionError(f"{tag}: {arch}: {nums}")
     return ran["ss_flash_attention_fwd"], nums
 
 
@@ -5220,12 +5286,475 @@ def phase_dryrun(torch, dev, train_numbers):
     return launches, {"train": train, "qwen": qwen}
 
 
+# ------------------------------------------------------------------ phase 16
+
+#: phase 16: the other families' train steps on the card, seeded weights
+#: drawn there at full width and depth: batch x sequence, remat and the
+#: timed steps.  xlstm-125m's sLSTM is a
+#: per-token Python loop under autograd (~1 ms a layer a token on the H100
+#: host, PERF.md section 5), so its sequence is cut to 256 and it trains
+#: at remat "none" (its activations are small; "full" would run the loop
+#: a third time); moonshot's 48 layers of 64 experts (28 B parameters,
+#: over 300 GB with AdamW) are cut to MOE_TRAIN_LAYERS
+FAMILY_TRAIN = {
+    "zamba2-1.2b": (4, 2048, "full", 3),
+    "xlstm-125m": (4, 256, "none", 3),
+    "moonshot-v1-16b-a3b": (2, 2048, "full", 3),
+    "musicgen-large": (2, 2048, "full", 1),
+}
+#: moonshot's depth on one card: 4 layers, or 2 if the dry run's peak
+#: estimate at 4 is over MOE_TRAIN_PEAK_LIMIT bytes
+MOE_TRAIN_LAYERS = (4, 2)
+MOE_TRAIN_PEAK_LIMIT = 60e9
+#: 16b: xlstm-125m's Trainer run: its sequence (cut from the timed steps'
+#: 256: the 13 steps of the two runs at 256 took 131 s of the first
+#: phase 16's 303 s on the H100), steps, checkpoint cadence and the step of
+#: the injected failure (after the first checkpoint)
+XLSTM_TRAINER = (64, 6, 2, 3)
+FAMILY_CKPT_DIR = Path(__file__).resolve().parent / "build" / "phase16_ckpt"
+#: 16, kernel 7 against the plain attention in training, at 1 x S from the
+#: same weights and batch: the gradients of a step with kernel 7
+#: ("flash") and with the plain "chunked" attention, all leaves as one
+#: vector.  In f32 the two differ in attention's forward (kernel 7's f32
+#: kernel, ~1e-6 from the plain one) and the order of the backward's
+#: sums: within FAMILY_GRAD_F32_RTOL relative L2 (a wrong backward or
+#: forward moves them by O(1e-1)); in bf16 every product rounds, so the
+#: flash step's gradients may be no farther from the f32 chunked step's
+#: than FAMILY_GRAD_BF16_RATIO times the bf16 chunked step's are (phase
+#: 13b's rule for llama's attention leaves).  The MoE router may route a
+#: token whose top-k probabilities lie a rounding apart otherwise, which
+#: these relative gaps also hold
+FAMILY_GRAD_F32_RTOL = 1e-3
+FAMILY_GRAD_BF16_RATIO = 1.5
+#: 16e: musicgen-large served at full width and depth, as QWEN_SERVE
+MUSICGEN_SERVE = (4, 2048, 32, 2048, None)
+
+
+def _mm_weights(cfg):
+    """Weight elements that multiply every token's activations in a
+    matrix product (``aten.mm``) of a train step, times their calls ->
+    (those under the remat policy: the attention, MLP, router, Mamba2
+    projections and xLSTM input and gate matrices of each layer, and the
+    LM head (the embedding, when tied); those outside it: the hybrid's
+    shared attention block, once a call).  Not in either: norms and
+    biases, the Mamba2 convolutions (elementwise), the MoE experts and the
+    sLSTM's recurrent blocks (batched products, ``aten.bmm``), the front
+    end's projector (:func:`_mm_flops_formula`)."""
+    from repro_torch.models import api
+    from repro_torch.models.layers import ParamSpec
+
+    def walk(t, path, per_layer):
+        if isinstance(t, ParamSpec):
+            shape = t.shape[1:] if per_layer else t.shape
+            name = path[-1]
+            if len(shape) != 2 or name.startswith("conv_") or \
+                    name == "frontend_proj" or (name == "embed" and
+                                                not cfg.tie_embeddings):
+                return 0
+            return math.prod(t.shape)
+        return sum(walk(v, path + (k,), per_layer or k == "layers")
+                   for k, v in t.items())
+    t = api.param_template(cfg)
+    inside = walk({k: v for k, v in t.items() if k != "shared_attn"}, (),
+                  False)
+    outside = api.num_shared_attn(cfg) * walk(t["shared_attn"], (), False) \
+        if "shared_attn" in t else 0
+    return inside, outside
+
+
+def _mm_flops_formula(cfg, B, S) -> int:
+    """``aten.mm`` FLOPs of a train step at remat "none": 6 T per weight
+    element of :func:`_mm_weights` (2 T in the forward, 2 T for the
+    input's gradient, 2 T for the weight's), and 4 T per element of the
+    audio front end's projector (its frames need no gradient)."""
+    T = B * S
+    n = 6 * T * sum(_mm_weights(cfg))
+    if cfg.frontend == "audio_frames":
+        n += 4 * T * cfg.frontend_dim * cfg.d_model
+    return n
+
+
+def _attn_calls(cfg, remat="none") -> int:
+    """Kernel 7's launches in a train step: once an attention call, and
+    again in the backward for the calls under remat "full" (every layer's;
+    the hybrid's shared block is outside the remat)."""
+    from repro_torch.models import api
+    if cfg.family == "hybrid":
+        return api.num_shared_attn(cfg)
+    n = 0 if cfg.attention_free else cfg.num_layers
+    return 2 * n if remat == "full" else n
+
+
+def family_data_fn(cfg, B, S):
+    """Seeded batches of B x S: uniform tokens, the next as labels, and an
+    audio model's frames (normal, f32); the same for a step on every call
+    (replay)."""
+    def data_fn(step: int):
+        rng = np.random.default_rng(1600 + step)
+        toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+        if cfg.frontend == "audio_frames":
+            out["frames"] = rng.standard_normal(
+                (B, S, cfg.frontend_dim)).astype(np.float32)
+        return out
+    return data_fn
+
+
+def _on_card(torch, dev, batch):
+    """A batch of :func:`family_data_fn` on the card, the frames in bf16
+    (the dry run's input specs)."""
+    return {k: torch.from_numpy(v).to(dev).to(torch.bfloat16)
+            if k == "frames" else torch.from_numpy(v).to(dev)
+            for k, v in batch.items()}
+
+
+def _family_run(arch, B, S, layers, remat):
+    from repro_torch.configs import SHAPES, get_model_config, get_run_config
+    cfg = get_model_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    run = get_run_config(arch, "train_4k", model=cfg, remat=remat)
+    return dataclasses.replace(run, shape=dataclasses.replace(
+        SHAPES["train_4k"], name="train_4k-cut", seq_len=S, global_batch=B))
+
+
+def _family_dryrun(arch, run):
+    """The dry run's train record of ``run`` (``arch``'s "train_4k" cell
+    with the cut model, shape and remat) and its trace at remat "none",
+    whose weight products :func:`_mm_flops_formula` gives exactly (under
+    remat "full" the recompute stops at the last saved tensor, so a
+    block's last product may not run twice)."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, "train_4k",
+                          out_dir=str(DRYRUN_DIR), force=True, overrides=dict(
+                              model=run.model, shape=run.shape,
+                              remat=run.remat))
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 16: the dry run of "
+                             f"{arch} failed: {rec}")
+    none, _ = dryrun.trace_cell(dataclasses.replace(run, remat="none"))
+    return rec, none
+
+
+def _loss_grads(torch, run, impl, params, batch):
+    """``loss_fn`` of ``run``'s model with ``attn_impl=impl`` and its
+    gradients over every leaf (no optimizer) -> (loss, grads as a list)."""
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(live)
+    loss, _ = api.loss_fn(run.model, tree_map(lambda _: next(it), params),
+                          batch, remat=run.remat, attn_impl=impl)
+    grads = torch.autograd.grad(loss, live)
+    return float(loss.detach()), list(grads)
+
+
+def _gap(a, b) -> float:
+    """Relative L2 distance of two gradient lists, as one vector."""
+    num = sum(float((x.float() - y.float()).square().sum())
+              for x, y in zip(a, b))
+    den = sum(float(y.float().square().sum()) for y in b)
+    return math.sqrt(num / max(den, 1e-60))
+
+
+def family_grads_both_ways(torch, dev, run, params, batch):
+    """16: one step's gradients with kernel 7 and with the plain chunked
+    attention at 1 x S, in f32 and in bf16 (FAMILY_GRAD_*).  -> numbers;
+    raises when a gap misses its limit."""
+    from repro_torch.optim.optimizers import tree_map
+    one = {k: v[:1] for k, v in batch.items()}
+    p32 = tree_map(lambda t: t.float(), params)
+    _, want = _loss_grads(torch, run, "chunked", p32, one)
+    f32_gap = _gap(_loss_grads(torch, run, "flash", p32, one)[1], want)
+    del p32
+    gc.collect()
+    loss_c, g = _loss_grads(torch, run, "chunked", params, one)
+    bf16_chunked = _gap(g, want)
+    del g
+    loss_f, g = _loss_grads(torch, run, "flash", params, one)
+    bf16_flash = _gap(g, want)
+    del g, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    nums = dict(
+        grads_shape=f"1x{run.shape.seq_len}",
+        grads_f32_flash_vs_chunked=f32_gap,
+        grads_bf16_flash_vs_f32_chunked=bf16_flash,
+        grads_bf16_chunked_vs_f32_chunked=bf16_chunked,
+        loss_bf16_flash=loss_f, loss_bf16_chunked=loss_c,
+        grads_f32_rtol=FAMILY_GRAD_F32_RTOL,
+        grads_bf16_ratio=FAMILY_GRAD_BF16_RATIO)
+    ok = (f32_gap <= FAMILY_GRAD_F32_RTOL
+          and bf16_flash <= FAMILY_GRAD_BF16_RATIO * bf16_chunked
+          and abs(loss_f - loss_c) <= TRAIN_LOSS_TOL)
+    phase("family_grads_both_ways", card=CARD, arch=run.model.arch_id,
+          **nums, loss_tol=TRAIN_LOSS_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"phase 16: {run.model.arch_id}: kernel 7's "
+                             f"step against the plain attention's: {nums}")
+    return nums
+
+
+def _to_cpu(torch, tree):
+    from repro_torch.optim.optimizers import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _busy_share(torch, fn):
+    """The device's busy share over ``fn()`` (one step) from a
+    torch.profiler trace of the device's activity alone (the host's ops
+    would cost ~0.5 ms each to process)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows) / 1e6
+    return out, (busy / wall if rows else None), sum(r[2] for r in rows)
+
+
+def family_train(torch, dev, arch):
+    """16a-d: ``arch``'s train step on the card beside its dry run: FLOP
+    terms by formula, the measured peak of a step against the estimate,
+    FAMILY_TRAIN's timed steps (each loss finite and printed), s a step,
+    tokens/s, MFU, busy share and kernel 7's launches a step; kernel 7's
+    gradients against the plain attention's (the attention families);
+    the MoE's step twice from one state, bit-equal.  -> numbers"""
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.steps import make_train_step
+    B, S, remat, steps = FAMILY_TRAIN[arch]
+    layers = None
+    t0 = time.perf_counter()
+    if arch == "moonshot-v1-16b-a3b":
+        for layers in MOE_TRAIN_LAYERS:
+            run = _family_run(arch, B, S, layers, remat)
+            rec, none = _family_dryrun(arch, run)
+            if rec["memory"]["peak_estimate_bytes"] <= MOE_TRAIN_PEAK_LIMIT:
+                break
+    else:
+        run = _family_run(arch, B, S, layers, remat)
+        rec, none = _family_dryrun(arch, run)
+        while not rec["fits_one_card"] and run.shape.global_batch > 1:
+            B = run.shape.global_batch // 2
+            run = _family_run(arch, B, S, layers, remat)
+            rec, none = _family_dryrun(arch, run)
+    trace_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cfg = run.model
+    data_fn = family_data_fn(cfg, B, S)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        run.seed), dev)
+    step_fn, opt = make_train_step(run)
+    state = opt.init(params)
+    batch = _on_card(torch, dev, data_fn(0))
+    params, state, m = step_fn(params, state, batch, 0)          # warm-up
+    losses = [float(m["loss"])]
+    gc.collect()
+    args = _tree_bytes(params) + _tree_bytes(state) + _tree_bytes(batch)
+    mode = "attention_free" if cfg.attention_free else "flash"
+    (out, first_s, peak), launches = counted_run(
+        torch, f"family_train_step {arch}", mode,
+        lambda: _measured_peak(torch, args, lambda: step_fn(
+            params, state, batch, 1)), engine="train_step")
+    params, state, m = out
+    del out
+    secs = [first_s]
+    losses.append(float(m["loss"]))
+    for i in range(2, steps + 1):
+        batch = _on_card(torch, dev, data_fn(i))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t2)
+    steps_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    busy = kernels = None
+    if not cfg.attention_free:
+        batch = _on_card(torch, dev, data_fn(steps + 1))
+        out, busy, kernels = _busy_share(
+            torch, lambda: step_fn(params, state, batch, steps + 1))
+        params, state, m = out
+        del out
+        losses.append(float(m["loss"]))
+    profile_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    nums = {}
+    if cfg.family == "moe":
+        # the same step twice from one state: bit-equal parameters
+        batch = _on_card(torch, dev, data_fn(steps + 2))
+        first = _to_cpu(torch, step_fn(params, state, batch, steps + 2)[0])
+        gc.collect()
+        again = step_fn(params, state, batch, steps + 2)[0]
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(
+            tree_leaves(again), tree_leaves(first)))
+        del first, again
+        nums["moe_step_twice_bit_equal"] = same
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not cfg.attention_free:
+        nums.update(family_grads_both_ways(
+            torch, dev, run, params, _on_card(torch, dev, data_fn(0))))
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t1
+    # the dry run's terms against their formulas and the card's count
+    r, mem = rec["roofline"], rec["memory"]
+    ff = flash_flops(B, cfg.num_heads, S, S, cfg.head_dim, True)
+    k7 = rec["flops_by_op"].get("repro_torch.flash_attention_fwd", 0.0)
+    k7_card = launches.get("ss_flash_attention_fwd", 0) * ff
+    terms = dict(
+        mm_products=(none.flops_by_op.get("aten.mm", 0.0),
+                     _mm_flops_formula(cfg, B, S)),
+        kernel7_forward=(none.flops_by_op.get(
+            "repro_torch.flash_attention_fwd", 0.0), _attn_calls(cfg) * ff),
+        kernel7=(k7, _attn_calls(cfg, run.remat) * ff),
+        kernel7_card=(k7, k7_card))
+    flops_ok = all(abs(a - b) <= DRYRUN_FLOP_RTOL * max(b, 1.0)
+                   for a, b in terms.values())
+    peak_ok = _peak_ok(mem["peak_estimate_bytes"], peak)
+    step_s = sum(secs) / len(secs)
+    tokens = B * S
+    nums.update(
+        arch=arch, family=cfg.family, layers=cfg.num_layers,
+        depth_cut=None if layers is None else
+        f"{get_model_config(arch).num_layers} -> {layers}",
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        batch=B, seq=S, remat=run.remat, optimizer=run.optimizer.name,
+        losses="/".join(f"{x:.5f}" for x in losses),
+        sec_per_step=step_s, step_s="/".join(f"{x:.4f}" for x in secs),
+        tokens_per_s=tokens / step_s,
+        mfu=r["model_flops_per_chip"] / step_s / dryrun.PEAK_FLOPS,
+        model_flops=r["model_flops_per_chip"],
+        counted_flops=r["hlo_flops_per_chip"],
+        counted_tflops_per_s=r["hlo_flops_per_chip"] / step_s / 1e12,
+        busy_share=busy if busy is not None else
+        "not measured (the per-token loop's kernels)",
+        busy_kernels=kernels,
+        measured_peak_gb=peak / 1e9,
+        peak_estimate_gb=mem["peak_estimate_bytes"] / 1e9,
+        peak_estimate_over_measured=mem["peak_estimate_bytes"] / peak,
+        fits_one_card=rec["fits_one_card"],
+        kernel7_launches_a_step=launches.get("ss_flash_attention_fwd", 0),
+        dryrun_t_compute_s=r["t_compute_s"], dryrun_t_mem_s=r["t_mem_s"],
+        step_over_t_compute=step_s / r["t_compute_s"],
+        step_over_t_mem=step_s / r["t_mem_s"], dryrun_trace_s=trace_s,
+        steps_s=steps_s, profile_s=profile_s, checks_s=checks_s,
+        **{f"{k}_dryrun": a for k, (a, _) in terms.items()},
+        **{f"{k}_formula": b for k, (_, b) in terms.items()},
+        peak_band=DRYRUN_PEAK_BAND, flops_ok=flops_ok, peak_ok=peak_ok,
+        seconds=time.perf_counter() - t0)
+    phase("family_train", card=CARD, **nums)
+    ok = flops_ok and peak_ok and all(math.isfinite(x) for x in losses) \
+        and nums.get("moe_step_twice_bit_equal", True)
+    if not ok:
+        raise AssertionError(f"phase 16: {arch}'s train step: {nums}")
+    return nums
+
+
+def xlstm_trainer(torch, dev):
+    """16b: ``Trainer.train()`` of xlstm-125m at FAMILY_TRAIN's shape with
+    sealed batches, sealed checkpoints and a ``node_loss``
+    (XLSTM_TRAINER), beside an uninterrupted run of the same steps: the
+    recovered run's parameters equal it bit for bit (both under
+    ``torch.use_deterministic_algorithms``).  -> numbers"""
+    import shutil
+    from repro_torch.ft.failures import FailureInjector
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    arch = "xlstm-125m"
+    B, _, remat, _ = FAMILY_TRAIN[arch]
+    S, steps, every, fail_at = XLSTM_TRAINER
+    run = _family_run(arch, B, S, None, remat)
+    data_fn = family_data_fn(run.model, B, S)
+    shutil.rmtree(FAMILY_CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = Trainer(run, data_fn, TrainerConfig(
+            total_steps=steps, ckpt_every=10 ** 9, log_every=1,
+            ckpt_dir=str(FAMILY_CKPT_DIR / "unused")), device=dev)
+        plain.run_steps(0, steps)
+        want = [t.cpu() for t in tree_leaves(plain.params)]
+        want_losses = [h["loss"] for h in plain.history]
+        del plain
+        gc.collect()
+        t1 = time.perf_counter()
+        tr = Trainer(run, data_fn, TrainerConfig(
+            total_steps=steps, ckpt_every=every, log_every=1,
+            ckpt_dir=str(FAMILY_CKPT_DIR)),
+            injector=FailureInjector({fail_at: "node_loss"}), device=dev)
+        out, launches = counted_run(torch, "xlstm_trainer", "attention_free",
+                                    tr.train, engine="train")
+        train_s = time.perf_counter() - t1
+        got = tree_leaves(tr.params)
+        equal = len(got) == len(want) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        losses = [h["loss"] for h in out["history"]]
+        secs = [h["sec_per_step"] for h in out["history"]]
+        del tr, got, want
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(FAMILY_CKPT_DIR, ignore_errors=True)
+    nums = dict(arch=arch, batch=B, seq=S, steps=steps, ckpt_every=every,
+                fail_at=fail_at, restarts=out["restarts"],
+                replayed_steps=out["replayed_steps"],
+                final_step=out["final_step"], recovered_bit_equal=equal,
+                losses="/".join(f"{x:.5f}" for x in losses),
+                uninterrupted_losses="/".join(f"{x:.5f}" for x in
+                                              want_losses),
+                sec_per_step_median=sorted(secs)[len(secs) // 2],
+                train_s=train_s, seconds=time.perf_counter() - t0,
+                **{f"launches_{k}": v for k, v in launches.items() if v})
+    phase("xlstm_trainer", card=CARD, **nums)
+    if not (equal and out["restarts"] == 1 and out["final_step"] == steps
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"phase 16b: the recovered run: {nums}")
+    return nums
+
+
+def phase_family_training(torch, dev):
+    """Phase 16: zamba2-1.2b, xlstm-125m (and its Trainer), moonshot-v1-
+    16b-a3b cut in depth and musicgen-large trained on the card beside
+    their dry runs; then musicgen-large served at full width and depth.
+    -> (kernel 7 launches a train step by arch, numbers by arch, kernel 7
+    launches in musicgen's serving run)"""
+    t0 = time.perf_counter()
+    numbers, launches, secs = {}, {}, {}
+    for arch in FAMILY_TRAIN:
+        t1 = time.perf_counter()
+        numbers[arch] = family_train(torch, dev, arch)
+        launches[arch] = numbers[arch]["kernel7_launches_a_step"]
+        if arch == "xlstm-125m":
+            numbers["xlstm-125m trainer"] = xlstm_trainer(torch, dev)
+        secs[arch] = round(time.perf_counter() - t1, 3)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    serve_launches, numbers["musicgen-large serve"] = phase_full_serve(
+        torch, dev, "musicgen-large", MUSICGEN_SERVE, "musicgen_serve")
+    secs["musicgen serve"] = round(time.perf_counter() - t1, 3)
+    phase("family_training", card=CARD,
+          seconds=round(time.perf_counter() - t0, 3),
+          **{f"{k}_s": v for k, v in secs.items()})
+    return launches, numbers, serve_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -5301,6 +5830,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     qwen_launches, dryrun_numbers = phase_dryrun(torch, dev, train_numbers) \
         if 15 in phases else (None, {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_train_launches, fam_train, musicgen_launches = \
+        phase_family_training(torch, dev) if 16 in phases else ({}, {}, None)
     for k in kernels:
         sym = k.pop("symbol")
         run = LAUNCHES_FROM[k["name"]]
@@ -5327,6 +5860,14 @@ def main() -> int:
             k["qwen"] = {f: q[f] for f in (
                 "ttft_ms", "prefill_tokens_per_s", "decode_ms_per_step",
                 "peak_memory_gb", "prefill_busy_share")}
+        if k["name"] == "flash_attention_fwd" and fam_train:
+            k["launches_family_training_a_step"] = fam_train_launches
+            k["launches_musicgen_serve"] = musicgen_launches
+            k["family_training"] = {a: {f: n[f] for f in (
+                "batch", "seq", "layers", "sec_per_step", "tokens_per_s",
+                "mfu", "busy_share", "measured_peak_gb",
+                "peak_estimate_over_measured")}
+                for a, n in fam_train.items() if "mfu" in n}
     phase("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,18 +61,20 @@
 //     copy); the maps are encoded on the host for each call
 //     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 //     the library links no -lcuda).
-// Head dims.  The kernel takes any head dim 1 <= D <= 128 (the real D is a
-// runtime value); it is one template over the padded width Dp that a tile
-// is computed at, whole 128-byte swizzle rows of 64 columns each: Dp = 64
-// for D <= 64, Dp = 128 (two 64-column blocks, one TMA box each) above.
-// The tensor maps are D wide, so TMA zero-fills columns D..Dp-1 of Q, K and
-// V: they add nothing to Q K^T, give zero columns of O, and only the D real
-// columns are stored.  TMA needs every global stride to be a multiple of 16
-// bytes, so in the (B, S, H, D) and (B, H, S, D) layouts D is a multiple of
-// 8 in bf16 (4 in f32); the wrapper refuses other strides.  At Dp = 128 a K or V tile is 32 KB, so the ring holds
-// 2 stages (Q 32 KB + 4 x 32 KB), and the consumers' O accumulator doubles
-// to 64 registers (m64n128 P V): the register split is 24 / 240.  D = 64 is
-// the design above, tile for tile.
+// Head dims.  The TMA kernel takes any head dim 1 <= D <= 128 (the real D
+// is a runtime value; 128 < D <= 256 runs the wide kernel further down); it
+// is one template over the padded width Dp that a tile is computed at,
+// whole 128-byte swizzle rows of 64 columns each: Dp = 64 for D <= 64, Dp =
+// 128 (two 64-column blocks, one TMA box each) above.  The tensor maps are
+// D wide, so TMA zero-fills columns D..Dp-1 of Q, K and V: they add nothing
+// to Q K^T, give zero columns of O, and only the D real columns are stored.
+// TMA needs every global stride to be a multiple of 16 bytes, so in the
+// (B, S, H, D) and (B, H, S, D) layouts D is a multiple of 8 in bf16 (4 in
+// f32); for another D the wrapper passes zero-padded copies at the next such
+// width with the real D's scale.  At Dp = 128 a K or V tile is 32 KB, so
+// the ring holds 2 stages (Q 32 KB + 4 x 32 KB), and the consumers' O
+// accumulator doubles to 64 registers (m64n128 P V): the register split is
+// 24 / 240.  D = 64 is the design above, tile for tile.
 // The f32 kernel (one thread per query row, scalar FMAs) is the algorithm's
 // check at full precision; no path serves f32.  It is a template over a
 // padded width too, Dp = 16, 32, 64 or 128, with columns past D read as
@@ -97,7 +99,7 @@ struct Params {
   float* lse;                       // (B, H, Sq) f32, or null: not written
   int Sq, Skv, causal;
   int D;                            // the real head dim, <= the padded Dp
-  float scale;                      // 1 / sqrt(D)
+  float scale;                      // 1 / sqrt(the unpadded head dim)
   // element strides of batch, sequence and head for q, k, v, o
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
 };
@@ -719,6 +721,160 @@ flash_fwd_f32_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------------------- wide path
+
+// Head dims 128 < D <= 256, bf16 or f32: no config attends there, but the
+// TPU kernel takes any D, so this kernel is written to be right and simple
+// (the wgmma template above would need m64n256 P V accumulators, 128
+// registers a thread beside S and P, and spill).  One block of 256 threads
+// owns a (b, h, 32-row query tile) and walks 32-key tiles up to the
+// diagonal with an online softmax, everything f32 in shared memory:
+//   * Q (32 x 256), K (32 x 256) and V (32 x 256), converted to f32 as they
+//     are loaded (columns past D and rows past the end as zeros); Q and K
+//     rows have an odd pitch, so the 8 keys and 4 query rows a warp reads at
+//     one column fall in distinct banks;
+//   * S = Q K^T: thread t computes row t / 8 against keys t % 8 + 8 i (i < 4)
+//     over the D real columns;
+//   * the softmax: a warp per 4 rows, a lane per key (32 keys a tile), the
+//     row max and sum by shuffles; p stays f32 (the plain version's), the
+//     running max starts at -1e30 and the normaliser is clamped at 1e-30;
+//   * O += P V: thread t owns row t / 8 at columns t % 8 + 8 i (i < 32).
+// Bound: the same FLOPs as the bf16 kernel at D, but on the FP32 lanes
+// through shared memory (about one shared load an FMA): it is slow by
+// design; PERF.md gives its time beside SDPA's.
+constexpr int kWideDp = 256;
+constexpr int kWideBM = 32;
+constexpr int kWideBN = 32;
+constexpr int kWideThreads = 256;
+constexpr int kWidePitch = kWideDp + 1;   // Q and K rows: odd, no conflicts
+constexpr int kWideSmemBytes =
+    4 * (2 * kWideBM * kWidePitch + kWideBN * kWideDp +
+         kWideBM * (kWideBN + 1) + 3 * kWideBM);
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+flash_fwd_wide_kernel(Params p) {
+  extern __shared__ float wide_smem[];
+  float* sQ = wide_smem;                          // [kWideBM][kWidePitch]
+  float* sK = sQ + kWideBM * kWidePitch;          // [kWideBN][kWidePitch]
+  float* sV = sK + kWideBN * kWidePitch;          // [kWideBN][kWideDp]
+  float* sP = sV + kWideBN * kWideDp;             // [kWideBM][kWideBN + 1]
+  float* sM = sP + kWideBM * (kWideBN + 1);       // running max a row
+  float* sL = sM + kWideBM;                       // running sum a row
+  float* sC = sL + kWideBM;                       // this tile's rescale
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWideBM;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const T* qp = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
+  const T* kp = static_cast<const T*>(p.k) + b * p.kb + h * p.kh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.vb + h * p.vh;
+  int hi = (p.Skv + kWideBN - 1) / kWideBN;
+  if (p.causal) hi = min(hi, (q0 + kWideBM + kWideBN - 1) / kWideBN);
+
+  for (int i = tid; i < kWideBM * kWideDp; i += kWideThreads) {
+    const int r = i / kWideDp, d = i % kWideDp;
+    sQ[r * kWidePitch + d] =
+        q0 + r < p.Sq && d < p.D ? load_f32(qp + (q0 + r) * p.qs + d) : 0.f;
+  }
+  if (tid < kWideBM) {
+    sM[tid] = kNegInf;
+    sL[tid] = 0.f;
+  }
+  const int r = tid / 8, c0 = tid % 8;            // S and O: row, column
+  float acc[kWideDp / 8];
+#pragma unroll
+  for (int i = 0; i < kWideDp / 8; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < hi; ++j) {
+    const int k0 = j * kWideBN;
+    __syncthreads();                              // the last tile is used
+    for (int i = tid; i < kWideBN * kWideDp; i += kWideThreads) {
+      const int kr = i / kWideDp, d = i % kWideDp;
+      const bool ok = k0 + kr < p.Skv && d < p.D;
+      sK[kr * kWidePitch + d] =
+          ok ? load_f32(kp + (long long)(k0 + kr) * p.ks + d) : 0.f;
+      sV[kr * kWideDp + d] =
+          ok ? load_f32(vp + (long long)(k0 + kr) * p.vs + d) : 0.f;
+    }
+    __syncthreads();
+    {                                             // S = Q K^T, scaled
+      float s[kWideBN / 8] = {0.f, 0.f, 0.f, 0.f};
+      const float* qr = sQ + r * kWidePitch;
+#pragma unroll 8
+      for (int d = 0; d < p.D; ++d) {
+        const float qd = qr[d];
+#pragma unroll
+        for (int i = 0; i < kWideBN / 8; ++i)
+          s[i] = fmaf(qd, sK[(c0 + 8 * i) * kWidePitch + d], s[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kWideBN / 8; ++i)
+        sP[r * (kWideBN + 1) + c0 + 8 * i] = s[i] * p.scale;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kWideBM / 8; ++rr) {    // the softmax, a warp
+      const int row = warp * (kWideBM / 8) + rr;  // per 4 rows
+      const int key = k0 + lane;
+      float s = sP[row * (kWideBN + 1) + lane];
+      if (key >= p.Skv || (p.causal && key > q0 + row)) s = -INFINITY;
+      float mx = s;
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = sM[row];
+      const float m_new = fmaxf(m_old, mx);
+      const float pj = expf(s - m_new);
+      float sum = pj;
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      sP[row * (kWideBN + 1) + lane] = pj;
+      __syncwarp();
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        sC[row] = corr;
+        sL[row] = sL[row] * corr + sum;
+        sM[row] = m_new;
+      }
+    }
+    __syncthreads();
+    const float corr = sC[r];                     // O += P V
+#pragma unroll
+    for (int i = 0; i < kWideDp / 8; ++i) acc[i] *= corr;
+    const int n = min(kWideBN, p.Skv - k0);
+    for (int jj = 0; jj < n; ++jj) {
+      const float pj = sP[r * (kWideBN + 1) + jj];
+      const float* vr = sV + jj * kWideDp + c0;
+#pragma unroll
+      for (int i = 0; i < kWideDp / 8; ++i) acc[i] = fmaf(pj, vr[8 * i], acc[i]);
+    }
+  }
+  __syncthreads();
+  const int row = q0 + r;
+  if (row < p.Sq) {
+    const float den = fmaxf(sL[r], 1e-30f);
+    T* orow = static_cast<T*>(p.o) + b * p.ob + h * p.oh +
+              (long long)row * p.os;
+#pragma unroll
+    for (int i = 0; i < kWideDp / 8; ++i)
+      if (c0 + 8 * i < p.D) store_from_f32(orow + c0 + 8 * i, acc[i] / den);
+    if (p.lse != nullptr && c0 == 0)
+      p.lse[((long long)b * gridDim.y + h) * p.Sq + row] =
+          sM[r] + logf(den);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -813,12 +969,28 @@ int launch_f32(const Params& p, int B, int H, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-constexpr int kMaxHeadDim = 128;
+template <typename T>
+int launch_wide(const Params& p, int B, int H, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWideSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((p.Sq + kWideBM - 1) / kWideBM), (unsigned)H,
+                  (unsigned)B);
+  flash_fwd_wide_kernel<T><<<grid, kWideThreads, kWideSmemBytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kTmaHeadDim = 128;    // the wgmma kernel's widest tile
+constexpr int kMaxHeadDim = kWideDp;
 
 }  // namespace
 
 // dtype: 0 bf16, 1 f32.  strides: 12 element strides, (batch, sequence,
-// head) of q, k, v and out in that order; the D stride is 1.  lse: a
+// head) of q, k, v and out in that order; the D stride is 1.  D <= 128 runs
+// the TMA kernels (16-byte strides), 128 < D <= 256 the wide kernel (any
+// strides).  scale: the softmax scale, 1 / sqrt of the real head dim (a
+// caller that zero-pads D to reach TMA's strides passes the unpadded one).  lse: a
 // contiguous (B, H, Sq) f32 array for each row's log-sum-exp, or null.
 extern "C" int ss_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
@@ -836,6 +1008,9 @@ extern "C" int ss_flash_attention_fwd(const void* q, const void* k,
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11]};
   const cudaStream_t st = (cudaStream_t)stream;
+  if (D > kTmaHeadDim)
+    return dtype == 0 ? launch_wide<__nv_bfloat16>(p, B, H, st)
+                      : launch_wide<float>(p, B, H, st);
   if (dtype == 0)
     return D <= 64 ? launch_bf16<64>(p, B, H, st)
                    : launch_bf16<128>(p, B, H, st);
@@ -849,5 +1024,6 @@ extern "C" int ss_flash_attention_fwd(const void* q, const void* k,
 // by chip_smoke.py); -1 for a head dim the kernel does not take
 extern "C" int ss_flash_attention_smem_bytes(int D) {
   if (D < 1 || D > kMaxHeadDim) return -1;
+  if (D > kTmaHeadDim) return kWideSmemBytes;
   return D <= 64 ? Dims<64>::kSmemBytes : Dims<128>::kSmemBytes;
 }

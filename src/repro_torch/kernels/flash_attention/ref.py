@@ -19,10 +19,13 @@ NEG_INF = -1e30
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, return_lse: bool = False):
+                  causal: bool = True, return_lse: bool = False,
+                  scale=None):
     """q: (B, H, Sq, D); k, v: (B, H, Skv, D) -> (B, H, Sq, D) in q's type,
     and with ``return_lse`` the (B, H, Sq) f32 log-sum-exp of each row's
-    scaled (and masked) scores, natural log.
+    scaled (and masked) scores, natural log.  ``scale``: the scores'
+    factor, 1 / sqrt(D) unless given (a zero-padded copy passes its real
+    D's).
 
     Scores, softmax and the product with V are f32.  The (H, Sq, Skv)
     scores are materialised one batch element at a time: at the serving
@@ -36,7 +39,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keep = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device).tril()
     for b in range(B):
         s = torch.matmul(q[b].float(), k[b].float().transpose(-1, -2))
-        s /= math.sqrt(D)
+        if scale is None:
+            s /= math.sqrt(D)
+        else:
+            s *= scale
         if causal:
             s.masked_fill_(~keep, NEG_INF)
         if return_lse:

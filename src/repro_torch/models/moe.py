@@ -92,11 +92,16 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
     aux = X * torch.sum(me * ce)
 
     # ---- dispatch
-    order, keep, dest = dispatch(topi, X, C)
-    s_tok = torch.div(order, k, rounding_mode="floor")       # a_tok[order]
+    order, _, dest = dispatch(topi, X, C)
+    # each token's row once per assignment, in the sorted order: a view
+    # repeated k times, then a permutation (``xf[order // k]``, whose
+    # backward would add a token's k gradients by atomics on the card, in
+    # any order: here they are one sum over the repeat axis, and the
+    # permutation's backward adds each element once)
+    s_x = xf[:, None].expand(T, k, E).reshape(T * k, E)[order]
     s_w = topw.reshape(-1)[order]
     xbuf = torch.zeros((X * C + 1, E), dtype=x.dtype, device=x.device)
-    xbuf = xbuf.index_add(0, dest, xf[s_tok])
+    xbuf = xbuf.index_add(0, dest, s_x)
     xe = xbuf[:-1].reshape(X, C, E)
 
     # ---- expert SwiGLU (batched over experts)
@@ -110,10 +115,12 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
     # reference's segment_sum adds a token's k terms in the sorted
     # assignments' order (by expert id); the sum here keeps that order
     # and adds them one by one, so it is the same on every run (an
-    # index_add would add them by atomics on the card, in any order)
-    contrib = oe[torch.clamp_max(dest, X * C - 1)]
-    contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
-    contrib = contrib.float() * s_w[:, None]
+    # index_add would add them by atomics on the card, in any order).  A
+    # dropped assignment reads the zero row X*C: the gather's backward adds
+    # into a kept row once (dest is unique there), so it is the same on
+    # every run too
+    oe = F.pad(oe, (0, 0, 0, 1))
+    contrib = oe[dest].float() * s_w[:, None]
     by_token = torch.empty_like(contrib).index_copy_(0, order, contrib)
     by_token = by_token.view(T, k, E).gather(
         1, torch.argsort(topi, dim=-1)[..., None].expand(T, k, E))

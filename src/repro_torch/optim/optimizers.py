@@ -77,12 +77,44 @@ def _global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(leaves).sum())
 
 
-def _clip_by_global_norm(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float):
+    """-> (the factor that clips ``grads`` to ``max_norm``, their global
+    norm)."""
     norm = _global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+def _clip_by_global_norm(grads, max_norm: float):
+    scale, norm = _clip_scale(grads, max_norm)
     # the grads keep their type: an f32 copy of the whole tree would
     # double gradient memory; updates upcast per leaf instead
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+#: the elements of one slab of :func:`_slabbed`: 2^24, 64 MB in f32
+SLAB_ELEMENTS = 1 << 24
+
+
+def _slabbed(fn, *leaves):
+    """``fn`` (elementwise: each output element depends on the same
+    element of its inputs alone) over the leaves, a slab of whole rows of
+    their first axis at a time (at most :data:`SLAB_ELEMENTS`, one row at
+    least), into outputs allocated once: the same values as ``fn(*leaves)``
+    with f32 temporaries of one slab, not of the leaf (a stacked leaf of
+    musicgen-large's MLP is 805 M elements, 3.2 GB in f32)."""
+    first = leaves[0]
+    if first.dim() == 0 or first.numel() <= SLAB_ELEMENTS:
+        return fn(*leaves)
+    rows = max(1, SLAB_ELEMENTS // (first.numel() // first.shape[0]))
+    outs = None
+    for i in range(0, first.shape[0], rows):
+        got = fn(*(t[i:i + rows] for t in leaves))
+        if outs is None:
+            outs = tuple(torch.empty(first.shape, dtype=o.dtype,
+                                     device=o.device) for o in got)
+        for o, g in zip(outs, got):
+            o[i:i + rows] = g
+    return outs
 
 
 def _lr(ocfg: OptimizerConfig, step: int) -> torch.Tensor:
@@ -102,21 +134,29 @@ def _adamw(ocfg: OptimizerConfig) -> Optimizer:
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     def update(grads, state, params, step):
-        grads, _ = _clip_by_global_norm(grads, ocfg.grad_clip)
+        # clipped leaf by leaf inside the update (the same bf16 product as
+        # _clip_by_global_norm's), a slab at a time: no clipped copy of
+        # the gradients and no leaf-sized f32 temporaries beside the new
+        # parameters and moments (musicgen-large's full step fits one
+        # card so)
+        scale, _ = _clip_scale(grads, ocfg.grad_clip)
         lr = _lr(ocfg, step)
         b1, b2 = ocfg.beta1, ocfg.beta2
         t = _scalar(step) + 1.0
         corr1 = 1.0 - _scalar(b1) ** t
         corr2 = 1.0 - _scalar(b2) ** t
 
-        def upd(g, m, v, p):
-            g = g.float()
+        def upd_slab(g, m, v, p):
+            g = (g * scale.to(g.dtype)).float()
             m2 = b1 * m + (1 - b1) * g
             v2 = b2 * v + (1 - b2) * g.square()
             step_ = (m2 / corr1) / (torch.sqrt(v2 / corr2) + ocfg.eps)
             step_ = step_ + ocfg.weight_decay * p.float()
             newp = (p.float() - lr * step_).to(p.dtype)
             return newp, m2, v2
+
+        def upd(g, m, v, p):
+            return _slabbed(upd_slab, g, m, v, p)
 
         newp, m, v = _unzip(tree_map(upd, grads, state["m"], state["v"],
                                      params), 3)

@@ -39,15 +39,17 @@ def make_decode_step(run: RunConfig):
 
 
 def greedy_generate(run: RunConfig, params, prompt: torch.Tensor, *,
-                    steps: int, max_seq: int) -> torch.Tensor:
+                    steps: int, max_seq: int, extra=None) -> torch.Tensor:
     """Prefill + ``steps - 1`` decode steps: -> (B, steps) int32 tokens,
-    the first from the prefill's logits."""
+    the first from the prefill's logits.  ``extra``: more inputs of the
+    prefill's batch (an audio model's ``frames``, a vision model's
+    ``patches``); decode steps take tokens only, as the reference's."""
     B, S = prompt.shape
     if S + steps - 1 > max_seq:
         raise ValueError(f"{steps} tokens after a {S}-token prompt need "
                          f"max_seq >= {S + steps - 1}, got {max_seq}")
     logits, cache = make_prefill_step(run, max_seq=max_seq)(
-        params, {"tokens": prompt})
+        params, {"tokens": prompt, **(extra or {})})
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     out = [tok]
     decode = make_decode_step(run)

@@ -30,6 +30,7 @@ The reference's ``MeshContext`` is built on Auto axes (its
 ``local_mesh_context()`` makes Explicit axes under this jax, which its
 MoE and Mamba2 layers refuse: ROADMAP Queue 3).
 """
+import dataclasses
 import functools
 
 import jax
@@ -93,12 +94,15 @@ def _close_trees(got, want, dtype, what):
         _close(got[k], want[k], dtype, f"{what}{k}")
 
 
-def models(arch, dtype, seed=0):
+def models(arch, dtype, seed=0, **overrides):
     """(reference cfg, reference params, port cfg, port params) of the
-    smoke form of ``arch``; Mamba2's zero-initialised ``A_log`` and
-    ``dt_bias`` get values, so the decay and step differ per head."""
-    jcfg = j_reduce_for_smoke(j_get_model_config(arch))
-    cfg = reduce_for_smoke(get_model_config(arch))
+    smoke form of ``arch`` (with ``overrides`` of its fields, in both
+    packages); Mamba2's zero-initialised ``A_log`` and ``dt_bias`` get
+    values, so the decay and step differ per head."""
+    jcfg = dataclasses.replace(j_reduce_for_smoke(j_get_model_config(arch)),
+                               **overrides)
+    cfg = dataclasses.replace(reduce_for_smoke(get_model_config(arch)),
+                              **overrides)
     jp = j_api.init_params(jcfg, jax.random.key(seed))
     rng = np.random.default_rng(seed + 1)
     if jcfg.family == "hybrid":

@@ -147,12 +147,13 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_head_dims_cover_every_config():
-    """Kernel 7 takes every head dim 1 <= D <= 128, which holds every head
-    dim that a config or its ``reduce_for_smoke`` form gives attention
-    (xlstm-125m's 192 is attention-free) and the tests' D = 32; D = 0 and
-    D > 128 raise on the card's path, naming the limit."""
+    """Kernel 7 takes every head dim 1 <= D <= 256 (its TMA kernel up to
+    128, its wide kernel above), which holds every head dim that a config
+    or its ``reduce_for_smoke`` form gives attention (xlstm-125m's 192 is
+    attention-free) and the tests' D = 32; D = 0 and D > 256 raise on the
+    card's path, naming the limit."""
     from repro_torch import configs
-    assert ops.MAX_HEAD_DIM == 128
+    assert (ops.TMA_HEAD_DIM, ops.MAX_HEAD_DIM) == (128, 256)
     need = {32}
     for arch in configs.ARCH_IDS:
         cfg = configs.get_model_config(arch)
@@ -160,10 +161,10 @@ def test_kernel_head_dims_cover_every_config():
             need |= {cfg.head_dim,
                      configs.reduce_for_smoke(cfg).head_dim}
     assert need == {16, 32, 64, 112, 128}
-    for D in sorted(need) + [1, 8, 96, 120]:
+    for D in sorted(need) + [1, 8, 20, 96, 100, 120, 129, 160, 192, 256]:
         ops._check_head_dim(D)
-    for D in (0, 129, 160, 192):
-        with pytest.raises(ValueError, match=r"1 <= D <= 128"):
+    for D in (0, 257, 320):
+        with pytest.raises(ValueError, match=r"1 <= D <= 256"):
             ops._check_head_dim(D)
 
 
@@ -185,3 +186,30 @@ def test_flash_flops_count_the_causal_pairs():
     assert out2.shape == (2, 3, 7, 96)
     assert fc.get_total_flops() == ops.flops(2, 3, 7, 7, 96, True) + \
         ops.flops(2, 3, 7, 7, 96, False)
+
+
+@pytest.mark.parametrize("dtype,D,width", [(torch.bfloat16, 20, 24),
+                                           (torch.bfloat16, 100, 104),
+                                           (torch.float32, 18, 20)])
+def test_padded_head_dim_equals_the_plain_version(dtype, D, width):
+    """Where TMA cannot read the tensors (rows that are not 16-byte
+    multiples), the card's wrapper hands its kernel zero-padded copies at
+    the next width of 16 bytes and the real D's scale, and slices the
+    output: the same path run with the plain version gives the plain
+    version's output and lse at D (f32 sums in another order: within
+    1e-6; the bf16 output rounds once either way, so within one ulp)."""
+    g = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn((2, 3, 70, D), generator=g).to(dtype)
+               for _ in range(3))
+    assert ops.padded_width(q, k, v) == width
+    assert ops.padded_width(*(t.new_zeros((1, 1, 8, width))
+                              for t in (q, k, v))) is None
+    for causal in (True, False):
+        got, lse = ops._padded(ops._plain, q, k, v, causal, 2, 1, True,
+                               width)
+        want, want_lse = ops._plain(q, k, v, causal, 2, 1, True)
+        assert got.shape == q.shape and got.is_contiguous()
+        assert (lse - want_lse).abs().max().item() <= 1e-6
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+        assert ((got.float() - want.float()).abs()
+                - tol * want.float().abs().clamp_min(1)).max().item() <= 0

@@ -512,17 +512,24 @@ def test_flash_kernel_reads_the_model_layout_through_strides(cuda):
 
 
 def test_flash_wrapper_refuses_on_the_card(cuda):
+    """A dtype or device the kernel does not take raises and launches
+    nothing; rows TMA cannot read (72 bytes) and a D stride other than 1
+    are no longer refused: the kernel runs on zero-padded copies, once."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16)
     before = flash_ops.KERNEL.launches
     for bad in ((q.half(), k.half(), v.half()),              # dtype
-                (q, k.cpu(), v),                            # device mix
-                (q[..., :36], k[..., :36], v[..., :36]),    # 72-byte rows
-                (q.transpose(2, 3), k.transpose(2, 3),      # D stride
-                 v.transpose(2, 3))):
+                (q, k.cpu(), v)):                           # device mix
         with pytest.raises(ValueError):
             flash_ops.flash_attention_bhsd(*bad)
     assert flash_ops.KERNEL.launches == before
+    for odd in ((q[..., :36], k[..., :36], v[..., :36]),    # 72-byte rows
+                tuple(t.transpose(2, 3).contiguous().transpose(2, 3)
+                      for t in (q, k, v))):                 # D stride
+        got = flash_ops.flash_attention_bhsd(*odd)
+        _assert_flash_close(got, attention_ref(*odd), *odd, True)
+    assert flash_ops.KERNEL.launches == before + 2
 
 
 def test_failed_build_raises_for_the_flash_kernel(cuda, monkeypatch):
@@ -681,21 +688,49 @@ def test_flash_kernel_at_each_head_dim_equals_plain(cuda, D, dtype):
 
 
 def test_flash_kernel_refuses_head_dim_160(cuda):
-    """A head dim above 128 raises ValueError naming the limit, launches
-    nothing and is not handed to the plain version; so does a head dim
-    whose rows are not 16-byte multiples (D = 36 in bf16: TMA's stride
-    rule)."""
+    """D = 160 is no longer refused: the wide kernel (128 < D <= 256) runs
+    it, once, against the plain version; a head dim above 256 raises
+    ValueError naming the limit, launches nothing and is not handed to the
+    plain version."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16, D=160)
     before = flash_ops.KERNEL.launches
-    with pytest.raises(ValueError, match=r"1 <= D <= 128"):
+    _assert_flash_close(flash_ops.flash_attention_bhsd(q, k, v),
+                        attention_ref(q, k, v), q, k, v, True)
+    assert flash_ops.KERNEL.launches == before + 1
+    q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16, D=264)
+    with pytest.raises(ValueError, match=r"1 <= D <= 256"):
         flash_ops.flash_attention_bhsd(q, k, v)
-    with pytest.raises(ValueError, match="head dim 160"):
+    with pytest.raises(ValueError, match="head dim 264"):
         flash_ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))
-    q, k, v = _qkv(cuda, 1, 2, 64, 64, torch.bfloat16, D=36)
-    with pytest.raises(ValueError, match="multiples of 16 bytes"):
-        flash_ops.flash_attention_bhsd(q, k, v)
-    assert flash_ops.KERNEL.launches == before
+    assert flash_ops.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [20, 100, 192, 256])
+def test_flash_kernel_at_padded_and_wide_head_dims_equals_plain(cuda, D,
+                                                                dtype):
+    """D = 20 and 100 (bf16 rows of 40 and 200 bytes: the wrapper pads the
+    copies it hands TMA to 24 and 104 columns at the real D's scale) and
+    D = 192 and 256 (the wide kernel), causal and not, ragged Sq < Skv,
+    with the lse (within LSE_TOL), one launch a call; and at 4 x 16 x
+    2,048 (the phase 14a shape), causal."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    for B, H, Sq, Skv, causal in ((2, 4, 333, 333, True),
+                                  (1, 3, 130, 700, False),
+                                  (4, 16, 2048, 2048, True)):
+        q, k, v = _qkv(cuda, B, H, Sq, Skv, dtype, seed=D + Sq, D=D)
+        want, want_lse = attention_ref(q, k, v, causal=causal,
+                                       return_lse=True)
+        before = flash_ops.KERNEL.launches
+        got, lse = flash_ops.flash_attention_bhsd(q, k, v, causal=causal,
+                                                  return_lse=True)
+        assert flash_ops.KERNEL.launches == before + 1
+        assert got.shape == q.shape and got.dtype == dtype
+        _assert_flash_close(got, want, q, k, v, causal)
+        assert (lse - want_lse).abs().max().item() <= LSE_TOL
 
 
 FAMILY_ARCHS = ["moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "zamba2-1.2b",
@@ -768,6 +803,58 @@ def test_moe_ffn_on_the_card_is_deterministic(cuda):
         a, aux_a = moe.moe_ffn(p, x, c)
         b, aux_b = moe.moe_ffn(p, x, c)
         assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def _family_step_on_the_card(cuda, arch, impl, params, batch):
+    from repro_torch.configs import get_model_config, reduce_for_smoke
+    from repro_torch.configs.base import (OptimizerConfig, RunConfig,
+                                          ShapeConfig)
+    from repro_torch.train.steps import make_train_step
+    cfg = reduce_for_smoke(get_model_config(arch))
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 256, 2, "train"),
+                    optimizer=OptimizerConfig(lr=5e-3, warmup_steps=2))
+    step, opt = make_train_step(run, attn_impl=impl)
+    build.reset_launch_counts()
+    out = step(params, opt.init(params), batch, 3)
+    return out, build.launch_counts()["ss_flash_attention_fwd"]
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "zamba2-1.2b"])
+def test_family_train_step_on_the_card_equals_plain_attention(cuda, arch):
+    """A moe and a hybrid smoke model's train step on the card, f32: the
+    step with kernel 7 (twice an attention call under remat "full", the
+    hybrid's shared block once a call) against the same step with the plain
+    "chunked" attention: the loss within 1e-5 relative and every
+    parameter within 1e-5 + 1e-4 |p|, all but 2 % (Adam's sign of a
+    gradient near zero; the MoE: a token routed otherwise); and the MoE's
+    step, run twice from one state, bit-equal."""
+    from repro_torch.configs import get_model_config, reduce_for_smoke
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    cfg = reduce_for_smoke(get_model_config(arch))
+    params = tree_map(lambda t: t.float(), api.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(7), cuda))
+    g = torch.Generator(device=cuda).manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=g,
+                         device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    (pf, _, mf), nf = _family_step_on_the_card(cuda, arch, "flash", params,
+                                               batch)
+    (pc, _, mc), nc = _family_step_on_the_card(cuda, arch, "chunked",
+                                               params, batch)
+    calls = api.num_shared_attn(cfg) if cfg.family == "hybrid" \
+        else 2 * cfg.num_layers
+    assert (nf, nc) == (calls, 0)
+    assert abs(float(mf["loss"]) - float(mc["loss"])) <= \
+        1e-5 * abs(float(mc["loss"]))
+    for a, b in zip(tree_leaves(pf), tree_leaves(pc)):
+        off = ((a - b).abs() > 1e-5 + 1e-4 * b.abs()).float().mean()
+        assert off.item() <= 0.02
+    if cfg.family == "moe":
+        (again, _, _), _ = _family_step_on_the_card(cuda, arch, "flash",
+                                                    params, batch)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(again),
+                                                     tree_leaves(pf)))
 
 
 # ------------------------------------------------------- the secure wire
