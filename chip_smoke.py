@@ -5307,9 +5307,9 @@ FAMILY_TRAIN = {
 MOE_TRAIN_LAYERS = (4, 2)
 MOE_TRAIN_PEAK_LIMIT = 60e9
 #: 16b: xlstm-125m's Trainer run: its sequence (cut from the timed steps'
-#: 256: the 13 steps of the two runs at 256 took 131 s of the first
-#: phase 16's 303 s on the H100), steps, checkpoint cadence and the step of
-#: the injected failure (after the first checkpoint)
+#: 256 for the script's time limit: the two runs take 13 steps, ~6.5 s
+#: each at 256 on the H100), steps, checkpoint cadence and the step of the
+#: injected failure (after the first checkpoint)
 XLSTM_TRAINER = (64, 6, 2, 3)
 FAMILY_CKPT_DIR = Path(__file__).resolve().parent / "build" / "phase16_ckpt"
 #: 16, kernel 7 against the plain attention in training, at 1 x S from the
