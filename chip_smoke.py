@@ -60,7 +60,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    (``source_h2d_s``) and outside records/s.  The result must equal a
    numpy computation over the same records; then a short run of the
    same job (256 chunks) under torch.profiler gives the device's busy
-   share and the kernels that take its time; then the job over 8 M
+   share and the kernels that take its time; then the job over 2 M
    records with the enclave hop and the reducer's fold each in its new
    or old form, in turns (``[attribution]``: what each change is worth);
 4. the three modes (plain, encrypted, enclave) at 1 M records, each
@@ -128,7 +128,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    ``ft.*`` counters, seconds and records/s.  (b) the 8-stage job
    (phase 6's, 256 chunks) under ``ChaosPlan.seeded`` for 4 seeds,
    encrypted and enclave: bit-equal to the fault-free sum and numpy.
-   (c) what observation and ft cost: DelayedFlights at 8 M records bare,
+   (c) what observation and ft cost: DelayedFlights at 2 M records bare,
    with a ``Tracer``, with a ``PipelineMonitor`` behind a
    ``MetricsServer`` (scraped once over HTTP mid-run, the body validated
    by ``scripts/check_prometheus.py`` with per-stage series), and with a
@@ -176,7 +176,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    bound, the plain attention's backward and SDPA's.  (b) one train step
    with kernel 7 ("flash") and one with the plain "chunked" attention
    from the same weights and batch: loss and global gradient norm within
-   stated bf16 tolerances.  (c) ``Trainer.train()`` with sealed batches
+   stated bf16 tolerances.  (c) ``Trainer.train()`` at full width cut
+   to TRAIN_TRAINER_LAYERS layers (its sealed checkpoints are 10 bytes a
+   parameter) with sealed batches
    (``examples/secure_lm_train.py``'s learnable recipe), a sealed
    checkpoint every 3 steps into ``build/phase13_ckpt`` (removed after)
    and a ``node_loss`` at step 4: restarts 1, one step replayed, and the
@@ -212,8 +214,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    teacher-forced decode steps after prefill(S), each against the
    forward pass over S + 256 tokens at its position, in f32, every one
    gated.  (d) xlstm-125m (6 mLSTM / sLSTM pairs, no
-   kernel 7): 8 prompts of 2,048, 64 decode steps, the continuation
-   after 4 prompt tokens for 4 steps (its random sLSTM is chaotic),
+   kernel 7): 8 prompts of 512, 64 decode steps, the same f32
+   continuation (256 steps after prefill(256)) on a copy whose sLSTM
+   contracts (SLSTM_R_SCALE: its random sLSTM is chaotic),
    the port's ``chunked_gla`` on the card against its sequential oracle
    at an mLSTM layer's shape, and the sLSTM loop's share of a prefill.
 15. the dry run (``repro_torch.launch.dryrun``, a step counted on meta
@@ -1761,8 +1764,9 @@ def phase_delayed_flights(torch, dev, n_records):
     return launches, out
 
 
-#: phase 3's attribution: DelayedFlights records of each run
-ATTRIBUTION_RECORDS = 8 * 1024 * 1024
+#: phase 3's attribution: DelayedFlights records of each of its eight
+#: runs (cut from 8 M for the script's time limit)
+ATTRIBUTION_RECORDS = 2 * 1024 * 1024
 
 
 def phase_attribution(torch, dev, n_records):
@@ -2624,8 +2628,11 @@ def phase_serve_profile(torch, cfg, params, prompts, prefill_step, decode,
                         steps=16):
     """Device busy share of one prefill at the serving shape and of
     ``steps`` decode steps after it (the engine's steps), each under its
-    own torch.profiler window, and the kernels that take the device's
-    time in each.  -> {part: device busy share, or None}"""
+    own torch.profiler window of the device's activity alone (as
+    :func:`_busy_share`; with the host's ops traced too, a window took
+    ~0.65 ms a kernel to process on the H100 host, ~0.2 ms without), and
+    the kernels that take the device's time in each.  -> {part: device
+    busy share, or None}"""
     from torch.profiler import ProfilerActivity, profile
     state, shares = {}, {}
 
@@ -2639,8 +2646,7 @@ def phase_serve_profile(torch, cfg, params, prompts, prefill_step, decode,
                 params, state["tok"], pos, state["cache"])
     for part, fn in (("prefill", prefill), ("decode", decode_steps)):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2755,9 +2761,10 @@ FT_SHARE_TIMEOUT_S = 0.25             # pinned: injected stalls exceed it
 FT_STAGE8_SEEDS = (0, 1, 2, 3)
 FT_STAGE8_CHUNKS = 256
 #: phase 11c: DelayedFlights records of each form's run, and the chunk at
-#: which form C scrapes its metrics endpoint
-OBS_RECORDS = 8 * 1024 * 1024
-OBS_SCRAPE_CHUNK = 4096
+#: which form C scrapes its metrics endpoint, mid-run (cut from 8 M
+#: records for the script's time limit)
+OBS_RECORDS = 2 * 1024 * 1024
+OBS_SCRAPE_CHUNK = OBS_RECORDS // CHUNK_RECORDS // 2
 #: phase 11d: the traced run's windows (as phase 3's profiled run)
 TRACE_WINDOWS = 32
 TRACE_PATH = Path(__file__).resolve().parent / "build" / \
@@ -3725,6 +3732,12 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 #: 13c: steps, checkpoint cadence and the injected failure (after the
 #: first checkpoint, so the restart restores it and replays a step)
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 3, 4
+#: 13c: the Trainer's depth (of 16).  Its two sealed checkpoints and one
+#: restore move 10 bytes a parameter each through host memory and the
+#: disk: 12.4 GB each at full depth (~42 s a save on the H100 host, most
+#: of phase 13's time), 3.8 GB at 2 layers; the full depth's steps are
+#: timed in 13b and 15a
+TRAIN_TRAINER_LAYERS = 2
 TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / "phase13_ckpt"
 #: 13a: kernel 7's lse against the plain version's (f32 both; values
 #: ~log(keys) ~ 8): the scores' f32 sums in another order, ex2.approx (2
@@ -3778,11 +3791,15 @@ def train_data_fn(vocab: int):
     return data_fn
 
 
-def _train_run():
+def _train_run(layers=None):
     """llama3.2-1b's run config with the "train_4k" shape (256 sequences
-    of 4,096 tokens) cut to phase 13's 4 of 2,048, for one card's time."""
-    from repro_torch.configs import SHAPES, get_run_config
-    run = get_run_config(TRAIN_ARCH, "train_4k", remat="full")
+    of 4,096 tokens) cut to phase 13's 4 of 2,048, for one card's time;
+    at ``layers`` of its 16 when given."""
+    from repro_torch.configs import SHAPES, get_model_config, get_run_config
+    cfg = get_model_config(TRAIN_ARCH)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    run = get_run_config(TRAIN_ARCH, "train_4k", model=cfg, remat="full")
     return dataclasses.replace(run, shape=dataclasses.replace(
         SHAPES["train_4k"], name="train_4k-cut", seq_len=TRAIN_SEQ,
         global_batch=TRAIN_BATCH))
@@ -4041,7 +4058,8 @@ def _launch_delta(torch, fn, into):
 
 
 def phase_secure_training(torch, dev):
-    """Phase 13c: ``Trainer.train()`` of llama3.2-1b at full width with
+    """Phase 13c: ``Trainer.train()`` of llama3.2-1b at full width and
+    TRAIN_TRAINER_LAYERS layers with
     sealed batches, sealed checkpoints every TRAIN_CKPT_EVERY steps and a
     ``node_loss`` at TRAIN_FAIL_AT; beside an uninterrupted run of the
     same steps, whose final parameters it must equal bit for bit (both
@@ -4053,7 +4071,7 @@ def phase_secure_training(torch, dev):
     from repro_torch.launch.dryrun import PEAK_FLOPS
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    run = _train_run()
+    run = _train_run(TRAIN_TRAINER_LAYERS)
     cfg = run.model
     data_fn = train_data_fn(cfg.vocab_size)
     shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
@@ -4097,8 +4115,8 @@ def phase_secure_training(torch, dev):
                and "evaluate_function" in e.key]
         bwd_s = sum(e.device_time_total for e in bwd) / 1e6 if bwd else None
         rows.sort(key=lambda r: -r[1])
-        # the uninterrupted run's 24.8 GB (state and snapshot) must go
-        # before the recovered run's checkpoint needs its 24.8 GB
+        # the uninterrupted run's state and snapshot must go before the
+        # recovered run's come (24.8 GB each at full depth)
         del plain, prof, sealed, timed_batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -4271,19 +4289,24 @@ FAMILY_FLASH_DIMS = (16, 32, 96, 112, 128, 20, 100, 192, 256)
 FLASH_D64_MS_LIMIT = 1.4699 * 1.02
 #: phase 14's served models: requests x prompt tokens, new tokens, the
 #: prompt tokens of the profiled prefill and the sLSTM timing (xlstm-125m's
-#: sLSTM loop runs ~8 ms a token whatever the batch, so its full 2,048
+#: sLSTM loop runs ~7 ms a token whatever the batch, so its full 2,048
 #: would add minutes to each), and the decode continuation's prompt
-#: tokens and steps (see CONTINUE_F32_TOL)
+#: tokens and steps (see CONTINUE_F32_TOL).  xlstm-125m's are cut for the
+#: script's time limit (each 2,048-token pass took ~14 s on the H100
+#: host, its profiled 256-token prefill 17 s): prompts from 2,048 tokens
+#: to 512, the profile's from 256 to 128, the continuation's from 2,048
+#: to 256
 FAMILY_SERVE = {
     "moonshot-v1-16b-a3b": (4, 2048, 32, 2048, None),
     "zamba2-1.2b": (8, 4096, 64, 4096, (4096, 256)),
-    "xlstm-125m": (8, 2048, 64, 256, (2048, 256)),
+    "xlstm-125m": (8, 512, 64, 128, (256, 256)),
 }
 #: decode steps in each family's profile: torch.profiler's host-side
 #: processing of a trace grows with its events (~0.5 ms a kernel on the
-#: H100 host, most of phase 14's time at 16 steps: PERF.md section 4),
-#: and the steps are alike, so their busy share is read from 2 (4 until
-#: phase 16 joined the script, for its time limit)
+#: H100 host with the host's ops traced, most of phase 14's time at 16
+#: steps: PERF.md section 4), and the steps are alike, so their busy
+#: share is read from 2 (4 until phase 16 joined the script, for its
+#: time limit)
 FAMILY_PROFILE_STEPS = 2
 #: one layer's attention output with kernel 7 against the plain attention
 #: on the same input (phase 10's cache limit): bf16 rounding of each side
@@ -5308,9 +5331,10 @@ MOE_TRAIN_LAYERS = (4, 2)
 MOE_TRAIN_PEAK_LIMIT = 60e9
 #: 16b: xlstm-125m's Trainer run: its sequence (cut from the timed steps'
 #: 256 for the script's time limit: the two runs take 13 steps, ~6.5 s
-#: each at 256 on the H100), steps, checkpoint cadence and the step of the
-#: injected failure (after the first checkpoint)
-XLSTM_TRAINER = (64, 6, 2, 3)
+#: each at 256 and 1.6-2.5 s at 64 on the H100 hosts), steps, checkpoint
+#: cadence and the step of the injected failure (after the first
+#: checkpoint)
+XLSTM_TRAINER = (32, 6, 2, 3)
 FAMILY_CKPT_DIR = Path(__file__).resolve().parent / "build" / "phase16_ckpt"
 #: 16, kernel 7 against the plain attention in training, at 1 x S from the
 #: same weights and batch: the gradients of a step with kernel 7
@@ -5436,6 +5460,49 @@ def _family_dryrun(arch, run):
     return rec, none
 
 
+def family_plan(arch):
+    """16's dry run of ``arch`` (meta tensors on the host): FAMILY_TRAIN's
+    run, moonshot cut to the first of MOE_TRAIN_LAYERS whose peak
+    estimate is within MOE_TRAIN_PEAK_LIMIT, any other arch's batch
+    halved until the dry run says it fits one card.  -> (batch, layers,
+    the train record, the remat-"none" trace's FLOPs by op, seconds)"""
+    B, S, remat, _ = FAMILY_TRAIN[arch]
+    layers = None
+    t0 = time.perf_counter()
+    if arch == "moonshot-v1-16b-a3b":
+        for layers in MOE_TRAIN_LAYERS:
+            run = _family_run(arch, B, S, layers, remat)
+            rec, none = _family_dryrun(arch, run)
+            if rec["memory"]["peak_estimate_bytes"] <= MOE_TRAIN_PEAK_LIMIT:
+                break
+    else:
+        run = _family_run(arch, B, S, layers, remat)
+        rec, none = _family_dryrun(arch, run)
+        while not rec["fits_one_card"] and run.shape.global_batch > 1:
+            B = run.shape.global_batch // 2
+            run = _family_run(arch, B, S, layers, remat)
+            rec, none = _family_dryrun(arch, run)
+    return B, layers, rec, dict(none.flops_by_op), time.perf_counter() - t0
+
+
+def family_plans():
+    """:func:`family_plan` of every FAMILY_TRAIN arch, in a process of its
+    own beside the card's phases (the dry runs use no device: 62 s of
+    phase 16 when it ran them in turn, on the slower of two H100 hosts)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    torch.set_num_threads(1)
+    return {arch: family_plan(arch) for arch in FAMILY_TRAIN}
+
+
+def start_family_plans():
+    """:func:`family_plans` started in a spawned process -> (its pool, to
+    terminate, and the pending result)."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(family_plans)
+
+
 def _loss_grads(torch, run, impl, params, batch):
     """``loss_fn`` of ``run``'s model with ``attn_impl=impl`` and its
     gradients over every leaf (no optimizer) -> (loss, grads as a list)."""
@@ -5516,8 +5583,9 @@ def _busy_share(torch, fn):
     return out, (busy / wall if rows else None), sum(r[2] for r in rows)
 
 
-def family_train(torch, dev, arch):
-    """16a-d: ``arch``'s train step on the card beside its dry run: FLOP
+def family_train(torch, dev, arch, plan):
+    """16a-d: ``arch``'s train step on the card beside its dry run
+    (``plan``: :func:`family_plan`'s result): FLOP
     terms by formula, the measured peak of a step against the estimate,
     FAMILY_TRAIN's timed steps (each loss finite and printed), s a step,
     tokens/s, MFU, busy share and kernel 7's launches a step; kernel 7's
@@ -5528,24 +5596,10 @@ def family_train(torch, dev, arch):
     from repro_torch.models import api
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.train.steps import make_train_step
-    B, S, remat, steps = FAMILY_TRAIN[arch]
-    layers = None
-    t0 = time.perf_counter()
-    if arch == "moonshot-v1-16b-a3b":
-        for layers in MOE_TRAIN_LAYERS:
-            run = _family_run(arch, B, S, layers, remat)
-            rec, none = _family_dryrun(arch, run)
-            if rec["memory"]["peak_estimate_bytes"] <= MOE_TRAIN_PEAK_LIMIT:
-                break
-    else:
-        run = _family_run(arch, B, S, layers, remat)
-        rec, none = _family_dryrun(arch, run)
-        while not rec["fits_one_card"] and run.shape.global_batch > 1:
-            B = run.shape.global_batch // 2
-            run = _family_run(arch, B, S, layers, remat)
-            rec, none = _family_dryrun(arch, run)
-    trace_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
+    _, S, remat, steps = FAMILY_TRAIN[arch]
+    B, layers, rec, none_flops, trace_s = plan
+    run = _family_run(arch, B, S, layers, remat)
+    t0 = t1 = time.perf_counter()
     cfg = run.model
     data_fn = family_data_fn(cfg, B, S)
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -5613,9 +5667,9 @@ def family_train(torch, dev, arch):
     k7 = rec["flops_by_op"].get("repro_torch.flash_attention_fwd", 0.0)
     k7_card = launches.get("ss_flash_attention_fwd", 0) * ff
     terms = dict(
-        mm_products=(none.flops_by_op.get("aten.mm", 0.0),
+        mm_products=(none_flops.get("aten.mm", 0.0),
                      _mm_flops_formula(cfg, B, S)),
-        kernel7_forward=(none.flops_by_op.get(
+        kernel7_forward=(none_flops.get(
             "repro_torch.flash_attention_fwd", 0.0), _attn_calls(cfg) * ff),
         kernel7=(k7, _attn_calls(cfg, run.remat) * ff),
         kernel7_card=(k7, k7_card))
@@ -5722,17 +5776,21 @@ def xlstm_trainer(torch, dev):
     return nums
 
 
-def phase_family_training(torch, dev):
+def phase_family_training(torch, dev, plans):
     """Phase 16: zamba2-1.2b, xlstm-125m (and its Trainer), moonshot-v1-
     16b-a3b cut in depth and musicgen-large trained on the card beside
-    their dry runs; then musicgen-large served at full width and depth.
-    -> (kernel 7 launches a train step by arch, numbers by arch, kernel 7
-    launches in musicgen's serving run)"""
+    their dry runs (``plans``: :func:`family_plans`' pending result); then
+    musicgen-large served at full width and depth.  -> (kernel 7
+    launches a train step by arch, numbers by arch, kernel 7 launches in
+    musicgen's serving run)"""
     t0 = time.perf_counter()
+    plans = plans.get()
+    phase("family_plans", waited_s=round(time.perf_counter() - t0, 3),
+          **{f"{a}_dryrun_s": round(p[4], 3) for a, p in plans.items()})
     numbers, launches, secs = {}, {}, {}
     for arch in FAMILY_TRAIN:
         t1 = time.perf_counter()
-        numbers[arch] = family_train(torch, dev, arch)
+        numbers[arch] = family_train(torch, dev, arch, plans[arch])
         launches[arch] = numbers[arch]["kernel7_launches_a_step"]
         if arch == "xlstm-125m":
             numbers["xlstm-125m trainer"] = xlstm_trainer(torch, dev)
@@ -5747,6 +5805,93 @@ def phase_family_training(torch, dev):
           seconds=round(time.perf_counter() - t0, 3),
           **{f"{k}_s": v for k, v in secs.items()})
     return launches, numbers, serve_launches
+
+
+def run_phases(torch, dev, args, phases, mixes, probes, plans, mark):
+    """Phases 2-16 of ``phases``, each after ``mark(its number)`` ->
+    what the kernels' line reads of them (see :func:`main`)."""
+    mark(2)
+    kernels = []
+    if 2 in phases:
+        kernels = phase_kernels(torch, dev, probes)
+        mark("2 oracle")
+        kernels += phase_kernels_oracle(torch, dev,
+                                        np.random.default_rng(1), probes)
+        mark("2 aead")
+        phase_aead_kernels(torch, dev, np.random.default_rng(2))
+        phase_enclave_kernels(torch, dev, np.random.default_rng(3), probes)
+        phase_reducer(torch, dev, np.random.default_rng(4))
+    mark(3)
+    # launches on each engine's main path: the window engine's DelayedFlights
+    # run (phase 3) for kernels 1-3, the oracle engine's timed enclave run
+    # (phase 7) for kernels 4-6
+    launches = {}
+    flights_out = busy_ms = None
+    if 3 in phases:
+        launches["window"], flights_out = phase_delayed_flights(
+            torch, dev, args.records)
+        busy_ms = phase_profile(torch, dev, 256 * CHUNK_RECORDS)
+        mark("3 attribution")
+        phase_attribution(torch, dev, ATTRIBUTION_RECORDS)
+    mark(4)
+    window_results = phase_modes(torch, dev, MODES_RECORDS) \
+        if 4 in phases else None
+    mark(5)
+    if 5 in phases:
+        phase_rekey(torch, dev, 64 * CHUNK_RECORDS)
+    mark(6)
+    if 6 in phases:
+        phase_stage8(torch, dev, 2048)
+    mark(7)
+    if 7 in phases:
+        launches["chunk"] = phase_oracle(torch, dev, window_results)
+    mark(8)
+    extra = phase_chunk_copy(torch, dev, mixes, probes) \
+        if 8 in phases else {}
+    mark(9)
+    if 9 in phases:
+        kernels.append(phase_flash(torch, dev))
+    mark(10)
+    if 10 in phases:
+        launches["serve"] = phase_serve(torch, dev)
+    mark(11)
+    if 11 in phases:
+        phase_ft_flights(torch, dev, args.records, flights_out)
+        mark("11b")
+        phase_ft_stage8(torch, dev)
+        mark("11c")
+        phase_observation_cost(torch, dev, OBS_RECORDS)
+        mark("11d")
+        phase_trace(torch, dev, busy_ms)
+    mark(12)
+    wire_launches, wire_rows = phase_secure_wire(torch, dev) \
+        if 12 in phases else ({}, {})
+    mark(13)
+    train_launches, train_numbers = phase_training(torch, dev) \
+        if 13 in phases else ({}, {})
+    # phase 13's memory, before 14's: its Trainer sits in a reference
+    # cycle (its timed save/restore wrap its own bound methods), which
+    # only the cycle collector frees, with its state and snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(14)
+    head_dims, family_launches, family_numbers = phase_families(torch, dev) \
+        if 14 in phases else ({}, {}, {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(15)
+    qwen_launches, dryrun_numbers = phase_dryrun(torch, dev, train_numbers) \
+        if 15 in phases else (None, {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(16)
+    fam_train_launches, fam_train, musicgen_launches = \
+        phase_family_training(torch, dev, plans) if 16 in phases \
+        else ({}, {}, None)
+    return (kernels, launches, extra, wire_launches, wire_rows,
+            train_launches, train_numbers, head_dims, family_launches,
+            family_numbers, qwen_launches, dryrun_numbers,
+            fam_train_launches, fam_train, musicgen_launches)
 
 
 def main() -> int:
@@ -5774,66 +5919,32 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
+    marks = []
+
+    def mark(name):
+        """Phase ``name`` starts: its time since the start, kept for the
+        last line's per-phase seconds and written to the standard error,
+        so that a run stopped at its time limit shows where it was."""
+        marks.append((name, time.perf_counter() - t_start))
+        print(f"chip_smoke: phase {name} starts at {marks[-1][1]:.1f} s",
+              file=sys.stderr, flush=True)
     phase("start", torch=torch.__version__, cuda=torch.version.cuda,
           python=sys.version.split()[0],
           device=torch.cuda.get_device_name(0))
+    mark(1)
     mixes, probes = phase_card_and_build(torch)
-    kernels = []
-    if 2 in phases:
-        kernels = phase_kernels(torch, dev, probes)
-        kernels += phase_kernels_oracle(torch, dev,
-                                        np.random.default_rng(1), probes)
-        phase_aead_kernels(torch, dev, np.random.default_rng(2))
-        phase_enclave_kernels(torch, dev, np.random.default_rng(3), probes)
-        phase_reducer(torch, dev, np.random.default_rng(4))
-    # launches on each engine's main path: the window engine's DelayedFlights
-    # run (phase 3) for kernels 1-3, the oracle engine's timed enclave run
-    # (phase 7) for kernels 4-6
-    launches = {}
-    flights_out = busy_ms = None
-    if 3 in phases:
-        launches["window"], flights_out = phase_delayed_flights(
-            torch, dev, args.records)
-        busy_ms = phase_profile(torch, dev, 256 * CHUNK_RECORDS)
-        phase_attribution(torch, dev, ATTRIBUTION_RECORDS)
-    window_results = phase_modes(torch, dev, MODES_RECORDS) \
-        if 4 in phases else None
-    if 5 in phases:
-        phase_rekey(torch, dev, 64 * CHUNK_RECORDS)
-    if 6 in phases:
-        phase_stage8(torch, dev, 2048)
-    if 7 in phases:
-        launches["chunk"] = phase_oracle(torch, dev, window_results)
-    extra = phase_chunk_copy(torch, dev, mixes, probes) \
-        if 8 in phases else {}
-    if 9 in phases:
-        kernels.append(phase_flash(torch, dev))
-    if 10 in phases:
-        launches["serve"] = phase_serve(torch, dev)
-    if 11 in phases:
-        phase_ft_flights(torch, dev, args.records, flights_out)
-        phase_ft_stage8(torch, dev)
-        phase_observation_cost(torch, dev, OBS_RECORDS)
-        phase_trace(torch, dev, busy_ms)
-    wire_launches, wire_rows = phase_secure_wire(torch, dev) \
-        if 12 in phases else ({}, {})
-    train_launches, train_numbers = phase_training(torch, dev) \
-        if 13 in phases else ({}, {})
-    # phase 13's memory, before 14's: its Trainer sits in a reference
-    # cycle (its timed save/restore wrap its own bound methods), which
-    # only the cycle collector frees, with ~25 GB of state and snapshot
-    gc.collect()
-    torch.cuda.empty_cache()
-    head_dims, family_launches, family_numbers = phase_families(torch, dev) \
-        if 14 in phases else ({}, {}, {})
-    gc.collect()
-    torch.cuda.empty_cache()
-    qwen_launches, dryrun_numbers = phase_dryrun(torch, dev, train_numbers) \
-        if 15 in phases else (None, {})
-    gc.collect()
-    torch.cuda.empty_cache()
-    fam_train_launches, fam_train, musicgen_launches = \
-        phase_family_training(torch, dev) if 16 in phases else ({}, {}, None)
+    # phase 16's dry runs need no device: they run beside phases 2-15
+    pool, plans = start_family_plans() if 16 in phases else (None, None)
+    try:
+        (kernels, launches, extra, wire_launches, wire_rows, train_launches,
+         train_numbers, head_dims, family_launches, family_numbers,
+         qwen_launches, dryrun_numbers, fam_train_launches, fam_train,
+         musicgen_launches) = run_phases(torch, dev, args, phases, mixes,
+                                         probes, plans, mark)
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
     for k in kernels:
         sym = k.pop("symbol")
         run = LAUNCHES_FROM[k["name"]]
@@ -5868,7 +5979,11 @@ def main() -> int:
                 "mfu", "busy_share", "measured_peak_gb",
                 "peak_estimate_over_measured")}
                 for a, n in fam_train.items() if "mfu" in n}
-    phase("done", seconds=round(time.perf_counter() - t_start, 3))
+    mark("end")
+    phase("done", seconds=round(time.perf_counter() - t_start, 3),
+          phase_seconds=json.dumps({
+              str(n): round(t1 - t0, 1) for (n, t0), (_, t1)
+              in zip(marks, marks[1:])}, separators=(",", ":")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -177,6 +177,22 @@ def _tags_mac(key32: bytes, step: int, tags: bytes, n_bytes: int) -> str:
     return hmac.new(key32, body, hashlib.sha256).hexdigest()
 
 
+def _sha256_beside(data):
+    """The sha256 of ``data`` computed in a thread (hashlib releases the
+    GIL on large buffers), beside the caller's seal, open or parse ->
+    a function that waits for it and returns the hex digest."""
+    out = []
+    t = threading.Thread(
+        target=lambda: out.append(hashlib.sha256(data).hexdigest()),
+        daemon=True)
+    t.start()
+
+    def hexdigest() -> str:
+        t.join()
+        return out[0]
+    return hexdigest
+
+
 def _key_words(key32: bytes, device) -> torch.Tensor:
     return host_to_device(np.frombuffer(key32, dtype="<i4")[:8].copy(),
                           device)
@@ -191,10 +207,12 @@ def _seal_blob(key32: bytes, step: int, data, device
     salt = os.urandom(16)
     key32 = _store_key(key32, salt)
     rows, n = _blob_rows(data)
-    ct, tags = aead.seal_many(
-        _key_words(key32, device),
-        host_to_device(_row_nonces(rows.shape[0], step), device),
-        torch.from_numpy(rows).to(device))
+    nonces = host_to_device(_row_nonces(rows.shape[0], step), device)
+    # the host rows go once they are on the device: a checkpoint's blob
+    # is held at most twice in host memory
+    rows = torch.from_numpy(rows).to(device)
+    ct, tags = aead.seal_many(_key_words(key32, device), nonces, rows)
+    del rows
     tags_b = tags.cpu().numpy().astype("<i4").tobytes()
     meta = {"tags": tags_b.hex(), "n_bytes": n, "salt": salt.hex(),
             "row_words": _ROW_WORDS, "nonce_step": step,
@@ -257,13 +275,15 @@ def save(path: str, step: int, params: Params, opt_state: Params,
 
     buf = io.BytesIO()
     np.savez(buf, **payload)
+    del payload
     blob = buf.getbuffer()
+    digest = _sha256_beside(blob)
     manifest = {
         "step": step,
         "sealed": sealed,
         "treedefs": treedefs,
         "extra": extra or {},
-        "sha256_plain": hashlib.sha256(blob).hexdigest(),
+        "sha256_plain": None,
         "time": time.time(),
     }
     if sealed:
@@ -273,6 +293,7 @@ def save(path: str, step: int, params: Params, opt_state: Params,
     else:
         with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
             f.write(blob)
+    manifest["sha256_plain"] = digest()
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=2)
     if os.path.exists(final):
@@ -335,10 +356,12 @@ def restore(path: str, step: Optional[int] = None, *, seed: int = 0,
             raise ValueError(f"checkpoint {d}: unsupported row_words "
                              f"{a['row_words']}")
         plain = _open_blob(_seal_key(seed), a, blob, d, device)
-        if hashlib.sha256(plain).hexdigest() != manifest["sha256_plain"]:
-            raise ValueError(f"checkpoint {d}: plaintext hash mismatch")
+        # the plaintext's digest (its MACs are verified already) runs
+        # beside the parse; nothing is returned before it matches
+        digest = _sha256_beside(plain)
         arrays = np.load(io.BytesIO(plain))
     else:
+        digest = None
         arrays = np.load(os.path.join(d, "arrays.npz"))
 
     def rebuild(name, like):
@@ -347,4 +370,7 @@ def restore(path: str, step: Optional[int] = None, *, seed: int = 0,
                                               device) for i in range(n)])
 
     with arrays:
-        return step, rebuild("params", params_like), rebuild("opt", opt_like)
+        out = step, rebuild("params", params_like), rebuild("opt", opt_like)
+    if digest is not None and digest() != manifest["sha256_plain"]:
+        raise ValueError(f"checkpoint {d}: plaintext hash mismatch")
+    return out
