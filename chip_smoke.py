@@ -121,10 +121,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    fatal crash, a stall, a tamper, a dropped verdict and a failed spare
    enrollment (a revocation of sgx_filter/w1 leaves the fatal crash
    without a survivor, so a spare is enrolled live), beside the same job
-   without faults: both equal numpy and phase 3's result, every fault
-   fires and leaves its audit footprint once, and the window hop (kernel
-   3, re-encrypting under the fresh outbound nonces) runs once more than
-   fault-free for every launch the audit log shows a fault wasted;
+   without faults, at FT_RECORDS: both equal numpy (and phase 3's result
+   at its size), every fault fires and leaves its audit footprint once,
+   and in every (stage, round) the window hop (kernel 3, re-encrypting
+   under the fresh outbound nonces) runs once a share the chaos run
+   dispatched plus once a launch the audit log shows a fault wasted;
    ``ft.*`` counters, seconds and records/s.  (b) the 8-stage job
    (phase 6's, 256 chunks) under ``ChaosPlan.seeded`` for 4 seeds,
    encrypted and enclave: bit-equal to the fault-free sum and numpy.
@@ -205,9 +206,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    caches, the share of (token, layer) top-k expert sets that differ)
    and layer by layer (each layer fed the plain run's input: kernel 7
    within the limit, the two wrong attentions of phase 10 outside it);
-   decode at S against prefill(S + 1) on a copy of the config whose
-   capacity drops nothing, for the requests whose new token is routed
-   alike in both.  (c) zamba2-1.2b (38 Mamba2 layers, 6 shared-attention
+   decode at S against prefill(S + 1) layer by layer, the prefill's MoE
+   update of the new token taken on its own rows (nothing dropped), for
+   the requests whose new token is routed alike in both.  (c) zamba2-1.2b (38 Mamba2 layers, 6 shared-attention
    calls, kernel 7 6 times a prefill): 8 prompts of 4,096 tokens, 64
    decode steps, the same kernel-versus-plain checks (each beside a
    prefill whose attention sums in another order), and 256
@@ -255,6 +256,17 @@ Phases, each printed on its own line; any failure exits non-zero:
    bit-equal to an uninterrupted run.  (e) musicgen-large served at full
    width and depth as 15b serves qwen2.5-14b, with sealed frames beside
    the prompts.
+17. the configs that had never run on the card.  Their plans (dry runs
+   beside phases 2-15): the largest depth whose prefill and decode peak
+   estimates at 4 x 2,048 + 32 are within SERVE_PEAK_LIMIT, the vlm's
+   train step's depth and batch within TRAIN_PEAK_LIMIT, kimi-k2's train
+   step's estimate (printed; it does not fit one card).  (a-d)
+   qwen2.5-32b, granite-34b (one KV head under 48), internvl2-76b (with
+   256 sealed patches a request) and kimi-k2 (384 experts, top-8) served
+   at full width and their planned depths as 15b serves qwen2.5-14b (an
+   MoE checked as phase 14b's, decoding at as many positions as
+   DECODE_PAIRS_MIN triples need).  (e) internvl2-76b trained as phase
+   16 trains its families, with 256 seeded patches a sequence.
 
 Every pipeline run of phases 3-7 and 11, the serving runs of phases 10
 and 14, the sealed and plain runs of phase 12 and the train steps and
@@ -283,8 +295,8 @@ count the cipher pass, each on its own path; rows 1 and 2 also carry
 phase 12's launches and their numbers at the checkpoint's shape; rows 1,
 2, 4, 5 and 7 carry phase 13's launches in its recovered training run
 and row 7 its training numbers, its numbers per head dim, phase 14's
-serving launches and numbers, phase 15b's, and phase 16's launches a
-train step and its numbers), and as the last line
+serving launches and numbers, phase 15b's, phase 16's launches a train
+step and its numbers, and phase 17's), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result
 when no CUDA device is available.
 
@@ -2625,7 +2637,7 @@ def phase_serve(torch, dev):
 
 
 def phase_serve_profile(torch, cfg, params, prompts, prefill_step, decode,
-                        steps=16):
+                        steps=16, extra=None):
     """Device busy share of one prefill at the serving shape and of
     ``steps`` decode steps after it (the engine's steps), each under its
     own torch.profiler window of the device's activity alone (as
@@ -2637,7 +2649,8 @@ def phase_serve_profile(torch, cfg, params, prompts, prefill_step, decode,
     state, shares = {}, {}
 
     def prefill():
-        logits, state["cache"] = prefill_step(params, {"tokens": prompts})
+        logits, state["cache"] = prefill_step(params, {"tokens": prompts,
+                                                       **(extra or {})})
         state["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
     def decode_steps():
@@ -2749,10 +2762,14 @@ def phase_serve_check(torch, cfg, params, prompts):
 #: (stage, round, worker) of the fault-tolerant engine's rounds (16 chunks
 #: a round with two live workers, 8 with one).  Every crash fires after
 #: its share ran, so each fault costs exactly one more launch of the
-#: window hop than the fault-free run.  Revoking sgx_filter/w1 at chunk
-#: FT_REVOKE_CHUNK leaves the fatal crash of its w0 without a survivor:
-#: the engine enrolls a spare live, and the plan's enrollment failure
-#: hits that admission.
+#: window hop than the shares the chaos run dispatched (which may be
+#: other than the fault-free run's launches: see phase_ft_flights).
+#: Revoking sgx_filter/w1 at chunk FT_REVOKE_CHUNK leaves the fatal crash
+#: of its w0 without a survivor: the engine enrolls a spare live, and the
+#: plan's enrollment failure hits that admission.  FT_RECORDS: its
+#: records (cut from phase 3's 28 M for the script's time limit; its
+#: result is compared with phase 3's when the two are the same size)
+FT_RECORDS = 8 * 1024 * 1024
 FT_WORKERS = 2
 FT_REKEY = 3
 FT_REVOKE_CHUNK = 2048
@@ -2836,11 +2853,70 @@ def check_footprint(what, plan, dump):
         if len(rejected) != len(fired["enroll_fail"]):
             raise AssertionError(f"{what}: enrollment failures not "
                                  f"audited once")
-    return sum(1 for e in dump
-               if (e["kind"] == "worker_failed" and e["reason"] == "crash")
-               or (e["kind"] == "share_failover"
-                   and e["reason"] == "backup")
-               or e["kind"] == "window_replayed")
+    return len(_wasting(dump))
+
+
+def _wasting(dump):
+    """The audit events of launches a fault wasted (see
+    :func:`check_footprint`)."""
+    return [e for e in dump
+            if (e["kind"] == "worker_failed" and e["reason"] == "crash")
+            or (e["kind"] == "share_failover" and e["reason"] == "backup")
+            or e["kind"] == "window_replayed"]
+
+
+class _HopLedger:
+    """The window-hop launches of a pipeline's fault-tolerant stages by
+    (stage, round): the shares dispatched (``_ft_dispatch_share``), the
+    launches inside them (each share's own, its retries, failovers and
+    backups) and those after them in their round (the replays), counted
+    by wrapping both methods on the instance (in this script only)."""
+
+    def __init__(self, p):
+        from collections import defaultdict
+        from repro_torch.kernels import build
+        self.rows = defaultdict(lambda: [0, 0, 0])
+        self.at, self.inside = None, False
+        dispatch, execute = p._ft_dispatch_share, p._ft_exec
+
+        def share(st, pool, ft, rnd, *rest):
+            self.at = (st.name, rnd)
+            self.rows[self.at][0] += 1
+            self.inside = True
+            try:
+                return dispatch(st, pool, ft, rnd, *rest)
+            finally:
+                self.inside = False
+
+        def run(st, *rest):
+            n0 = build.launch_counts()["ss_enclave_map_window"]
+            out = execute(st, *rest)
+            n = build.launch_counts()["ss_enclave_map_window"] - n0
+            if self.at is None or self.at[0] != st.name:
+                raise AssertionError(f"a hop of {st.name} outside a round")
+            self.rows[self.at][1 if self.inside else 2] += n
+            return out
+        p._ft_dispatch_share, p._ft_exec = share, run
+
+    def totals(self):
+        """-> (shares, launches in shares, launches in replays)"""
+        return tuple(sum(r[i] for r in self.rows.values()) for i in range(3))
+
+    def unexplained(self, dump):
+        """The (stage, round)s whose launches are not one a share plus one
+        a wasted launch of the audit there, each with its counts and the
+        audit's events of that round."""
+        from collections import Counter
+        wasted = Counter((e["stage"], e["round"]) for e in _wasting(dump))
+        bad = [(at, r) for at, r in sorted(self.rows.items())
+               if r[1] + r[2] != r[0] + wasted[at]]
+        return [dict(stage=at[0], round=at[1], shares=r[0],
+                     launches_in_shares=r[1], launches_in_replays=r[2],
+                     wasted_in_audit=wasted[at],
+                     events=[e["kind"] for e in dump
+                             if e.get("stage") == at[0]
+                             and e.get("round") == at[1]])
+                for at, r in bad]
 
 
 def ft_counters():
@@ -2855,9 +2931,10 @@ def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
     ``ft_plan``), beside the same job and stream without faults.  Both
     equal numpy (and phase 3's result when it ran); every fault fired
     and left its audit footprint once; the launch gate admits the cipher
-    pass and kernels 2 and 3 only; the window hop ran once more than in
-    the fault-free run for every launch the audit log shows a fault
-    wasted (``check_footprint``)."""
+    pass and kernels 2 and 3 only; in every (stage, round) the window hop
+    ran once a share the chaos run dispatched plus once a launch the
+    audit log shows a fault wasted (``check_footprint``,
+    :class:`_HopLedger`); the fault-free run's launches beside them."""
     from repro_torch.attest.directory import KeyDirectory
     from repro_torch.core.pipeline import Pipeline
     from repro_torch.data.synthetic import flight_records
@@ -2879,6 +2956,8 @@ def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
             sb = sb.retry(RetryPolicy(share_timeout_s=FT_SHARE_TIMEOUT_S)) \
                 .chaos(plan)
         p = sb.build("enclave")
+        if form == "chaos":
+            ledger = _HopLedger(p)
         revoke = (FT_REVOKE_CHUNK, lambda p=p: p.directory.revoke(
             Pipeline.worker_id("sgx_filter", 1)))
         REGISTRY.reset(prefix="ft.")
@@ -2898,11 +2977,19 @@ def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
     reexec = check_footprint("ft DelayedFlights", plan, dump)
     free_hops = runs["fault_free"][3]["ss_enclave_map_window"]
     hops = launches["ss_enclave_map_window"]
-    if hops - free_hops != reexec:
+    shares, in_shares, in_replays = ledger.totals()
+    # a re-execution seals under counters reserved from the ingress edge,
+    # which moves the rekey cadence's epoch boundaries and so the windows'
+    # parts and their shares after it: the chaos run's own shares, not the
+    # fault-free run's launches, are its launches without faults
+    unexplained = ledger.unexplained(dump)
+    if hops != in_shares + in_replays or hops != shares + reexec \
+            or unexplained:
         raise AssertionError(
-            f"ft DelayedFlights: {hops} window-hop launches against "
-            f"{free_hops} fault-free, the audit shows {reexec} "
-            f"re-executions that cost a launch")
+            f"ft DelayedFlights: {hops} window-hop launches ({in_shares} in "
+            f"{shares} shares, {in_replays} in replays; {free_hops} "
+            f"fault-free), the audit shows {reexec} re-executions that cost "
+            f"a launch; by stage and round: {unexplained[:20]}")
     filt = next(s for s in p.stages if s.name == "sgx_filter")
     if filt.workers != 3 or not p.directory.is_admitted("sgx_filter/w2"):
         raise AssertionError("ft DelayedFlights: no spare was enrolled "
@@ -2919,6 +3006,8 @@ def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
           faultfree_wall_s=round(free_wall, 3),
           faultfree_records_per_s=round(n / free_wall, 1),
           hop_launches=hops, faultfree_hop_launches=free_hops,
+          shares=shares, hop_launches_in_replays=in_replays,
+          shares_less_faultfree_launches=shares - free_hops,
           reexecutions=reexec, spare="sgx_filter/w2",
           rekeys=audit.get("rekey", 0),
           **{f"ft_{k}": v for k, v in counters.items()})
@@ -4261,13 +4350,17 @@ def phase_training(torch, dev):
 #: (B, H, Sq, Skv): ragged, Sq < Skv and short
 FAMILY_FLASH_CHECKS = ((2, 4, 1000, 1000), (1, 3, 130, 700), (2, 4, 128, 128))
 #: ... and its timed shapes, (B, H, S, D): the prefills of the configs
-#: that take each head dim (and every config's reduce_for_smoke form),
-#: and D = 32 and 96, which no config has (computed at the padded widths
-#: 64 and 128), at moonshot's B, H and S
+#: that take each head dim (granite-34b's with its one KV head expanded
+#: to its 48 query heads, as ``repeat_kv`` gives it; and every config's
+#: reduce_for_smoke form), and D = 32 and 96, which no config has
+#: (computed at the padded widths 64 and 128), at moonshot's B, H and S
 FAMILY_FLASH_TIMED = {
     "moonshot-v1-16b-a3b": (4, 16, 2048, 128),
     "qwen2.5-14b": (4, 40, 2048, 128),
+    "granite-34b": (4, 48, 2048, 128),
+    "internvl2-76b": (4, 64, 2048, 128),
     "kimi-k2-1t-a32b": (1, 64, 2048, 112),
+    "kimi-k2-1t-a32b, 4 requests": (4, 64, 2048, 112),
     "reduce_for_smoke": (8, 4, 2048, 16),
     "no config, D = 32": (4, 16, 2048, 32),
     "no config, D = 96": (4, 16, 2048, 96),
@@ -4333,6 +4426,13 @@ ROUTING_SLACK = 0.02
 #: LAYER_ATTN_RTOL for the (request, layer) pairs routed alike): the least
 #: share of pairs that must be routed alike
 DECODE_ROUTED_ALIKE_MIN = 0.9
+#: ... over at least this many (request, layer, position) triples: a
+#: shallow MoE decodes at as many positions after S as that takes
+#: (kimi-k2 at one layer and 4 requests: 16; moonshot's 48 layers: 1).
+#: Its router's ~4 % of tokens whose top-8 of 384 experts lie a rounding
+#: apart (the "hier" prefill against the plain one, PERF.md section 6)
+#: make one flip of 4 pairs a 25 % miss (the first card run: 3 of 4)
+DECODE_PAIRS_MIN = 64
 #: phase 14d: chunked_gla on the card against its sequential oracle (f32)
 GLA_TOL = (1e-4, 1e-4)
 #: the decode continuation in f32 (the weights cast to f32; kernel 7's f32
@@ -4552,17 +4652,21 @@ def phase_flash_head_dims(torch, dev):
     return numbers
 
 
-def serve_family(torch, dev, arch, plan=None):
-    """Secure serving of ``arch`` at full width and depth, as phase 10
+def serve_family(torch, dev, arch, plan=None, layers=None):
+    """Secure serving of ``arch`` at full width and depth (``layers``: a
+    cut depth), as phase 10
     serves llama3.2-1b: weights drawn from a seed on the card, a client
     attests the enclave, FAMILY_SERVE's prompts are sealed and opened
     (MAC checked), prefilled through ``make_prefill_step`` (the time to
     first token) and generated through ``greedy_generate``; kernel 7
     launched once per attention call of each prefill and never in
-    decode.  An audio model's prompts come with seeded frames (R, S,
-    frontend_dim) in bf16, sealed and opened beside them and added to the
-    prefill's embeddings.  ``plan``: FAMILY_SERVE's tuple for ``arch``
-    unless given.  -> (cfg, params, prompts, numbers, launches)"""
+    decode.  A front end's inputs come seeded in bf16 with the prompts,
+    sealed and opened beside them and passed to the prefill: an audio
+    model's frames (R, S, frontend_dim), added to the embeddings, a
+    vision model's VISION_PATCHES patches (R, 256, frontend_dim), which
+    take the first 256 positions.  ``plan``: FAMILY_SERVE's tuple for
+    ``arch`` unless given.  -> (cfg, params, prompts, the front end's
+    inputs {name: tensor} or {}, numbers, launches)"""
     from repro_torch.configs import get_model_config
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.kernels import build
@@ -4572,6 +4676,9 @@ def serve_family(torch, dev, arch, plan=None):
                                           make_prefill_step)
     R, S, N, short, _ = plan or FAMILY_SERVE[arch]
     cfg = get_model_config(arch)
+    full_depth = cfg.num_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     g = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4590,15 +4697,16 @@ def serve_family(torch, dev, arch, plan=None):
     attest_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab_size, (R, S), generator=g,
                             device=dev, dtype=torch.int32)
-    frames = torch.randn((R, S, cfg.frontend_dim), generator=g, device=dev
-                         ).to(torch.bfloat16) \
-        if cfg.frontend == "audio_frames" else None
+    name = FRONT_END_INPUTS.get(cfg.frontend)
+    feats = None if name is None else torch.randn(
+        (R, S if name == "frames" else VISION_PATCHES, cfg.frontend_dim),
+        generator=g, device=dev).to(torch.bfloat16)
     max_seq = S + N
     prefill = make_prefill_step(run_cfg, max_seq=max_seq)
     secure.open_prompts(key, secure.seal_prompts(key, prompts, counter=1))
     greedy_generate(run_cfg, params, prompts[:, :256], steps=2, max_seq=257,
-                    extra=None if frames is None else {
-                        "frames": frames[:, :256]})
+                    extra=None if feats is None else {
+                        name: feats[:, :256]})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = {}
@@ -4615,13 +4723,13 @@ def serve_family(torch, dev, arch, plan=None):
         if not torch.equal(opened, prompts):
             raise AssertionError("opened prompts differ from the sent ones")
         extra = {}
-        if frames is not None:
+        if feats is not None:
             got = secure.open_prompts(key, secure.seal_prompts(
-                key, frames, counter=2))
-            if not torch.equal(got, frames):
-                raise AssertionError("opened frames differ from the sent "
-                                     "ones")
-            extra["frames"] = got
+                key, feats, counter=2))
+            if not torch.equal(got, feats):
+                raise AssertionError(f"opened {name} differ from the sent "
+                                     f"ones")
+            extra[name] = got
         t["after_open"] = build.launch_counts()
         t0 = time.perf_counter()
         logits = prefill(params, {"tokens": opened, **extra})[0]
@@ -4632,9 +4740,9 @@ def serve_family(torch, dev, arch, plan=None):
         gen = greedy_generate(run_cfg, params, opened, steps=N + 1,
                               max_seq=max_seq, extra=extra).cpu()
         t["generate"] = time.perf_counter() - t0
-        return first, gen, logits
+        return first, gen, logits, extra
     mode = "attention_free" if cfg.attention_free else "encrypted"
-    (first, gen, logits), launches = counted_run(
+    (first, gen, logits, extra), launches = counted_run(
         torch, f"secure_serve {arch}", mode, serve, engine="serve")
     flash = "ss_flash_attention_fwd"
     calls = (api.num_shared_attn(cfg) if cfg.family == "hybrid"
@@ -4654,10 +4762,12 @@ def serve_family(torch, dev, arch, plan=None):
         raise AssertionError(f"{arch}: malformed logits or tokens")
     decode_s = t["generate"] - t["prefill"]
     numbers = dict(
-        arch=arch, family=cfg.family, layers=cfg.num_layers,
-        d_model=cfg.d_model, head_dim=cfg.head_dim, params=n,
+        arch=arch, family=cfg.family, layers=f"{cfg.num_layers}/{full_depth}",
+        d_model=cfg.d_model, head_dim=cfg.head_dim,
+        kv_heads=cfg.num_kv_heads, params=n,
         params_bf16_gb=2 * n / 1e9, requests=R, prompt=S, new_tokens=N,
-        frames=None if frames is None else "x".join(map(str, frames.shape)),
+        front_end=None if feats is None else
+        f"{name} " + "x".join(map(str, feats.shape)),
         init_params_s=init_s, init_peak_memory_gb=init_peak / 1e9,
         attest_s=attest_s, measurement=server_m.hex()[:16],
         seal_ms=t["seal"] * 1e3, open_ms=t["open"] * 1e3, mac_ok=True,
@@ -4672,11 +4782,25 @@ def serve_family(torch, dev, arch, plan=None):
     t0 = time.perf_counter()
     shares = phase_serve_profile(torch, cfg, params, prompts[:, :short],
                                  prefill, make_decode_step(run_cfg),
-                                 steps=FAMILY_PROFILE_STEPS)
+                                 steps=FAMILY_PROFILE_STEPS,
+                                 extra=_front_end(torch, extra, short))
     numbers.update(prefill_busy_share=shares.get("prefill"),
                    decode_busy_share=shares.get("decode"),
                    profile_s=time.perf_counter() - t0)
-    return cfg, params, prompts, numbers, launches
+    return cfg, params, prompts, extra, numbers, launches
+
+
+def _front_end(torch, extra, n):
+    """A front end's inputs for the first ``n`` prompt tokens: frames cut
+    to ``n``, patches as they are (they take the first 256 positions).
+    ``n`` past the prompt pads the frames with zero rows: a token decoded
+    there has no frame (its embedding alone)."""
+    out = dict(extra)
+    if "frames" in out:
+        f = out["frames"]
+        out["frames"] = f[:, :n] if n <= f.shape[1] else \
+            torch.nn.functional.pad(f, (0, 0, 0, n - f.shape[1]))
+    return out
 
 
 def _as_f32(tree):
@@ -4691,15 +4815,16 @@ def _leaves(tree):
     return [tree]
 
 
-def layerwise_attention(torch, cfg, params, tokens, attentions):
+def layerwise_attention(torch, cfg, params, tokens, attentions, extra=None):
     """Walk the model with the plain attention; at every attention call
     feed the same normed input to ``mha`` under each of ``attentions``
-    (None: kernel 7) and to the plain one, and compare the outputs.  ->
-    {name: largest relative L2 difference over the calls}"""
+    (None: kernel 7) and to the plain one, and compare the outputs.
+    ``extra``: a front end's inputs.  -> {name: largest relative L2
+    difference over the calls}"""
     from repro_torch.models import api, mamba2 as M2
     from repro_torch.models import layers as L
     plain = _plain_bshd(torch)
-    x = api._embed(cfg, params, {"tokens": tokens})
+    x = api._embed(cfg, params, {"tokens": tokens, **(extra or {})})
     B, S = tokens.shape
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
         B, S)
@@ -4730,20 +4855,22 @@ def layerwise_attention(torch, cfg, params, tokens, attentions):
     return worst
 
 
-def kernel_vs_plain(torch, cfg, params, tokens):
+def kernel_vs_plain(torch, cfg, params, tokens, extra=None):
     """The prefill with kernel 7 against the same prefill with the plain
     attention in its place (last logits, every attention layer's cached
     keys and values; for MoE, every layer's top-k expert sets, beside a
     prefill with the "hier" attention as the baseline of rounding
     differences), then layer by layer with the kernel and the two wrong
-    attentions.  -> numbers; raises when a limit is missed or a wrong
-    attention meets the layer limit."""
+    attentions; ``extra``: a front end's inputs for ``tokens``.  ->
+    numbers; raises when a limit is missed or a wrong attention meets the
+    layer limit."""
     from repro_torch.models import api
     S = tokens.shape[1]
+    batch = {"tokens": tokens, **(extra or {})}
 
     def prefill():
         with _Routes() as r:
-            logits, cache = api.prefill(cfg, params, {"tokens": tokens})
+            logits, cache = api.prefill(cfg, params, batch)
         return logits, _attn_cache_layers(cache), r.topi
     lp, cp, rp = _with_attention(torch, _plain_bshd(torch), prefill)
     lk, ck, rk = _with_attention(torch, None, prefill)
@@ -4762,16 +4889,15 @@ def kernel_vs_plain(torch, cfg, params, tokens):
             shares = [float(d.float().mean()) for d in differ]
             out[f"{name}routing_sets_differ_share"] = sum(shares) / len(
                 shares)
-            out[f"{name}routing_share_by_layer"] = "/".join(
-                f"{x:.4f}" for x in (shares[0], shares[1],
-                                     shares[len(shares) // 2], shares[-1]))
+            out[f"{name}routing_share_by_layer"] = _by_layer(shares)
             if not name:
                 last_agrees = not any(bool(d.view(-1, S)[:, -1].any())
                                       for d in differ)
         out["last_token_routing_agrees"] = last_agrees
     del cp
     layer = layerwise_attention(torch, cfg, params, tokens, dict(
-        kernel=None, hier=_hier_bshd(torch), **_wrong_attentions(torch)))
+        kernel=None, hier=_hier_bshd(torch), **_wrong_attentions(torch)),
+        extra)
     out.update({f"layer_rel_l2_{k}": v for k, v in layer.items()})
     ok = (layer["kernel"] <= LAYER_ATTN_RTOL
           and all(v > LAYER_ATTN_RTOL for k, v in layer.items()
@@ -4794,49 +4920,64 @@ def kernel_vs_plain(torch, cfg, params, tokens):
     return out
 
 
-def decode_layerwise(torch, cfg, params, tokens):
-    """Decode at position S against prefill(S + 1) of ``tokens`` (B, S +
-    1), one layer at a time: each layer's prefill over all S + 1 tokens
-    (kernel 7) from the prefill's own input, and the decode step's layer
-    (``mha_decode`` over the prefill's first S keys and values, the MoE
-    at T = B) on token S's input; the two updates of token S compared
-    for the requests whose token S is routed alike in both.  -> (largest
-    relative L2 of the compared updates, share of (request, layer) pairs
-    routed alike)"""
+def _by_layer(xs) -> str:
+    """Layers 0, 1, L // 2 and L - 1 of a per-layer list (those there are),
+    "/"-joined."""
+    n = len(xs)
+    return "/".join(f"{xs[i]:.4f}" for i in sorted({0, 1, n // 2, n - 1})
+                    if i < n)
+
+
+def decode_layerwise(torch, cfg, params, tokens, extra=None, steps=1):
+    """Decode at positions S .. S + ``steps`` - 1 against prefill(S +
+    ``steps``) of ``tokens`` (B, S + steps; ``extra``: a front end's inputs
+    for them), one layer at a time: each layer's prefill over all the
+    tokens (kernel 7) from the prefill's own input, and the decode step's
+    layer (``mha_decode`` over the prefill's first S keys and values and
+    the decoded ones since, the MoE at T = B) on each position's input;
+    the two updates of the token compared for the requests whose token is
+    routed alike in both.  The prefill's MoE update of a token is its FFN
+    on that token's rows alone (T = B, as the decode's): with no other
+    token in the call no assignment of it is dropped (capacity >= 8 >
+    B), where the full prefill's capacity may drop it.  -> (largest
+    relative L2 of the compared updates, (request, layer, position)
+    triples routed alike, triples)"""
     from repro_torch.models import api
     from repro_torch.models import layers as L
     B, S1 = tokens.shape
-    S = S1 - 1
-    x = api._embed(cfg, params, {"tokens": tokens})
+    S = S1 - steps
+    x = api._embed(cfg, params, {"tokens": tokens, **(extra or {})})
     pos = torch.arange(S1, dtype=torch.int32, device=x.device)[None].expand(
         B, S1)
     worst, alike, pairs = 0.0, 0, 0
     for i in range(cfg.num_layers):
         p = L.layer(params["layers"], i)
-        with _Routes() as rp:
-            h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
-            att, (k, v) = L.mha(p["attn"], h, cfg, positions=pos,
-                                attn_impl="pallas_flash", return_kv=True)
-            y = api._ffn_residual(p, x + att, cfg)[0]
+        h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+        att, (k, v) = L.mha(p["attn"], h, cfg, positions=pos,
+                            attn_impl="pallas_flash", return_kv=True)
+        y = api._ffn_residual(p, x + att, cfg)[0]
         cache = {"k": torch.zeros_like(k), "v": torch.zeros_like(v)}
         cache["k"][:, :S], cache["v"][:, :S] = k[:, :S], v[:, :S]
-        xs = x[:, S:]
-        with _Routes() as rd:
-            att1, _ = L.mha_decode(p["attn"], L.rms_norm(
-                xs, p["ln1"], cfg.rms_eps), cache, cfg, pos=S)
-            y1 = api._ffn_residual(p, xs + att1, cfg)[0]
-        same = ~_sets_differ(torch, rd.topi[0],
-                             rp.topi[0].view(B, S1, -1)[:, -1]) if rd.topi \
-            else torch.ones(B, dtype=torch.bool, device=x.device)
-        alike += int(same.sum())
-        pairs += B
-        got = (y1[:, 0] - xs[:, 0]).float()
-        want = (y[:, S] - xs[:, 0]).float()
-        rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
-        if bool(same.any()):
-            worst = max(worst, float(rel[same].max()))
+        for t in range(S, S1):
+            with _Routes() as rp:
+                want = (api._ffn_residual(p, (x + att)[:, t:t + 1], cfg)[0][
+                    :, 0] - x[:, t]).float() if "moe" in p else \
+                    (y[:, t] - x[:, t]).float()
+            xs = x[:, t:t + 1]
+            with _Routes() as rd:
+                att1, _ = L.mha_decode(p["attn"], L.rms_norm(
+                    xs, p["ln1"], cfg.rms_eps), cache, cfg, pos=t)
+                y1 = api._ffn_residual(p, xs + att1, cfg)[0]
+            same = ~_sets_differ(torch, rd.topi[0], rp.topi[0]) if rd.topi \
+                else torch.ones(B, dtype=torch.bool, device=x.device)
+            alike += int(same.sum())
+            pairs += B
+            got = (y1[:, 0] - xs[:, 0]).float()
+            rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+            if bool(same.any()):
+                worst = max(worst, float(rel[same].max()))
         x = y
-    return worst, alike / pairs
+    return worst, alike, pairs
 
 
 def continuation(torch, cfg, params, prompts, g, steps):
@@ -4861,37 +5002,51 @@ def continuation(torch, cfg, params, prompts, g, steps):
     return torch.stack(gaps).tolist()
 
 
-def decode_vs_prefill(torch, cfg, params, prompts):
+def decode_vs_prefill(torch, cfg, params, prompts, extra=None, steps=1):
     """Decode at position S (after prefill(S) of ``prompts``, its greedy
     token) against prefill(S + 1) of the prompts and that token: the last
-    logits' max abs gap, and layer by layer (:func:`decode_layerwise`).
-    -> numbers"""
+    logits' max abs gap; and layer by layer (:func:`decode_layerwise`) at
+    ``steps`` positions, the greedy token and ``steps`` - 1 seeded ones
+    after it.  ``extra``: a front end's inputs for the prompts (a decoded
+    token has none: a zero frame in the prefill).  -> numbers"""
     from repro_torch.models import api
     B, S = prompts.shape
-    logits, cache = api.prefill(cfg, params, {"tokens": prompts},
+    extra = extra or {}
+    logits, cache = api.prefill(cfg, params, {"tokens": prompts, **extra},
                                 max_seq=S + 1)
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     logits_d, _ = api.decode_step(cfg, params, tok, S, cache)
     del cache
     full = torch.cat([prompts, tok], dim=1)
-    logits_p, _ = api.prefill(cfg, params, {"tokens": full})
-    layer_err, alike = decode_layerwise(torch, cfg, params, full)
+    logits_p = api.prefill(cfg, params, {
+        "tokens": full, **_front_end(torch, extra, S + 1)})[0]
+    cont = torch.randint(0, cfg.vocab_size, (B, steps - 1), device=full.device,
+                         dtype=torch.int32, generator=torch.Generator(
+                             device=full.device).manual_seed(8))
+    full = torch.cat([full, cont], dim=1)
+    layer_err, alike, pairs = decode_layerwise(
+        torch, cfg, params, full, _front_end(torch, extra, S + steps), steps)
     return dict(decode_vs_prefill_max_abs=(logits_d - logits_p).abs().max()
                 .item(), decode_layer_rel_l2=layer_err,
-                decode_routed_alike=alike, requests=B)
+                decode_routed_alike=alike / pairs, decode_positions=steps,
+                decode_pairs=pairs, requests=B)
 
 
-def phase_moe_checks(torch, cfg, params, prompts):
-    """Phase 14b's checks: the share of assignments the real capacity
-    drops in the served prefill; kernel 7 against plain at 1 x S; decode
-    at position S against prefill(S + 1) on a copy of the config whose
-    capacity drops nothing (capacity factor X / k)."""
+def phase_moe_checks(torch, cfg, params, prompts, extra=None):
+    """Phase 14b's checks (and kimi-k2's in 17): the share of assignments
+    the real capacity drops in the served prefill; kernel 7 against plain
+    at 1 x S; decode at position S against prefill(S + 1), layer by layer
+    with token S's MoE update on its own rows (:func:`decode_layerwise`:
+    no assignment of it dropped), at least DECODE_ROUTED_ALIKE_MIN of the
+    (request, layer) pairs routed alike.  ``extra``: a front end's
+    inputs."""
     from repro_torch.models import api
     from repro_torch.models.moe import _capacity
     B, S = prompts.shape
     moe = cfg.moe
+    extra = extra or {}
     with _Routes() as r:
-        api.prefill(cfg, params, {"tokens": prompts})
+        api.prefill(cfg, params, {"tokens": prompts, **extra})
     C = _capacity(B * S, moe.top_k, moe.num_experts, moe.capacity_factor)
     dropped = [int((torch.bincount(t.reshape(-1), minlength=moe.num_experts)
                     - C).clamp_min(0).sum()) / (B * S * moe.top_k)
@@ -4899,15 +5054,11 @@ def phase_moe_checks(torch, cfg, params, prompts):
     drop_share = sum(dropped) / len(dropped)
     del r
     out = dict(capacity=C, dropped_share=drop_share,
-               dropped_share_by_layer="/".join(
-                   f"{x:.4f}" for x in (dropped[0], dropped[1],
-                                        dropped[len(dropped) // 2],
-                                        dropped[-1])))
-    out.update(kernel_vs_plain(torch, cfg, params, prompts[:1]))
-    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
-        moe, capacity_factor=moe.num_experts / moe.top_k))
-    out.update(decode_vs_prefill(torch, nodrop, params, prompts),
-               nodrop_capacity_factor=nodrop.moe.capacity_factor)
+               dropped_share_by_layer=_by_layer(dropped))
+    out.update(kernel_vs_plain(torch, cfg, params, prompts[:1],
+                               {k: v[:1] for k, v in extra.items()}))
+    steps = -(-DECODE_PAIRS_MIN // (B * cfg.num_layers))
+    out.update(decode_vs_prefill(torch, cfg, params, prompts, extra, steps))
     layer_err, alike = out["decode_layer_rel_l2"], out["decode_routed_alike"]
     ok = layer_err <= LAYER_ATTN_RTOL and alike >= DECODE_ROUTED_ALIKE_MIN
     phase("moe_decode_check", card=CARD, arch=cfg.arch_id,
@@ -4916,7 +5067,8 @@ def phase_moe_checks(torch, cfg, params, prompts):
           dropped_share_by_layer=out["dropped_share_by_layer"],
           **{k: out[k] for k in ("decode_vs_prefill_max_abs",
                                  "decode_layer_rel_l2", "decode_routed_alike",
-                                 "requests", "nodrop_capacity_factor")},
+                                 "decode_positions", "decode_pairs",
+                                 "requests")},
           ok=ok)
     if not ok:
         raise AssertionError(f"{cfg.arch_id}: decode at S against "
@@ -5039,7 +5191,7 @@ def phase_families(torch, dev):
     launches, numbers = {}, {}
     for arch in FAMILY_SERVE:
         t1 = time.perf_counter()
-        cfg, params, prompts, nums, ran = serve_family(torch, dev, arch)
+        cfg, params, prompts, _, nums, ran = serve_family(torch, dev, arch)
         launches[arch] = ran["ss_flash_attention_fwd"]
         nums["serve_s"] = time.perf_counter() - t1
         if cfg.family == "moe":
@@ -5212,12 +5364,15 @@ def phase_dryrun_training(torch, dev, train_numbers):
     return numbers
 
 
-def _dryrun_shape(arch, shape, S, B, kind):
+def _dryrun_shape(arch, shape, S, B, kind, model=None):
+    """The dry run's record of ``arch``'s ``shape`` cell at B x S
+    (``model``: a cut config in the arch's place)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     rec = dryrun.run_cell(arch, shape, out_dir=str(DRYRUN_DIR), force=True,
-                          overrides=dict(shape=ShapeConfig(shape, S, B,
-                                                           kind)))
+                          overrides=dict(shape=ShapeConfig(shape, S, B, kind),
+                                         **({} if model is None else
+                                            {"model": model})))
     if rec["status"] != "ok":
         raise AssertionError(f"the dry run of {arch} {shape} failed: "
                              f"{rec}")
@@ -5230,43 +5385,52 @@ def phase_qwen_serve(torch, dev):
     return phase_full_serve(torch, dev, QWEN_ARCH, QWEN_SERVE, "qwen_serve")
 
 
-def phase_full_serve(torch, dev, arch, plan, tag):
-    """``arch`` served at full width and depth (as phase 14 serves its
-    families; an audio model with sealed frames), checked as moonshot is
-    (kernel 7 against the plain attention end to end and layer by layer
-    at 1 x S, decode at S against prefill(S + 1) layer by layer, both on
-    tokens alone), beside the dry run's prefill and decode records at the
-    served shape.  -> (kernel 7 launches, numbers)"""
+def phase_full_serve(torch, dev, arch, plan, tag, layers=None,
+                     records=None):
+    """``arch`` served at full width and depth (``layers``: a cut depth;
+    as phase 14 serves its families; a front end's inputs sealed beside
+    the prompts), checked as moonshot is (kernel 7 against the plain
+    attention end to end and layer by layer at 1 x S, decode at S against
+    prefill(S + 1) layer by layer, both with the front end's inputs; an
+    MoE by :func:`phase_moe_checks`), beside the dry run's prefill and
+    decode records at the served shape (``records``: those of the plan,
+    else traced here).  -> (kernel 7 launches, numbers)"""
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.launch.dryrun import input_specs
     from repro_torch.serve.engine import make_prefill_step
     R, S, N, _, _ = plan
     t0 = time.perf_counter()
-    cfg, params, prompts, nums, ran = serve_family(torch, dev, arch, plan)
+    cfg, params, prompts, extra, nums, ran = serve_family(
+        torch, dev, arch, plan, layers)
     nums["serve_s"] = time.perf_counter() - t0
-    pre = _dryrun_shape(arch, "prefill_32k", S, R, "prefill")
-    dec = _dryrun_shape(arch, "decode_32k", S + N, R, "decode")
+    pre, dec = records or (
+        _dryrun_shape(arch, "prefill_32k", S, R, "prefill"),
+        _dryrun_shape(arch, "decode_32k", S + N, R, "decode"))
     # the dry run's prefill on the card: max_seq S, the params and the
-    # prompts (with an audio model's frames, as its input specs) its
+    # prompts (with a front end's opened inputs, as its input specs) its
     # arguments
     run = RunConfig(model=cfg, shape=ShapeConfig("prefill_32k", S, R,
                                                  "prefill"))
     prefill = make_prefill_step(run, max_seq=S)
-    batch = {k: prompts if k == "tokens" else torch.zeros(
-        v.shape, dtype=v.dtype, device=dev)
-        for k, v in input_specs(run).items()}
+    batch = {k: prompts if k == "tokens" else extra[k]
+             for k in input_specs(run)}
     args = _tree_bytes(batch) + _tree_bytes(params)
     (logits, _), prefill_s, peak = _measured_peak(
         torch, args, lambda: prefill(params, batch))
-    del logits
+    del logits, batch
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    nums.update(kernel_vs_plain(torch, cfg, params, prompts[:1]))
-    nums.update(decode_vs_prefill(torch, cfg, params, prompts))
+    if cfg.family == "moe":
+        nums.update(phase_moe_checks(torch, cfg, params, prompts, extra))
+    else:
+        nums.update(kernel_vs_plain(torch, cfg, params, prompts[:1],
+                                    {k: v[:1] for k, v in extra.items()}))
+        nums.update(decode_vs_prefill(torch, cfg, params, prompts, extra))
     nums["checks_s"] = time.perf_counter() - t1
     peak_ok = _peak_ok(pre["memory"]["peak_estimate_bytes"], peak)
     decode_ok = nums["decode_layer_rel_l2"] <= LAYER_ATTN_RTOL and \
-        nums["decode_routed_alike"] == 1.0
+        nums["decode_routed_alike"] >= (DECODE_ROUTED_ALIKE_MIN
+                                        if cfg.family == "moe" else 1.0)
     rp, rd = pre["roofline"], dec["roofline"]
     nums.update(
         dryrun_prefill_trace_s=pre["lower_s"],
@@ -5288,7 +5452,7 @@ def phase_full_serve(torch, dev, arch, plan, tag):
         seconds=time.perf_counter() - t0)
     phase(tag, card=CARD, **{k: v for k, v in nums.items()
                              if not isinstance(v, dict)})
-    del params, prompts, batch
+    del params, prompts, extra
     gc.collect()
     torch.cuda.empty_cache()
     if not (peak_ok and decode_ok):
@@ -5389,12 +5553,14 @@ def _mm_weights(cfg):
 def _mm_flops_formula(cfg, B, S) -> int:
     """``aten.mm`` FLOPs of a train step at remat "none": 6 T per weight
     element of :func:`_mm_weights` (2 T in the forward, 2 T for the
-    input's gradient, 2 T for the weight's), and 4 T per element of the
-    audio front end's projector (its frames need no gradient)."""
+    input's gradient, 2 T for the weight's), and 4 per element of the
+    front end's projector for each of its inputs, the audio model's T
+    frames or the vision model's B x VISION_PATCHES patches (the forward
+    and the weight's gradient: the inputs need none)."""
     T = B * S
     n = 6 * T * sum(_mm_weights(cfg))
-    if cfg.frontend == "audio_frames":
-        n += 4 * T * cfg.frontend_dim * cfg.d_model
+    inputs = {"audio_frames": T, "vision_patches": B * VISION_PATCHES}
+    n += 4 * inputs.get(cfg.frontend, 0) * cfg.frontend_dim * cfg.d_model
     return n
 
 
@@ -5409,26 +5575,35 @@ def _attn_calls(cfg, remat="none") -> int:
     return 2 * n if remat == "full" else n
 
 
+#: a front end's input in a batch, by ``cfg.frontend``
+FRONT_END_INPUTS = {"audio_frames": "frames", "vision_patches": "patches"}
+#: the patches of a vision model's batch (``launch.dryrun.input_specs``'s)
+VISION_PATCHES = 256
+
+
 def family_data_fn(cfg, B, S):
-    """Seeded batches of B x S: uniform tokens, the next as labels, and an
-    audio model's frames (normal, f32); the same for a step on every call
-    (replay)."""
+    """Seeded batches of B x S: uniform tokens, the next as labels, and a
+    front end's inputs (normal, f32): an audio model's (B, S) frames, a
+    vision model's (B, VISION_PATCHES) patches; the same for a step on
+    every call (replay)."""
     def data_fn(step: int):
         rng = np.random.default_rng(1600 + step)
         toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
         out = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
-        if cfg.frontend == "audio_frames":
-            out["frames"] = rng.standard_normal(
-                (B, S, cfg.frontend_dim)).astype(np.float32)
+        name = FRONT_END_INPUTS.get(cfg.frontend)
+        if name is not None:
+            out[name] = rng.standard_normal(
+                (B, S if name == "frames" else VISION_PATCHES,
+                 cfg.frontend_dim)).astype(np.float32)
         return out
     return data_fn
 
 
 def _on_card(torch, dev, batch):
-    """A batch of :func:`family_data_fn` on the card, the frames in bf16
-    (the dry run's input specs)."""
+    """A batch of :func:`family_data_fn` on the card, a front end's inputs
+    in bf16 (the dry run's input specs)."""
     return {k: torch.from_numpy(v).to(dev).to(torch.bfloat16)
-            if k == "frames" else torch.from_numpy(v).to(dev)
+            if k in FRONT_END_INPUTS.values() else torch.from_numpy(v).to(dev)
             for k, v in batch.items()}
 
 
@@ -5442,20 +5617,27 @@ def _family_run(arch, B, S, layers, remat):
         SHAPES["train_4k"], name="train_4k-cut", seq_len=S, global_batch=B))
 
 
-def _family_dryrun(arch, run):
+def _train_record(arch, run):
     """The dry run's train record of ``run`` (``arch``'s "train_4k" cell
-    with the cut model, shape and remat) and its trace at remat "none",
-    whose weight products :func:`_mm_flops_formula` gives exactly (under
-    remat "full" the recompute stops at the last saved tensor, so a
-    block's last product may not run twice)."""
+    with the cut model, shape and remat)."""
     from repro_torch.launch import dryrun
     rec = dryrun.run_cell(arch, "train_4k",
                           out_dir=str(DRYRUN_DIR), force=True, overrides=dict(
                               model=run.model, shape=run.shape,
                               remat=run.remat))
     if rec["status"] != "ok":
-        raise AssertionError(f"phase 16: the dry run of "
-                             f"{arch} failed: {rec}")
+        raise AssertionError(f"the dry run of {arch}'s train step failed: "
+                             f"{rec}")
+    return rec
+
+
+def _family_dryrun(arch, run):
+    """:func:`_train_record` of ``run`` and its trace at remat "none",
+    whose weight products :func:`_mm_flops_formula` gives exactly (under
+    remat "full" the recompute stops at the last saved tensor, so a
+    block's last product may not run twice)."""
+    from repro_torch.launch import dryrun
+    rec = _train_record(arch, run)
     none, _ = dryrun.trace_cell(dataclasses.replace(run, remat="none"))
     return rec, none
 
@@ -5485,22 +5667,29 @@ def family_plan(arch):
     return B, layers, rec, dict(none.flops_by_op), time.perf_counter() - t0
 
 
-def family_plans():
-    """:func:`family_plan` of every FAMILY_TRAIN arch, in a process of its
-    own beside the card's phases (the dry runs use no device: 62 s of
-    phase 16 when it ran them in turn, on the slower of two H100 hosts)."""
+def family_plans(phases):
+    """The dry runs of phases 16 and 17 among ``phases``, in a process of
+    its own beside the card's phases (they use no device: 62 s of phase
+    16 when it ran them in turn, on the slower of two H100 hosts): ->
+    {16: {arch: :func:`family_plan`} for every FAMILY_TRAIN arch, 17:
+    :func:`full_plans`}."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
     torch.set_num_threads(1)
-    return {arch: family_plan(arch) for arch in FAMILY_TRAIN}
+    out = {}
+    if 16 in phases:
+        out[16] = {arch: family_plan(arch) for arch in FAMILY_TRAIN}
+    if 17 in phases:
+        out[17] = full_plans()
+    return out
 
 
-def start_family_plans():
+def start_family_plans(phases):
     """:func:`family_plans` started in a spawned process -> (its pool, to
     terminate, and the pending result)."""
     import multiprocessing
     pool = multiprocessing.get_context("spawn").Pool(1)
-    return pool, pool.apply_async(family_plans)
+    return pool, pool.apply_async(family_plans, (sorted(phases),))
 
 
 def _loss_grads(torch, run, impl, params, batch):
@@ -5596,7 +5785,7 @@ def family_train(torch, dev, arch, plan):
     from repro_torch.models import api
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.train.steps import make_train_step
-    _, S, remat, steps = FAMILY_TRAIN[arch]
+    _, S, remat, steps = TRAIN_SHAPES[arch]
     B, layers, rec, none_flops, trace_s = plan
     run = _family_run(arch, B, S, layers, remat)
     t0 = t1 = time.perf_counter()
@@ -5784,7 +5973,7 @@ def phase_family_training(torch, dev, plans):
     launches a train step by arch, numbers by arch, kernel 7 launches in
     musicgen's serving run)"""
     t0 = time.perf_counter()
-    plans = plans.get()
+    plans = plans.get()[16]
     phase("family_plans", waited_s=round(time.perf_counter() - t0, 3),
           **{f"{a}_dryrun_s": round(p[4], 3) for a, p in plans.items()})
     numbers, launches, secs = {}, {}, {}
@@ -5807,8 +5996,188 @@ def phase_family_training(torch, dev, plans):
     return launches, numbers, serve_launches
 
 
+# ------------------------------------------------------------------ phase 17
+
+#: phase 17: the configs that had never run on the card, served at full
+#: width at 15b's and 16e's shape (requests x prompt tokens, new tokens,
+#: the profiled prefill's prompt tokens, as FAMILY_SERVE), each at the
+#: largest depth whose dry-run prefill (R x S) and decode (R at S + N)
+#: peak estimates are both within SERVE_PEAK_LIMIT bytes: ~8 GB of the
+#: card's 80 left for the checks at 1 x S
+FULL_SERVE = ("qwen2.5-32b", "granite-34b", "internvl2-76b",
+              "kimi-k2-1t-a32b")
+FULL_SERVE_SHAPE = (4, 2048, 32, 2048, None)
+SERVE_PEAK_LIMIT = 72e9
+#: 17e: the vlm's train step on the card (batch x sequence with
+#: VISION_PATCHES patches, remat, timed steps) at the largest depth whose
+#: dry-run peak estimate is within TRAIN_PEAK_LIMIT bytes, the batch
+#: halved while no depth is
+VLM_ARCH = "internvl2-76b"
+VLM_TRAIN = (4, 2048, "full", 2)
+TRAIN_PEAK_LIMIT = 72e9
+#: every train step's shape, by arch (phase 16's and 17e's)
+TRAIN_SHAPES = {**FAMILY_TRAIN, VLM_ARCH: VLM_TRAIN}
+#: kimi-k2's train step (its Adafactor), planned only: one layer at 1 x
+#: 2,048 does not fit one card, so no depth of it trains there
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_TRAIN = (1, 2048, "full", 1)
+
+
+def _largest_depth(fits, full: int) -> int:
+    """The largest L <= ``full`` with ``fits(L)``, for a ``fits`` that
+    turns false as L grows (a peak estimate within a limit), or 0 when
+    not even one layer fits: L doubled from 1 while it fits, then
+    bisected (a trace's time grows with L, so the deep ones come last)."""
+    if not fits(1):
+        return 0
+    lo = 1
+    while lo < full:
+        hi = min(2 * lo, full)
+        if not fits(hi):
+            break
+        lo = hi
+    else:
+        return full
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def serve_plan(arch):
+    """17's dry run of ``arch`` served at FULL_SERVE_SHAPE (meta tensors on
+    the host): the largest depth whose prefill and decode peak estimates
+    are both within SERVE_PEAK_LIMIT.  -> (layers, the prefill record,
+    the decode record, seconds); raises when not even one layer fits."""
+    from repro_torch.configs import get_model_config
+    R, S, N, _, _ = FULL_SERVE_SHAPE
+    cfg = get_model_config(arch)
+    records = {}
+    t0 = time.perf_counter()
+
+    def fits(L):
+        cut = dataclasses.replace(cfg, num_layers=L)
+        pre = _dryrun_shape(arch, "prefill_32k", S, R, "prefill", cut)
+        dec = None
+        if pre["memory"]["peak_estimate_bytes"] <= SERVE_PEAK_LIMIT:
+            dec = _dryrun_shape(arch, "decode_32k", S + N, R, "decode", cut)
+        records[L] = (pre, dec)
+        return dec is not None and \
+            dec["memory"]["peak_estimate_bytes"] <= SERVE_PEAK_LIMIT
+    L = _largest_depth(fits, cfg.num_layers)
+    if not L:
+        raise AssertionError(f"phase 17: {arch} does not fit one card at "
+                             f"one layer: {records[1][0]['memory']}")
+    return (L, *records[L], time.perf_counter() - t0)
+
+
+def vlm_train_plan():
+    """17e's dry run of VLM_ARCH's train step: VLM_TRAIN's batch, halved
+    while no depth fits, at the largest depth whose peak estimate is
+    within TRAIN_PEAK_LIMIT.  -> (batch, layers, the train record, the
+    remat-"none" trace's FLOPs by op, seconds), as :func:`family_plan`"""
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch import dryrun
+    B, S, remat, _ = VLM_TRAIN
+    full = get_model_config(VLM_ARCH).num_layers
+    t0 = time.perf_counter()
+    while True:
+        records = {}
+
+        def fits(L):
+            records[L] = _train_record(VLM_ARCH, _family_run(
+                VLM_ARCH, B, S, L, remat))
+            return records[L]["memory"]["peak_estimate_bytes"] <= \
+                TRAIN_PEAK_LIMIT
+        L = _largest_depth(fits, full)
+        if L or B == 1:
+            break
+        B //= 2
+    if not L:
+        raise AssertionError(f"phase 17e: {VLM_ARCH} does not train on one "
+                             f"card at one layer: {records[1]['memory']}")
+    none, _ = dryrun.trace_cell(dataclasses.replace(
+        _family_run(VLM_ARCH, B, S, L, remat), remat="none"))
+    return B, L, records[L], dict(none.flops_by_op), \
+        time.perf_counter() - t0
+
+
+def kimi_train_plan():
+    """The dry run of kimi-k2's train step at KIMI_TRAIN (one layer, its
+    own optimizer), which does not run: -> numbers."""
+    B, S, remat, _ = KIMI_TRAIN
+    t0 = time.perf_counter()
+    run = _family_run(KIMI_ARCH, B, S, 1, remat)
+    rec = _train_record(KIMI_ARCH, run)
+    mem = rec["memory"]
+    return dict(arch=KIMI_ARCH, layers=1, batch=B, seq=S, remat=remat,
+                optimizer=run.optimizer.name,
+                peak_estimate_gb=mem["peak_estimate_bytes"] / 1e9,
+                argument_gb=mem["argument_bytes"] / 1e9,
+                trains_on_one_card=rec["fits_one_card"],
+                dryrun_s=time.perf_counter() - t0)
+
+
+def full_plans():
+    """Phase 17's dry runs: {"serve": {arch: :func:`serve_plan`}, "vlm":
+    :func:`vlm_train_plan`, "kimi": :func:`kimi_train_plan`}."""
+    return dict(serve={arch: serve_plan(arch) for arch in FULL_SERVE},
+                vlm=vlm_train_plan(), kimi=kimi_train_plan())
+
+
+def phase_full_configs(torch, dev, plans):
+    """Phase 17: qwen2.5-32b, granite-34b, internvl2-76b (with sealed
+    patches) and kimi-k2 served at full width (:func:`phase_full_serve`)
+    at the depths their dry runs fit (``plans``: :func:`family_plans`'
+    pending result), then internvl2-76b trained at its planned depth and
+    batch (:func:`family_train`); kimi-k2's train plan printed.  ->
+    ({arch: kernel 7 launches in its serving run}, numbers by arch)"""
+    from repro_torch.configs import get_model_config
+    t0 = time.perf_counter()
+    plans = plans.get()[17]
+    serve, kimi = plans["serve"], plans["kimi"]
+    phase("full_plans", waited_s=round(time.perf_counter() - t0, 3),
+          serve_peak_limit_gb=SERVE_PEAK_LIMIT / 1e9,
+          train_peak_limit_gb=TRAIN_PEAK_LIMIT / 1e9,
+          **{f"{a}_layers": f"{p[0]}/{get_model_config(a).num_layers}"
+             for a, p in serve.items()},
+          **{f"{a}_prefill_estimate_gb":
+             p[1]["memory"]["peak_estimate_bytes"] / 1e9
+             for a, p in serve.items()},
+          **{f"{a}_decode_estimate_gb":
+             p[2]["memory"]["peak_estimate_bytes"] / 1e9
+             for a, p in serve.items()},
+          **{f"{a}_plan_s": round(p[3], 3) for a, p in serve.items()},
+          vlm_batch=plans["vlm"][0], vlm_layers=plans["vlm"][1],
+          vlm_estimate_gb=plans["vlm"][2]["memory"]["peak_estimate_bytes"]
+          / 1e9, vlm_plan_s=round(plans["vlm"][4], 3))
+    phase("kimi_train_plan", **kimi)
+    launches, numbers, secs = {}, {}, {}
+    for arch in FULL_SERVE:
+        t1 = time.perf_counter()
+        L, pre, dec, _ = serve[arch]
+        launches[arch], numbers[arch] = phase_full_serve(
+            torch, dev, arch, FULL_SERVE_SHAPE, "full_serve", layers=L,
+            records=(pre, dec))
+        secs[arch] = round(time.perf_counter() - t1, 3)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    numbers[f"{VLM_ARCH} train"] = family_train(torch, dev, VLM_ARCH,
+                                                plans["vlm"])
+    secs["vlm_train"] = round(time.perf_counter() - t1, 3)
+    numbers[f"{KIMI_ARCH} train plan"] = kimi
+    phase("full_configs", card=CARD,
+          seconds=round(time.perf_counter() - t0, 3),
+          **{f"{k}_s": v for k, v in secs.items()})
+    return launches, numbers
+
+
 def run_phases(torch, dev, args, phases, mixes, probes, plans, mark):
-    """Phases 2-16 of ``phases``, each after ``mark(its number)`` ->
+    """Phases 2-17 of ``phases``, each after ``mark(its number)`` ->
     what the kernels' line reads of them (see :func:`main`)."""
     mark(2)
     kernels = []
@@ -5856,7 +6225,8 @@ def run_phases(torch, dev, args, phases, mixes, probes, plans, mark):
         launches["serve"] = phase_serve(torch, dev)
     mark(11)
     if 11 in phases:
-        phase_ft_flights(torch, dev, args.records, flights_out)
+        phase_ft_flights(torch, dev, FT_RECORDS, flights_out
+                         if args.records == FT_RECORDS else None)
         mark("11b")
         phase_ft_stage8(torch, dev)
         mark("11c")
@@ -5888,10 +6258,16 @@ def run_phases(torch, dev, args, phases, mixes, probes, plans, mark):
     fam_train_launches, fam_train, musicgen_launches = \
         phase_family_training(torch, dev, plans) if 16 in phases \
         else ({}, {}, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(17)
+    full_launches, full_numbers = phase_full_configs(torch, dev, plans) \
+        if 17 in phases else ({}, {})
     return (kernels, launches, extra, wire_launches, wire_rows,
             train_launches, train_numbers, head_dims, family_launches,
             family_numbers, qwen_launches, dryrun_numbers,
-            fam_train_launches, fam_train, musicgen_launches)
+            fam_train_launches, fam_train, musicgen_launches,
+            full_launches, full_numbers)
 
 
 def main() -> int:
@@ -5899,7 +6275,7 @@ def main() -> int:
     ap.add_argument("--records", type=int, default=RECORDS,
                     help="DelayedFlights records of phase 3")
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -5933,14 +6309,16 @@ def main() -> int:
           device=torch.cuda.get_device_name(0))
     mark(1)
     mixes, probes = phase_card_and_build(torch)
-    # phase 16's dry runs need no device: they run beside phases 2-15
-    pool, plans = start_family_plans() if 16 in phases else (None, None)
+    # phases 16's and 17's dry runs need no device: they run beside
+    # phases 2-15
+    pool, plans = start_family_plans(phases) if phases & {16, 17} \
+        else (None, None)
     try:
         (kernels, launches, extra, wire_launches, wire_rows, train_launches,
          train_numbers, head_dims, family_launches, family_numbers,
          qwen_launches, dryrun_numbers, fam_train_launches, fam_train,
-         musicgen_launches) = run_phases(torch, dev, args, phases, mixes,
-                                         probes, plans, mark)
+         musicgen_launches, full_launches, full_numbers) = run_phases(
+             torch, dev, args, phases, mixes, probes, plans, mark)
     finally:
         if pool is not None:
             pool.terminate()
@@ -5979,6 +6357,13 @@ def main() -> int:
                 "mfu", "busy_share", "measured_peak_gb",
                 "peak_estimate_over_measured")}
                 for a, n in fam_train.items() if "mfu" in n}
+        if k["name"] == "flash_attention_fwd" and full_numbers:
+            k["launches_full_serve"] = full_launches
+            k["full_configs"] = {a: {f: n.get(f) for f in (
+                "layers", "ttft_ms", "prefill_tokens_per_s",
+                "decode_ms_per_step", "peak_memory_gb", "sec_per_step",
+                "mfu", "kernel7_launches_a_step")}
+                for a, n in full_numbers.items() if "plan" not in a}
     mark("end")
     phase("done", seconds=round(time.perf_counter() - t_start, 3),
           phase_seconds=json.dumps({

@@ -36,18 +36,19 @@ flash_attention_fwd``), and counts:
 
 Loops: the reference's point (``hloanalysis.py:3-8``) is that XLA counts
 a ``while`` body once.  Eager dispatch counts every trip, so here the
-trouble is time, not correctness: xlstm's sLSTM runs a Python step per
-token (:func:`repro_torch.models.xlstm._slstm_scan`), millions of ops at
-``prefill_32k``.  With ``scale_loops=True`` that loop runs its first trip
-as is and its second once, with the second trip's counts (forward and,
-through autograd markers, backward) multiplied by the trips left; the
-hidden states of the skipped trips are the second trip's, and the
-storage they would keep alive is held as one meta block of the same size.
-Each scaled loop is named in :attr:`Analysis.loop_scaled`.
+trouble is time, not correctness: a recurrence run as a Python step per
+token is millions of ops at ``prefill_32k``.  A model states that its
+body repeats by running the loop through :func:`scan`, the trip-count
+marker.  Outside an analysis ``scan`` is the plain loop; under
+``analyze(..., scale_loops=True)`` it runs its first trip as is and its
+second once, with the second trip's counts (forward and, through
+autograd markers, backward) multiplied by the trips left; the carry of
+the skipped trips is the second trip's, and the storage they would keep
+alive is held as one meta block of the same size.  Each scaled loop is
+named in :attr:`Analysis.loop_scaled` by the name its caller gives.
 """
 from __future__ import annotations
 
-import contextlib
 import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -157,7 +158,9 @@ class _Counter(TorchDispatchMode):
         self.out.collective_count += 1
 
 
-_ACTIVE: List[_Counter] = []
+#: the counters of the analyses running with ``scale_loops``, the
+#: innermost last: :func:`scan` scales its loop for that one
+_SCALING: List[_Counter] = []
 
 
 class _LoopEntry(torch.autograd.Function):
@@ -202,71 +205,68 @@ class _LoopExit(torch.autograd.Function):
         return (None, None) + grads
 
 
-def _scaled_slstm_scan(counter: _Counter, records: List[Dict[str, Any]]):
-    """``xlstm._slstm_scan`` with its trips past the second counted from
-    the second: the body is the same at every trip (one sLSTM step on
-    (B, d) state), and the second, unlike the first, reads a state that
-    autograd tracks."""
-    from repro_torch.models import xlstm
-    real = xlstm._slstm_scan
-
-    def scan(p, cfg, state, pre, r32):
-        S = pre["z"].shape[1]
-        if S <= 2:
-            return real(p, cfg, state, pre, r32)
-        steps = {g: v.unbind(1) for g, v in pre.items()}
-        state = xlstm._slstm_step(p, cfg, state,
-                                  {g: v[0] for g, v in steps.items()}, r32)
-        keys, gates = sorted(state), sorted(pre)
-        bias = [f"b_{g}" for g in gates]
-        rest = S - 1
-        before = counter.live_bytes
-        inv = [r32[g] for g in gates] + [p[b] for b in bias]
-        ys = _LoopEntry.apply(counter, rest, len(inv), *inv,
-                              *[state[k] for k in keys],
-                              *[steps[g][1] for g in gates])
-        entry = ys[0].grad_fn
-        n_g, n_k = len(gates), len(keys)
-        p1 = dict(p, **dict(zip(bias, ys[n_g:2 * n_g])))
-        counter.scale = float(rest)
-        try:
-            st = xlstm._slstm_step(
-                p1, cfg, dict(zip(keys, ys[2 * n_g:2 * n_g + n_k])),
-                dict(zip(gates, ys[2 * n_g + n_k:])),
-                dict(zip(gates, ys[:n_g])))
-        finally:
-            counter.scale = 1.0
-        out = dict(zip(keys, _LoopExit.apply(counter, float(rest),
-                                             *[st[k] for k in keys])))
-        # what each skipped trip keeps alive: its saved tensors while the
-        # backward needs them (held by the entry marker), else its h (held
-        # by the h that stands for it in the list)
-        per_trip = counter.live_bytes - before if entry is not None \
-            else _nbytes(out["h"])
-        if rest > 1 and per_trip > 0:
-            block = torch.empty((per_trip * (rest - 1),), dtype=torch.uint8,
-                                device="meta")
-            if entry is not None:
-                entry.block = block
-            else:
-                out["h"]._skipped_trips_block = block
-        records.append(dict(loop="repro_torch.models.xlstm._slstm_scan",
-                            trips=S, counted_trips=2, scaled_by=rest,
-                            live_bytes_per_trip=per_trip))
-        return out, [state["h"]] + [out["h"]] * rest
-
-    return scan, real
+def scan(body: Callable, carry: Dict[str, torch.Tensor],
+         xs: Dict[str, torch.Tensor], consts: Dict[str, torch.Tensor], *,
+         keep: str, name: str):
+    """The loop ``carry = body(carry, x_t, consts)`` for t < T, where x_t
+    holds each of ``xs``' (B, T, ...) tensors at step t (one ``unbind``
+    each, whose backward is one stack) and ``consts`` the tensors every
+    trip reads (weights).  -> (the last carry, [carry[keep] after each
+    trip]).  Under :func:`analyze` with ``scale_loops`` a loop of more
+    than two trips is counted from two (:func:`_scaled_scan`) and named
+    ``name`` in :attr:`Analysis.loop_scaled`."""
+    steps = {k: v.unbind(1) for k, v in xs.items()}
+    trips = len(next(iter(steps.values())))
+    if _SCALING and trips > 2:
+        return _scaled_scan(_SCALING[-1], body, carry, steps, consts,
+                            trips, keep, name)
+    kept = []
+    for t in range(trips):
+        carry = body(carry, {k: s[t] for k, s in steps.items()}, consts)
+        kept.append(carry[keep])
+    return carry, kept
 
 
-@contextlib.contextmanager
-def _scaled_loops(counter: _Counter, records: List[Dict[str, Any]]):
-    from repro_torch.models import xlstm
-    scan, real = _scaled_slstm_scan(counter, records)
-    xlstm._slstm_scan = scan
+def _scaled_scan(counter: _Counter, body, carry, steps, consts, trips, keep,
+                 name):
+    """:func:`scan` with its trips past the second counted from the
+    second: the body is the same at every trip, and the second, unlike
+    the first, reads a carry that autograd tracks."""
+    carry = body(carry, {k: s[0] for k, s in steps.items()}, consts)
+    ckeys, xkeys, wkeys = sorted(carry), sorted(steps), sorted(consts)
+    rest = trips - 1
+    before = counter.live_bytes
+    inv = [consts[k] for k in wkeys]
+    ys = _LoopEntry.apply(counter, rest, len(inv), *inv,
+                          *[carry[k] for k in ckeys],
+                          *[steps[k][1] for k in xkeys])
+    entry = ys[0].grad_fn
+    n_w, n_c = len(wkeys), len(ckeys)
+    counter.scale = float(rest)
     try:
-        yield
+        st = body(dict(zip(ckeys, ys[n_w:n_w + n_c])),
+                  dict(zip(xkeys, ys[n_w + n_c:])), dict(zip(wkeys,
+                                                            ys[:n_w])))
     finally:
-        xlstm._slstm_scan = real
+        counter.scale = 1.0
+    out = dict(zip(ckeys, _LoopExit.apply(counter, float(rest),
+                                          *[st[k] for k in ckeys])))
+    # what each skipped trip keeps alive: its saved tensors while the
+    # backward needs them (held by the entry marker), else its kept carry
+    # (held by the one that stands for it in the list)
+    per_trip = counter.live_bytes - before if entry is not None \
+        else _nbytes(out[keep])
+    if rest > 1 and per_trip > 0:
+        block = torch.empty((per_trip * (rest - 1),), dtype=torch.uint8,
+                            device="meta")
+        if entry is not None:
+            entry.block = block
+        else:
+            out[keep]._skipped_trips_block = block
+    counter.out.loop_scaled.append(dict(
+        loop=name, trips=trips, counted_trips=2, scaled_by=rest,
+        live_bytes_per_trip=per_trip))
+    return out, [carry[keep]] + [out[keep]] * rest
 
 
 def analyze(fn: Callable, *args, scale_loops: bool = False,
@@ -284,11 +284,14 @@ def analyze(fn: Callable, *args, scale_loops: bool = False,
         counter.track(t)
     counter.out.argument_bytes = counter.live_bytes
     arg_keys = set(counter.live)
-    loops: List[Dict[str, Any]] = []
-    scaled = _scaled_loops(counter, loops) if scale_loops \
-        else contextlib.nullcontext()
-    with scaled, collectives.observe(counter.collective), counter:
-        result = fn(*args, **kwargs)
+    if scale_loops:
+        _SCALING.append(counter)
+    try:
+        with collectives.observe(counter.collective), counter:
+            result = fn(*args, **kwargs)
+    finally:
+        if scale_loops:
+            _SCALING.remove(counter)
     seen = set()
     for t in _tensors(result):
         key = _storage_key(t)
@@ -300,5 +303,4 @@ def analyze(fn: Callable, *args, scale_loops: bool = False,
             counter.out.alias_bytes += n
         else:
             counter.out.output_bytes += n
-    counter.out.loop_scaled = loops
     return counter.out, result

@@ -65,7 +65,7 @@ class ParamSpec:
         """Draw the tensor from ``generator`` (which must live on
         ``device``): N(0, std^2) in f32, then cast, as the reference.  The
         leaf is drawn in slabs of at most :data:`SLAB_ELEMENTS` values
-        along its first axis (one slab, the whole leaf, for all but the
+        (:func:`_slabs`: one slab, the whole leaf, for all but the
         largest), each cast into the result as it is drawn, so the f32
         temporary is one slab, not the leaf (moonshot's stacked expert
         leaf, 8.86e9 values, would need 35 GB of f32)."""
@@ -77,13 +77,30 @@ class ParamSpec:
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
         std = self.scale if self.scale is not None else 1.0 / math.sqrt(fan_in)
         out = torch.empty(self.shape, dtype=dt, device=device)
-        rows = max(1, SLAB_ELEMENTS // (out.numel() // self.shape[0]))
-        for i in range(0, self.shape[0], rows):
-            part = out[i:i + rows]
+        for part in _slabs(out):
             part.copy_(torch.randn(part.shape, generator=generator,
                                    dtype=torch.float32, device=device)
                        .mul_(std))
         return out
+
+
+def _slabs(t: torch.Tensor):
+    """``t`` as consecutive views of at most :data:`SLAB_ELEMENTS` values,
+    in its order: runs of whole rows along the first axis, and a row that
+    alone holds more (kimi-k2's (1, 384, 7168, 2048) expert leaf at one
+    layer: 5.64e9 values, 22.5 GB of f32) in its own slabs along the next
+    axis, and so on down."""
+    if t.numel() <= SLAB_ELEMENTS:
+        yield t
+        return
+    row = t.numel() // t.shape[0]
+    if row > SLAB_ELEMENTS:
+        for i in range(t.shape[0]):
+            yield from _slabs(t[i])
+        return
+    rows = SLAB_ELEMENTS // row
+    for i in range(0, t.shape[0], rows):
+        yield t[i:i + rows]
 
 
 def tree_map_specs(fn: Callable[[ParamSpec], Any], template: Params) -> Params:

@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.analysis import scan
 from repro_torch.models.gla import chunked_gla, gla_decode_step
 from repro_torch.models.layers import ParamSpec, Params, rms_norm
 
@@ -193,18 +194,17 @@ def _slstm_ffn(p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
 
 def _slstm_scan(p: Params, cfg, state, pre, r32):
     """The sLSTM over the sequence, one step a token (the reference's
-    ``lax.scan``).  pre: each gate's projected inputs, (B, S, d), read a
-    step at a time through one ``unbind`` (whose backward is one stack,
-    where a slice a step would make a zeroed (B, S, d) gradient a step).
-    -> (the final state, [h_t] for each t).  The dry run's analyzer counts
-    this loop from two trips (:mod:`repro_torch.launch.analysis`)."""
-    steps = {g: v.unbind(1) for g, v in pre.items()}   # one stack back
-    hs = []
-    for t in range(pre["z"].shape[1]):
-        state = _slstm_step(p, cfg, state, {g: steps[g][t] for g in steps},
-                            r32)
-        hs.append(state["h"])
-    return state, hs
+    ``lax.scan``) through the dry run's trip-count marker
+    (:func:`repro_torch.launch.analysis.scan`, a plain loop outside an
+    analysis).  pre: each gate's projected inputs, (B, S, d), read a step
+    at a time.  -> (the final state, [h_t] for each t)."""
+    def step(state, pre_t, w):
+        return _slstm_step(w, cfg, state, pre_t,
+                           {g: w[f"r_{g}"] for g in "zifo"})
+    consts = {**{f"b_{g}": p[f"b_{g}"] for g in "zifo"},
+              **{f"r_{g}": r32[g] for g in "zifo"}}
+    return scan(step, state, pre, consts, keep="h",
+                name=f"{__name__}._slstm_scan")
 
 
 def _slstm_core(p: Params, x: torch.Tensor, cfg, *, with_state: bool = False):

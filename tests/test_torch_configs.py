@@ -114,3 +114,20 @@ def test_param_draw_in_slabs(monkeypatch, dtype):
     assert all(not torch.equal(slabs[i], slabs[j])
                for i in range(3) for j in range(i))
     assert abs(float(got.float().std()) * math.sqrt(16) - 1) < 0.1
+
+
+def test_param_draw_slabs_a_row_too_large_along_the_next_axis(monkeypatch):
+    """A leaf whose one row along the first axis holds more than
+    ``SLAB_ELEMENTS`` values (kimi-k2's expert leaf at one layer) is drawn
+    in slabs along the next axis: the bits of the leaf without its unit
+    first axis, which runs along its first axis as before."""
+    import torch
+
+    from repro_torch.models import layers
+    monkeypatch.setattr(layers, "SLAB_ELEMENTS", 2 * 16 * 32 + 5)
+    flat = ParamSpec((6, 16, 32), ("experts", None, None))
+    deep = ParamSpec((1, 6, 16, 32), ("layers", "experts", None, None))
+    want = flat.initialize(torch.Generator().manual_seed(3), "cpu")
+    got = deep.initialize(torch.Generator().manual_seed(3), "cpu")
+    assert got.shape == deep.shape and torch.equal(got[0], want)
+    assert [tuple(s.shape) for s in layers._slabs(got)] == [(2, 16, 32)] * 3

@@ -195,6 +195,37 @@ def test_scaled_slstm_loop_counts_what_the_full_loop_counts(train):
         0.25 * full.peak_live_bytes
 
 
+def test_the_analyzer_names_no_model_module_and_patches_none():
+    """A model's loop is scaled through the trip-count marker the model
+    itself calls (``analysis.scan``): the analyzer imports no model
+    module, names none, and assigns to no attribute of a module."""
+    import ast
+    import re
+    src = Path(A.__file__).read_text()
+    tree = ast.parse(src)
+    modules = {a.asname or a.name.split(".")[0] for n in ast.walk(tree)
+               if isinstance(n, (ast.Import, ast.ImportFrom))
+               for a in n.names}
+    imported = [n.module for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom)] + [
+        a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+        for a in n.names]
+    assert not [m for m in imported if "models" in (m or "")]
+    names = sorted(p.stem for p in (ROOT / "src" / "repro_torch" /
+                                    "models").glob("*.py")
+                   if p.stem not in ("__init__", "flash", "layers", "api"))
+    assert names and not re.findall(
+        r"\b(%s)\b" % "|".join(names), src.lower())
+    assert "repro_torch.models" not in src and "setattr(" not in src
+    patched = [t for n in ast.walk(tree)
+               if isinstance(n, (ast.Assign, ast.AugAssign))
+               for t in (n.targets if isinstance(n, ast.Assign)
+                         else [n.target])
+               if isinstance(t, ast.Attribute)
+               and isinstance(t.value, ast.Name) and t.value.id in modules]
+    assert not patched
+
+
 def test_hier_attention_halves_the_all_blocks_flops():
     """The reference's ``test_hier_attention_halves_hlo_flops``: at S =
     512 the recursive-halving schedule counts < 0.65x the FLOPs of the
