@@ -121,11 +121,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    fatal crash, a stall, a tamper, a dropped verdict and a failed spare
    enrollment (a revocation of sgx_filter/w1 leaves the fatal crash
    without a survivor, so a spare is enrolled live), beside the same job
-   without faults, at FT_RECORDS: both equal numpy (and phase 3's result
-   at its size), every fault fires and leaves its audit footprint once,
-   and in every (stage, round) the window hop (kernel 3, re-encrypting
-   under the fresh outbound nonces) runs once a share the chaos run
-   dispatched plus once a launch the audit log shows a fault wasted;
+   without faults: both equal numpy and phase 3's result, every fault
+   fires and leaves its audit footprint once, and the window hop (kernel
+   3, re-encrypting under the fresh outbound nonces) runs once more than
+   fault-free for every launch the audit log shows a fault wasted (and,
+   in every (stage, round), once a share the engine dispatched plus once
+   a launch wasted there);
    ``ft.*`` counters, seconds and records/s.  (b) the 8-stage job
    (phase 6's, 256 chunks) under ``ChaosPlan.seeded`` for 4 seeds,
    encrypted and enclave: bit-equal to the fault-free sum and numpy.
@@ -206,9 +207,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    caches, the share of (token, layer) top-k expert sets that differ)
    and layer by layer (each layer fed the plain run's input: kernel 7
    within the limit, the two wrong attentions of phase 10 outside it);
-   decode at S against prefill(S + 1) layer by layer, the prefill's MoE
-   update of the new token taken on its own rows (nothing dropped), for
-   the requests whose new token is routed alike in both.  (c) zamba2-1.2b (38 Mamba2 layers, 6 shared-attention
+   decode at S against prefill(S + 1) on a copy of the config whose
+   capacity drops nothing, for the requests whose new token is routed
+   alike in both.  (c) zamba2-1.2b (38 Mamba2 layers, 6 shared-attention
    calls, kernel 7 6 times a prefill): 8 prompts of 4,096 tokens, 64
    decode steps, the same kernel-versus-plain checks (each beside a
    prefill whose attention sums in another order), and 256
@@ -2762,14 +2763,10 @@ def phase_serve_check(torch, cfg, params, prompts):
 #: (stage, round, worker) of the fault-tolerant engine's rounds (16 chunks
 #: a round with two live workers, 8 with one).  Every crash fires after
 #: its share ran, so each fault costs exactly one more launch of the
-#: window hop than the shares the chaos run dispatched (which may be
-#: other than the fault-free run's launches: see phase_ft_flights).
-#: Revoking sgx_filter/w1 at chunk FT_REVOKE_CHUNK leaves the fatal crash
-#: of its w0 without a survivor: the engine enrolls a spare live, and the
-#: plan's enrollment failure hits that admission.  FT_RECORDS: its
-#: records (cut from phase 3's 28 M for the script's time limit; its
-#: result is compared with phase 3's when the two are the same size)
-FT_RECORDS = 8 * 1024 * 1024
+#: window hop than the fault-free run.  Revoking sgx_filter/w1 at chunk
+#: FT_REVOKE_CHUNK leaves the fatal crash of its w0 without a survivor:
+#: the engine enrolls a spare live, and the plan's enrollment failure
+#: hits that admission.
 FT_WORKERS = 2
 FT_REKEY = 3
 FT_REVOKE_CHUNK = 2048
@@ -2865,58 +2862,19 @@ def _wasting(dump):
             or e["kind"] == "window_replayed"]
 
 
-class _HopLedger:
-    """The window-hop launches of a pipeline's fault-tolerant stages by
-    (stage, round): the shares dispatched (``_ft_dispatch_share``), the
-    launches inside them (each share's own, its retries, failovers and
-    backups) and those after them in their round (the replays), counted
-    by wrapping both methods on the instance (in this script only)."""
-
-    def __init__(self, p):
-        from collections import defaultdict
-        from repro_torch.kernels import build
-        self.rows = defaultdict(lambda: [0, 0, 0])
-        self.at, self.inside = None, False
-        dispatch, execute = p._ft_dispatch_share, p._ft_exec
-
-        def share(st, pool, ft, rnd, *rest):
-            self.at = (st.name, rnd)
-            self.rows[self.at][0] += 1
-            self.inside = True
-            try:
-                return dispatch(st, pool, ft, rnd, *rest)
-            finally:
-                self.inside = False
-
-        def run(st, *rest):
-            n0 = build.launch_counts()["ss_enclave_map_window"]
-            out = execute(st, *rest)
-            n = build.launch_counts()["ss_enclave_map_window"] - n0
-            if self.at is None or self.at[0] != st.name:
-                raise AssertionError(f"a hop of {st.name} outside a round")
-            self.rows[self.at][1 if self.inside else 2] += n
-            return out
-        p._ft_dispatch_share, p._ft_exec = share, run
-
-    def totals(self):
-        """-> (shares, launches in shares, launches in replays)"""
-        return tuple(sum(r[i] for r in self.rows.values()) for i in range(3))
-
-    def unexplained(self, dump):
-        """The (stage, round)s whose launches are not one a share plus one
-        a wasted launch of the audit there, each with its counts and the
-        audit's events of that round."""
-        from collections import Counter
-        wasted = Counter((e["stage"], e["round"]) for e in _wasting(dump))
-        bad = [(at, r) for at, r in sorted(self.rows.items())
-               if r[1] + r[2] != r[0] + wasted[at]]
-        return [dict(stage=at[0], round=at[1], shares=r[0],
-                     launches_in_shares=r[1], launches_in_replays=r[2],
-                     wasted_in_audit=wasted[at],
-                     events=[e["kind"] for e in dump
-                             if e.get("stage") == at[0]
-                             and e.get("round") == at[1]])
-                for at, r in bad]
+def unexplained_rounds(ft, dump):
+    """The (stage, round)s of a fault-tolerant run (``ft``: its
+    FTContext) whose executions are not one a share dispatched plus one a
+    launch the audit log shows a fault wasted there, each with its counts
+    and the audit's events of that round."""
+    from collections import Counter
+    wasted = Counter((e["stage"], e["round"]) for e in _wasting(dump))
+    return [dict(stage=at[0], round=at[1], shares=ft.shares[at],
+                 executions=ft.executions[at], wasted_in_audit=wasted[at],
+                 events=[e["kind"] for e in dump if e.get("stage") == at[0]
+                         and e.get("round") == at[1]])
+            for at in sorted(set(ft.executions) | set(wasted))
+            if ft.executions[at] != ft.shares[at] + wasted[at]]
 
 
 def ft_counters():
@@ -2931,10 +2889,11 @@ def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
     ``ft_plan``), beside the same job and stream without faults.  Both
     equal numpy (and phase 3's result when it ran); every fault fired
     and left its audit footprint once; the launch gate admits the cipher
-    pass and kernels 2 and 3 only; in every (stage, round) the window hop
-    ran once a share the chaos run dispatched plus once a launch the
-    audit log shows a fault wasted (``check_footprint``,
-    :class:`_HopLedger`); the fault-free run's launches beside them."""
+    pass and kernels 2 and 3 only; the window hop ran once more than in
+    the fault-free run for every launch the audit log shows a fault
+    wasted (``check_footprint``), once an execution the engine counted,
+    and in every (stage, round) once a share it dispatched plus once a
+    wasted launch of that round (:func:`unexplained_rounds`)."""
     from repro_torch.attest.directory import KeyDirectory
     from repro_torch.core.pipeline import Pipeline
     from repro_torch.data.synthetic import flight_records
@@ -2956,8 +2915,6 @@ def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
             sb = sb.retry(RetryPolicy(share_timeout_s=FT_SHARE_TIMEOUT_S)) \
                 .chaos(plan)
         p = sb.build("enclave")
-        if form == "chaos":
-            ledger = _HopLedger(p)
         revoke = (FT_REVOKE_CHUNK, lambda p=p: p.directory.revoke(
             Pipeline.worker_id("sgx_filter", 1)))
         REGISTRY.reset(prefix="ft.")
@@ -2977,19 +2934,17 @@ def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
     reexec = check_footprint("ft DelayedFlights", plan, dump)
     free_hops = runs["fault_free"][3]["ss_enclave_map_window"]
     hops = launches["ss_enclave_map_window"]
-    shares, in_shares, in_replays = ledger.totals()
-    # a re-execution seals under counters reserved from the ingress edge,
-    # which moves the rekey cadence's epoch boundaries and so the windows'
-    # parts and their shares after it: the chaos run's own shares, not the
-    # fault-free run's launches, are its launches without faults
-    unexplained = ledger.unexplained(dump)
-    if hops != in_shares + in_replays or hops != shares + reexec \
-            or unexplained:
+    ft = p._last_ft
+    shares, execs = sum(ft.shares.values()), sum(ft.executions.values())
+    unexplained = unexplained_rounds(ft, dump)
+    if hops - free_hops != reexec or hops != execs or unexplained:
         raise AssertionError(
-            f"ft DelayedFlights: {hops} window-hop launches ({in_shares} in "
-            f"{shares} shares, {in_replays} in replays; {free_hops} "
-            f"fault-free), the audit shows {reexec} re-executions that cost "
-            f"a launch; by stage and round: {unexplained[:20]}")
+            f"ft DelayedFlights: {hops} window-hop launches against "
+            f"{free_hops} fault-free, the audit shows {reexec} "
+            f"re-executions that cost a launch; the engine counted "
+            f"{shares} shares and {execs} executions; the (stage, round)s "
+            f"whose executions are not its shares plus its wasted "
+            f"launches: {unexplained[:20]}")
     filt = next(s for s in p.stages if s.name == "sgx_filter")
     if filt.workers != 3 or not p.directory.is_admitted("sgx_filter/w2"):
         raise AssertionError("ft DelayedFlights: no spare was enrolled "
@@ -3006,8 +2961,7 @@ def phase_ft_flights(torch, dev, n_records, faultfree_ref=None):
           faultfree_wall_s=round(free_wall, 3),
           faultfree_records_per_s=round(n / free_wall, 1),
           hop_launches=hops, faultfree_hop_launches=free_hops,
-          shares=shares, hop_launches_in_replays=in_replays,
-          shares_less_faultfree_launches=shares - free_hops,
+          shares=shares, executions=execs,
           reexecutions=reexec, spare="sgx_filter/w2",
           rekeys=audit.get("rekey", 0),
           **{f"ft_{k}": v for k, v in counters.items()})
@@ -4433,6 +4387,12 @@ DECODE_ROUTED_ALIKE_MIN = 0.9
 #: apart (the "hier" prefill against the plain one, PERF.md section 6)
 #: make one flip of 4 pairs a 25 % miss (the first card run: 3 of 4)
 DECODE_PAIRS_MIN = 64
+#: the decode check's no-drop copy of an MoE config holds an expert
+#: buffer of X · T rows of d_model (T tokens in the call): at most this
+#: many bytes, else its prefill side runs a chunk of the sequence at a
+#: time (kimi-k2's 384 x 8,256 x 7,168 in bf16 would be 45 GB; 272
+#: positions of 4 requests are 6.0 GB, moonshot's whole 4 x 2,049 2.1 GB)
+NODROP_BUFFER_BYTES = 6e9
 #: phase 14d: chunked_gla on the card against its sequential oracle (f32)
 GLA_TOL = (1e-4, 1e-4)
 #: the decode continuation in f32 (the weights cast to f32; kernel 7's f32
@@ -4928,7 +4888,8 @@ def _by_layer(xs) -> str:
                     if i < n)
 
 
-def decode_layerwise(torch, cfg, params, tokens, extra=None, steps=1):
+def decode_layerwise(torch, cfg, params, tokens, extra=None, steps=1,
+                     chunk=None):
     """Decode at positions S .. S + ``steps`` - 1 against prefill(S +
     ``steps``) of ``tokens`` (B, S + steps; ``extra``: a front end's inputs
     for them), one layer at a time: each layer's prefill over all the
@@ -4936,16 +4897,18 @@ def decode_layerwise(torch, cfg, params, tokens, extra=None, steps=1):
     layer (``mha_decode`` over the prefill's first S keys and values and
     the decoded ones since, the MoE at T = B) on each position's input;
     the two updates of the token compared for the requests whose token is
-    routed alike in both.  The prefill's MoE update of a token is its FFN
-    on that token's rows alone (T = B, as the decode's): with no other
-    token in the call no assignment of it is dropped (capacity >= 8 >
-    B), where the full prefill's capacity may drop it.  -> (largest
-    relative L2 of the compared updates, (request, layer, position)
-    triples routed alike, triples)"""
+    routed alike in both.  ``chunk``: the prefill's FFN runs over the last
+    ``chunk`` positions of every request at a time, the decoded ones in
+    the last chunk: where the capacity drops nothing, each token's MoE
+    update is the one the whole call gives it, at an expert buffer of B ·
+    ``chunk`` rows.  -> (largest relative L2 of the compared updates,
+    (request, layer, position) triples routed alike, triples)"""
     from repro_torch.models import api
     from repro_torch.models import layers as L
     B, S1 = tokens.shape
     S = S1 - steps
+    W = min(chunk or S1, S1)
+    assert W >= steps, (W, steps)
     x = api._embed(cfg, params, {"tokens": tokens, **(extra or {})})
     pos = torch.arange(S1, dtype=torch.int32, device=x.device)[None].expand(
         B, S1)
@@ -4955,24 +4918,30 @@ def decode_layerwise(torch, cfg, params, tokens, extra=None, steps=1):
         h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
         att, (k, v) = L.mha(p["attn"], h, cfg, positions=pos,
                             attn_impl="pallas_flash", return_kv=True)
-        y = api._ffn_residual(p, x + att, cfg)[0]
+        ys = []
+        for end in range(S1, 0, -W):
+            with _Routes() as r:
+                ys.append(api._ffn_residual(p, (x + att)[:, max(
+                    0, end - W):end], cfg)[0])
+            if end == S1:
+                rp = r
+        y = torch.cat(ys[::-1], dim=1)
+        del ys
         cache = {"k": torch.zeros_like(k), "v": torch.zeros_like(v)}
         cache["k"][:, :S], cache["v"][:, :S] = k[:, :S], v[:, :S]
         for t in range(S, S1):
-            with _Routes() as rp:
-                want = (api._ffn_residual(p, (x + att)[:, t:t + 1], cfg)[0][
-                    :, 0] - x[:, t]).float() if "moe" in p else \
-                    (y[:, t] - x[:, t]).float()
             xs = x[:, t:t + 1]
             with _Routes() as rd:
                 att1, _ = L.mha_decode(p["attn"], L.rms_norm(
                     xs, p["ln1"], cfg.rms_eps), cache, cfg, pos=t)
                 y1 = api._ffn_residual(p, xs + att1, cfg)[0]
-            same = ~_sets_differ(torch, rd.topi[0], rp.topi[0]) if rd.topi \
+            same = ~_sets_differ(torch, rd.topi[0], rp.topi[0].view(
+                B, W, -1)[:, t - S1 + W]) if rd.topi \
                 else torch.ones(B, dtype=torch.bool, device=x.device)
             alike += int(same.sum())
             pairs += B
             got = (y1[:, 0] - xs[:, 0]).float()
+            want = (y[:, t] - xs[:, 0]).float()
             rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
             if bool(same.any()):
                 worst = max(worst, float(rel[same].max()))
@@ -5002,10 +4971,12 @@ def continuation(torch, cfg, params, prompts, g, steps):
     return torch.stack(gaps).tolist()
 
 
-def decode_vs_prefill(torch, cfg, params, prompts, extra=None, steps=1):
+def decode_vs_prefill(torch, cfg, params, prompts, extra=None, steps=1,
+                      layer_cfg=None, chunk=None):
     """Decode at position S (after prefill(S) of ``prompts``, its greedy
     token) against prefill(S + 1) of the prompts and that token: the last
-    logits' max abs gap; and layer by layer (:func:`decode_layerwise`) at
+    logits' max abs gap; and layer by layer (:func:`decode_layerwise`, on
+    ``layer_cfg`` if given, its FFN ``chunk`` positions at a time) at
     ``steps`` positions, the greedy token and ``steps`` - 1 seeded ones
     after it.  ``extra``: a front end's inputs for the prompts (a decoded
     token has none: a zero frame in the prefill).  -> numbers"""
@@ -5025,21 +4996,32 @@ def decode_vs_prefill(torch, cfg, params, prompts, extra=None, steps=1):
                              device=full.device).manual_seed(8))
     full = torch.cat([full, cont], dim=1)
     layer_err, alike, pairs = decode_layerwise(
-        torch, cfg, params, full, _front_end(torch, extra, S + steps), steps)
+        torch, layer_cfg or cfg, params, full,
+        _front_end(torch, extra, S + steps), steps, chunk)
     return dict(decode_vs_prefill_max_abs=(logits_d - logits_p).abs().max()
                 .item(), decode_layer_rel_l2=layer_err,
                 decode_routed_alike=alike / pairs, decode_positions=steps,
                 decode_pairs=pairs, requests=B)
 
 
+def nodrop_chunk(cfg, B: int, S1: int) -> int:
+    """The positions of B requests whose no-drop MoE call holds an expert
+    buffer of at most NODROP_BUFFER_BYTES (S1 where the whole fits)."""
+    row = cfg.moe.num_experts * B * cfg.d_model * 2
+    return max(1, min(S1, int(NODROP_BUFFER_BYTES // row)))
+
+
 def phase_moe_checks(torch, cfg, params, prompts, extra=None):
     """Phase 14b's checks (and kimi-k2's in 17): the share of assignments
     the real capacity drops in the served prefill; kernel 7 against plain
-    at 1 x S; decode at position S against prefill(S + 1), layer by layer
-    with token S's MoE update on its own rows (:func:`decode_layerwise`:
-    no assignment of it dropped), at least DECODE_ROUTED_ALIKE_MIN of the
-    (request, layer) pairs routed alike.  ``extra``: a front end's
-    inputs."""
+    at 1 x S; decode at position S against prefill(S + 1) layer by layer
+    on a copy of the config whose capacity drops nothing (capacity factor
+    X / k), at least DECODE_ROUTED_ALIKE_MIN of the (request, layer)
+    pairs routed alike.  Where that copy's expert buffer over the whole
+    prefill exceeds NODROP_BUFFER_BYTES (kimi-k2), its FFN runs over
+    chunks of the sequence that fit, and the whole model's prefill(S + 1)
+    (its last logits' gap, printed) on the served config.  ``extra``: a
+    front end's inputs."""
     from repro_torch.models import api
     from repro_torch.models.moe import _capacity
     B, S = prompts.shape
@@ -5058,7 +5040,14 @@ def phase_moe_checks(torch, cfg, params, prompts, extra=None):
     out.update(kernel_vs_plain(torch, cfg, params, prompts[:1],
                                {k: v[:1] for k, v in extra.items()}))
     steps = -(-DECODE_PAIRS_MIN // (B * cfg.num_layers))
-    out.update(decode_vs_prefill(torch, cfg, params, prompts, extra, steps))
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    chunk = nodrop_chunk(cfg, B, S + steps)
+    out.update(decode_vs_prefill(
+        torch, nodrop if chunk == S + steps else cfg, params, prompts, extra,
+        steps, layer_cfg=nodrop, chunk=chunk),
+        nodrop_capacity_factor=nodrop.moe.capacity_factor,
+        nodrop_chunk=chunk)
     layer_err, alike = out["decode_layer_rel_l2"], out["decode_routed_alike"]
     ok = layer_err <= LAYER_ATTN_RTOL and alike >= DECODE_ROUTED_ALIKE_MIN
     phase("moe_decode_check", card=CARD, arch=cfg.arch_id,
@@ -5068,7 +5057,8 @@ def phase_moe_checks(torch, cfg, params, prompts, extra=None):
           **{k: out[k] for k in ("decode_vs_prefill_max_abs",
                                  "decode_layer_rel_l2", "decode_routed_alike",
                                  "decode_positions", "decode_pairs",
-                                 "requests")},
+                                 "requests", "nodrop_capacity_factor",
+                                 "nodrop_chunk")},
           ok=ok)
     if not ok:
         raise AssertionError(f"{cfg.arch_id}: decode at S against "
@@ -6225,8 +6215,7 @@ def run_phases(torch, dev, args, phases, mixes, probes, plans, mark):
         launches["serve"] = phase_serve(torch, dev)
     mark(11)
     if 11 in phases:
-        phase_ft_flights(torch, dev, FT_RECORDS, flights_out
-                         if args.records == FT_RECORDS else None)
+        phase_ft_flights(torch, dev, args.records, flights_out)
         mark("11b")
         phase_ft_stage8(torch, dev)
         mark("11c")

@@ -643,6 +643,7 @@ class Pipeline:
         attempts = 0
         fresh = False
         t_start = time.perf_counter()
+        ft.shares[(st.name, rnd)] += 1
         while True:
             spec = None if chaos is None \
                 else chaos.crash_for(st.name, rnd, w)
@@ -651,6 +652,7 @@ class Pipeline:
             if not dead and (spec is None or spec.when == "after"):
                 coords = self._ft_fresh_coords(len(sub)) if fresh else None
                 t0 = time.perf_counter()
+                ft.executions[(st.name, rnd)] += 1
                 out, ok = self._ft_exec(st, pool[w], sub, coords)
                 dt = time.perf_counter() - t0
             if spec is not None:
@@ -722,6 +724,7 @@ class Pipeline:
                                      reason="backup", round=rnd)
                         coords = self._ft_fresh_coords(len(sub))
                         t0 = time.perf_counter()
+                        ft.executions[(st.name, rnd)] += 1
                         out2, ok2 = self._ft_exec(st, pool[w2], sub,
                                                   coords)
                         det.observe(time.perf_counter() - t0)
@@ -873,6 +876,7 @@ class Pipeline:
                     sub = parts[pi].select(row_js)
                     coords = self._ft_fresh_coords(len(sub))
                     wr = w if not ft.is_dead(st.name, w) else live[0]
+                    ft.executions[(st.name, rnd)] += 1
                     out2, ok2 = self._ft_exec(st, pool[wr], sub, coords)
                     rd.append((pi, wr, row_js, out2, ok2))
                     ft.replays.inc()

@@ -14,6 +14,7 @@ and the terminal reduce stays bit-identical to the fault-free run.
 """
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -68,14 +69,19 @@ class FTContext:
     """Per-run fault-tolerance state, created by the pipeline when retry
     or chaos is enabled.  Holds the policy, the (optional) fault plan,
     the replay buffer, per-stage straggler detectors + backup
-    dispatchers, the set of workers declared dead, and the ft.* counters
-    the monitor exposes."""
+    dispatchers, the set of workers declared dead, the ft.* counters
+    the monitor exposes, and by (stage, round) the shares dispatched and
+    the executions (open -> op -> seal, one launch of the window hop
+    each) run: a share's first, and each retry, failover, backup and
+    replay."""
     policy: RetryPolicy = field(default_factory=RetryPolicy)
     chaos: Optional[ChaosPlan] = None
     buffer: ReplayBuffer = field(default_factory=ReplayBuffer)
     detectors: Dict[str, StragglerDetector] = field(default_factory=dict)
     dispatchers: Dict[str, BackupDispatcher] = field(default_factory=dict)
     dead: Set[Tuple[str, int]] = field(default_factory=set)
+    shares: Counter = field(default_factory=Counter)
+    executions: Counter = field(default_factory=Counter)
     _share_seq: int = 0
 
     def __post_init__(self):

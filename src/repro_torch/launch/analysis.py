@@ -38,17 +38,19 @@ Loops: the reference's point (``hloanalysis.py:3-8``) is that XLA counts
 a ``while`` body once.  Eager dispatch counts every trip, so here the
 trouble is time, not correctness: a recurrence run as a Python step per
 token is millions of ops at ``prefill_32k``.  A model states that its
-body repeats by running the loop through :func:`scan`, the trip-count
-marker.  Outside an analysis ``scan`` is the plain loop; under
-``analyze(..., scale_loops=True)`` it runs its first trip as is and its
-second once, with the second trip's counts (forward and, through
-autograd markers, backward) multiplied by the trips left; the carry of
-the skipped trips is the second trip's, and the storage they would keep
-alive is held as one meta block of the same size.  Each scaled loop is
+body repeats by running the loop through the trip-count marker
+:func:`repro_torch.models.loop.scan`, a plain loop outside an analysis;
+``analyze(..., scale_loops=True)`` registers :func:`_scaled_scan` as its
+scaler, which runs the first trip as is and the second once, with the
+second trip's counts (forward and, through autograd markers, backward)
+multiplied by the trips left; the carry of the skipped trips is the
+second trip's, and the storage they would keep alive is held as one meta
+block of the same size.  Each scaled loop is
 named in :attr:`Analysis.loop_scaled` by the name its caller gives.
 """
 from __future__ import annotations
 
+import functools
 import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -61,6 +63,7 @@ from torch.utils.flop_counter import flop_registry
 
 import repro_torch.kernels.flash_attention.ops  # noqa: F401  (registers kernel 7's formula)
 from repro_torch.dist import collectives
+from repro_torch.models import loop
 
 
 @dataclass
@@ -158,11 +161,6 @@ class _Counter(TorchDispatchMode):
         self.out.collective_count += 1
 
 
-#: the counters of the analyses running with ``scale_loops``, the
-#: innermost last: :func:`scan` scales its loop for that one
-_SCALING: List[_Counter] = []
-
-
 class _LoopEntry(torch.autograd.Function):
     """Identity on the scaled trip's inputs, the first ``n_inv`` of them
     the loop's invariants (weights every trip reads).  Its backward is the
@@ -205,32 +203,10 @@ class _LoopExit(torch.autograd.Function):
         return (None, None) + grads
 
 
-def scan(body: Callable, carry: Dict[str, torch.Tensor],
-         xs: Dict[str, torch.Tensor], consts: Dict[str, torch.Tensor], *,
-         keep: str, name: str):
-    """The loop ``carry = body(carry, x_t, consts)`` for t < T, where x_t
-    holds each of ``xs``' (B, T, ...) tensors at step t (one ``unbind``
-    each, whose backward is one stack) and ``consts`` the tensors every
-    trip reads (weights).  -> (the last carry, [carry[keep] after each
-    trip]).  Under :func:`analyze` with ``scale_loops`` a loop of more
-    than two trips is counted from two (:func:`_scaled_scan`) and named
-    ``name`` in :attr:`Analysis.loop_scaled`."""
-    steps = {k: v.unbind(1) for k, v in xs.items()}
-    trips = len(next(iter(steps.values())))
-    if _SCALING and trips > 2:
-        return _scaled_scan(_SCALING[-1], body, carry, steps, consts,
-                            trips, keep, name)
-    kept = []
-    for t in range(trips):
-        carry = body(carry, {k: s[t] for k, s in steps.items()}, consts)
-        kept.append(carry[keep])
-    return carry, kept
-
-
 def _scaled_scan(counter: _Counter, body, carry, steps, consts, trips, keep,
                  name):
-    """:func:`scan` with its trips past the second counted from the
-    second: the body is the same at every trip, and the second, unlike
+    """``models.loop.scan`` with its trips past the second counted from
+    the second: the body is the same at every trip, and the second, unlike
     the first, reads a carry that autograd tracks."""
     carry = body(carry, {k: s[0] for k, s in steps.items()}, consts)
     ckeys, xkeys, wkeys = sorted(carry), sorted(steps), sorted(consts)
@@ -284,14 +260,15 @@ def analyze(fn: Callable, *args, scale_loops: bool = False,
         counter.track(t)
     counter.out.argument_bytes = counter.live_bytes
     arg_keys = set(counter.live)
+    scaler = functools.partial(_scaled_scan, counter)
     if scale_loops:
-        _SCALING.append(counter)
+        loop.SCALERS.append(scaler)
     try:
         with collectives.observe(counter.collective), counter:
             result = fn(*args, **kwargs)
     finally:
         if scale_loops:
-            _SCALING.remove(counter)
+            loop.SCALERS.remove(scaler)
     seen = set()
     for t in _tensors(result):
         key = _storage_key(t)

@@ -16,9 +16,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.analysis import scan
 from repro_torch.models.gla import chunked_gla, gla_decode_step
 from repro_torch.models.layers import ParamSpec, Params, rms_norm
+from repro_torch.models.loop import scan
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -194,8 +194,8 @@ def _slstm_ffn(p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
 
 def _slstm_scan(p: Params, cfg, state, pre, r32):
     """The sLSTM over the sequence, one step a token (the reference's
-    ``lax.scan``) through the dry run's trip-count marker
-    (:func:`repro_torch.launch.analysis.scan`, a plain loop outside an
+    ``lax.scan``) through the trip-count marker
+    (:func:`repro_torch.models.loop.scan`, a plain loop outside an
     analysis).  pre: each gate's projected inputs, (B, S, d), read a step
     at a time.  -> (the final state, [h_t] for each t)."""
     def step(state, pre_t, w):

@@ -204,6 +204,45 @@ def test_recovery_never_reuses_key_nonce(monkeypatch, mode):
     assert len(seen) > N_CHUNKS * 9
 
 
+def test_ft_counts_shares_and_executions_by_stage_and_round(monkeypatch):
+    """The engine's own record of an enclave-mode run under a fault of
+    every kind (``FTContext.shares`` / ``executions`` by (stage, round)):
+    every window hop is one execution, and in each (stage, round) the
+    executions are its shares plus the launches the audit log shows a
+    fault wasted there (a crash after its share ran, a backup's slow
+    original, a replay)."""
+    from collections import Counter
+    hops = Counter()
+    real_hop = enclave_ops.enclave_map_window
+
+    def hop(*args, **kw):
+        hops["all"] += 1
+        return real_hop(*args, **kw)
+
+    monkeypatch.setattr(enclave_ops, "enclave_map_window", hop)
+    plan = ChaosPlan(faults=[FaultSpec(k, **kw)
+                             for k, kw in FAULTS_ON_EVERY_PATH])
+    p = _build(chaos=plan, retry=_policy(), mode="enclave")
+    out, _ = _run(p, rekey_every_n=3)
+    assert not plan.pending()
+    assert np.array_equal(out, _oracle(rekey=3))
+    ft = p._last_ft
+    wasted = Counter((e["stage"], e["round"])
+                     for e in p.directory.audit.dump()
+                     if (e["kind"] == "worker_failed"
+                         and e["reason"] == "crash")
+                     or (e["kind"] == "share_failover"
+                         and e["reason"] == "backup")
+                     or e["kind"] == "window_replayed")
+    assert sum(wasted.values()) == 2 + 1 + 2
+    assert set(wasted) <= set(ft.shares) == set(ft.executions)
+    assert {at: ft.executions[at] - ft.shares[at] for at in ft.shares
+            if ft.executions[at] != ft.shares[at]} == dict(wasted)
+    assert sum(ft.executions.values()) == hops["all"]
+    # one share an id drawn
+    assert sum(ft.shares.values()) == ft.next_share_id() > 8 * 3
+
+
 def test_enclave_mode_crash_and_tamper_bit_identical():
     """The fused kernel's re-seal path (``nonces_out``) through a crash
     retry and a tamper replay: equal to the fault-free run and to numpy's

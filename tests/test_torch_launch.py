@@ -197,26 +197,34 @@ def test_scaled_slstm_loop_counts_what_the_full_loop_counts(train):
 
 def test_the_analyzer_names_no_model_module_and_patches_none():
     """A model's loop is scaled through the trip-count marker the model
-    itself calls (``analysis.scan``): the analyzer imports no model
-    module, names none, and assigns to no attribute of a module."""
+    itself calls (``models.loop.scan``), which hands it to the scaler the
+    analyzer registers: the analyzer imports no model module but the
+    marker's, names none, and assigns to no attribute of a module."""
     import ast
     import re
+    from repro_torch.models import loop, xlstm
     src = Path(A.__file__).read_text()
     tree = ast.parse(src)
     modules = {a.asname or a.name.split(".")[0] for n in ast.walk(tree)
                if isinstance(n, (ast.Import, ast.ImportFrom))
                for a in n.names}
-    imported = [n.module for n in ast.walk(tree)
-                if isinstance(n, ast.ImportFrom)] + [
+    imported = [f"{n.module}.{a.name}" for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) for a in n.names] + [
         a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
         for a in n.names]
-    assert not [m for m in imported if "models" in (m or "")]
+    assert [m for m in imported if "models" in m] == \
+        ["repro_torch.models.loop"]
     names = sorted(p.stem for p in (ROOT / "src" / "repro_torch" /
                                     "models").glob("*.py")
-                   if p.stem not in ("__init__", "flash", "layers", "api"))
+                   if p.stem not in ("__init__", "flash", "layers", "api",
+                                     "loop"))
     assert names and not re.findall(
         r"\b(%s)\b" % "|".join(names), src.lower())
-    assert "repro_torch.models" not in src and "setattr(" not in src
+    assert "setattr(" not in src
+    assert re.findall(r"repro_torch\.models\.(\w+)", src) == ["loop"]
+    # the models layer imports nothing of the launch layer
+    assert "repro_torch.launch" not in Path(xlstm.__file__).read_text()
+    assert "repro_torch.launch" not in Path(loop.__file__).read_text()
     patched = [t for n in ast.walk(tree)
                if isinstance(n, (ast.Assign, ast.AugAssign))
                for t in (n.targets if isinstance(n, ast.Assign)
