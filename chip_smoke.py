@@ -1837,11 +1837,15 @@ def device_rows(prof):
     """(name, device microseconds, calls) of the kernels and copies on the
     device in a torch.profiler trace.  Only device-side events count: a
     host op (``aten::mm``) also reports the device time of the kernels it
-    launched, so summing every row would count that time twice."""
+    launched, so summing every row would count that time twice.  Nor
+    does a ``record_function`` range's device-side annotation count (the
+    program's spans open one whenever a profiler records): its range
+    spans its kernels and the idle time between them alike."""
     from torch.autograd import DeviceType
     return [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def phase_profile(torch, dev, n_records):

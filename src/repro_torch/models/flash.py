@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.obs import trace
 
 NEG_INF = -1e30
 
@@ -152,7 +153,9 @@ def flash_forward(q, k, v, causal: bool, q_chunk: int, kv_chunk: int
 
 
 class FlashAttention(torch.autograd.Function):
-    """``flash_attention`` with the reference's custom VJP."""
+    """``flash_attention`` with the reference's custom VJP.  The backward
+    is the active tracer's span ``attn.bwd`` (:func:`repro_torch.obs.
+    trace.span`), opened on autograd's thread."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_chunk, kv_chunk):
@@ -164,7 +167,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward_plain(q, k, v, out, lse, do, *ctx.args)
+        with trace.span("attn.bwd"):
+            dq, dk, dv = flash_backward_plain(q, k, v, out, lse, do,
+                                              *ctx.args)
         return dq, dk, dv, None, None, None
 
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.flash import flash_attention, flash_forward_plain
 from repro_torch.models.hier_attn import hier_causal_attention
+from repro_torch.obs import trace
 
 Params = Any  # nested dict of tensors
 #: the most values a leaf is drawn in at once (1 GiB of f32): larger
@@ -282,13 +283,17 @@ def mha(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 
     The default differs from the reference's ``"flash"``: the reference's
     model calls name their schedule, and the port's prefill and decode
-    run the kernel alone."""
+    run the kernel alone.  With grouped KV heads the expansion of K and
+    V to the query heads is the active tracer's span ``attn.kv_expand``
+    (:func:`repro_torch.obs.trace.span`)."""
     B, S, _ = x.shape
     groups = cfg.num_heads // cfg.num_kv_heads
     q, k, v = _project_qkv(p, x, cfg, positions)
     kv = (k, v)
-    k = repeat_kv(k, groups)
-    v = repeat_kv(v, groups)
+    if groups > 1:
+        with trace.span("attn.kv_expand"):
+            k = repeat_kv(k, groups)
+            v = repeat_kv(v, groups)
     if attn_impl == "pallas_flash":
         out = _NoBackward.apply(q, k, v)
     elif attn_impl == "chunked":

@@ -19,6 +19,20 @@ shared reusable context manager — no span objects, no clock reads, no
 list growth.  A span reads the host clock only: it adds no device
 work and no host sync.
 
+**The profiler bridge.**  While a ``torch.profiler`` records (the
+module global ``torch.autograd.profiler._is_profiler_enabled``), every
+span of a :class:`Tracer` and of :data:`NULL_TRACER` alike also opens a
+``record_function`` range of its name for its extent, so the spans land
+in the profiler's trace beside the device's kernels.  With no profiler
+recording, :data:`NULL_TRACER` costs one attribute read more.
+:meth:`Tracer.to_chrome` stamps its events on the profiler's clock:
+microseconds since the Unix epoch (the tracer's t0 read by
+``time.time_ns()``, offsets by ``time.perf_counter``).
+
+**The active tracer.**  Code below a factory's call (a model layer, an
+autograd backward) opens its spans with :func:`span`, into the tracer
+that the call made active (:func:`active`), :data:`NULL_TRACER` else.
+
 A deliberate caveat: spans around *asynchronously launched* device work
 (category ``"dispatch"``) measure enqueue time on the host, not
 execution on the card — execution lands in the per-window
@@ -28,11 +42,14 @@ The span args carry that distinction so the timeline stays honest.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -71,13 +88,16 @@ class NullTracer:
 
     ``enabled`` is False so hot paths that want to skip even arg
     construction can guard on it; paths that don't bother still pay only
-    a method call returning a shared singleton.
+    a method call returning a shared singleton.  While a profiler
+    records, ``span`` returns a ``record_function`` of the span's name.
     """
 
     enabled = False
 
     def span(self, name: str, cat: str = "pipeline", track: str = "main",
-             **args) -> _NoopSpan:
+             **args):
+        if _profiler._is_profiler_enabled:
+            return _profiler.record_function(name)
         return _NOOP_SPAN
 
     def instant(self, name: str, cat: str = "pipeline",
@@ -102,19 +122,27 @@ class CounterSample:
 
 
 class _SpanCtx:
-    """Context manager closing one span and maintaining the parent stack."""
-    __slots__ = ("tracer", "span")
+    """Context manager closing one span and maintaining the parent stack;
+    while a profiler records, it also holds the span's
+    ``record_function`` range open."""
+    __slots__ = ("tracer", "span", "_range")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self.tracer = tracer
         self.span = span
+        self._range = None
 
     def __enter__(self) -> Span:
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.span.name)
+            self._range.__enter__()
         return self.span
 
     def __exit__(self, *exc) -> bool:
         t = self.tracer
         self.span.end = t._clock() - t._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
         if t._stack and t._stack[-1] is self.span.id:
             t._stack.pop()
         return False
@@ -125,13 +153,19 @@ class Tracer:
 
     Single-threaded by design (the streaming engine is a generator
     chain in one thread); the parent of a new span is whatever span is
-    innermost open when it starts.
+    innermost open when it starts.  (A training step's backward opens
+    its spans on autograd's thread while the step's thread waits in
+    ``torch.autograd.grad``, so their parent is the step's open span.)
+
+    ``t0_ns`` is the tracer's t0 on the Unix epoch's clock
+    (``time.time_ns()``), the clock of ``torch.profiler``'s events.
     """
 
     enabled = True
 
     def __init__(self):
         self._clock = time.perf_counter
+        self.t0_ns = time.time_ns()
         self._t0 = self._clock()
         self.spans: List[Span] = []
         self.counters: List[CounterSample] = []
@@ -188,17 +222,24 @@ class Tracer:
     def to_chrome(self) -> Dict[str, Any]:
         """The Chrome trace-event dict (``{"traceEvents": [...]}``).
 
-        Complete ("X") events carry ``ts``/``dur`` in microseconds; each
-        distinct track becomes a named tid via ``thread_name`` metadata
-        events, so stages and workers render as separate lanes.
+        Complete ("X") events carry ``ts``/``dur`` in microseconds, ``ts``
+        on the profiler's clock (since the Unix epoch), so they lie over
+        a ``torch.profiler`` export's own in one view.  Each distinct
+        track becomes a named tid via ``thread_name`` metadata events, so
+        stages and workers render as separate lanes.
         """
         tids: Dict[str, int] = {}
         events: List[Dict[str, Any]] = []
+        t0_us = self.t0_ns / 1e3
+
+        def ts(t: float) -> float:
+            return round(t0_us + t * 1e6, 3)
+
         for s in self.spans:
             tid = tids.setdefault(s.track, len(tids))
             ev: Dict[str, Any] = {
                 "name": s.name, "cat": s.cat or "pipeline", "pid": 1,
-                "tid": tid, "ts": round(s.start * 1e6, 3),
+                "tid": tid, "ts": ts(s.start),
             }
             if s.end is not None and s.end > s.start:
                 ev["ph"] = "X"
@@ -215,7 +256,7 @@ class Tracer:
             tid = tids.setdefault(c.track, len(tids))
             events.append({
                 "name": c.name, "cat": "load", "ph": "C", "pid": 1,
-                "tid": tid, "ts": round(c.t * 1e6, 3),
+                "tid": tid, "ts": ts(c.t),
                 "args": {"value": c.value},
             })
         meta = [{"name": "process_name", "ph": "M", "pid": 1, "tid": 0,
@@ -246,3 +287,25 @@ class Tracer:
             buf.write(f"{mark} {'  ' * d}{s.name} ({s.track})"
                       + (f" {attrs}" if attrs else "") + "\n")
         return buf.getvalue()
+
+
+_active: Any = NULL_TRACER
+
+
+@contextlib.contextmanager
+def active(tracer):
+    """Within, :func:`span` opens its spans in ``tracer``; the tracer
+    active before comes back after.  One for the process, not one a
+    thread: a backward's spans open on autograd's thread while the
+    step's thread waits in ``torch.autograd.grad``."""
+    global _active
+    before, _active = _active, tracer
+    try:
+        yield tracer
+    finally:
+        _active = before
+
+
+def span(name: str, **kw):
+    """A span of the active tracer (:func:`active`)."""
+    return _active.span(name, **kw)

@@ -16,15 +16,19 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import api as model_api
+from repro_torch.obs.trace import NULL_TRACER, active
 
 Params = Any
 
 
-def make_prefill_step(run: RunConfig, *, max_seq: int):
+def make_prefill_step(run: RunConfig, *, max_seq: int, tracer=NULL_TRACER):
+    """-> ``prefill_step(params, batch)``; each call is the ``tracer``'s
+    span ``serve.prefill``, with ``tracer`` active (the layers' spans)."""
     cfg = run.model
 
     def prefill_step(params, batch):
-        return model_api.prefill(cfg, params, batch, max_seq=max_seq)
+        with active(tracer), tracer.span("serve.prefill"):
+            return model_api.prefill(cfg, params, batch, max_seq=max_seq)
     return prefill_step
 
 

@@ -10,6 +10,11 @@ launch each a seal or open);
 the server opens them (``egress``) and refuses the batch unless the MAC
 verifies.  Prefill and greedy decode then run on the opened tokens
 (:mod:`repro_torch.serve.engine`).
+
+The seal and the open are a tracer's spans ``serve.seal`` and
+``serve.open``; the port's ``REGISTRY`` counts the prompt tokens of
+every opened batch (``serve.prompt_tokens``) and the batches refused
+(``serve.mac_refusals``).
 """
 from __future__ import annotations
 
@@ -21,8 +26,13 @@ from repro_torch.attest.directory import KeyDirectory
 from repro_torch.attest.measure import IO_ENDPOINT, measure_bytes
 from repro_torch.core.enclave import SealedChunk, egress, ingress
 from repro_torch.crypto.keys import StageKey
+from repro_torch.obs.metrics import REGISTRY as _METRICS
+from repro_torch.obs.trace import NULL_TRACER
 
 EDGE = "client-requests"
+
+_PROMPT_TOKENS = _METRICS.counter("serve.prompt_tokens")
+_MAC_REFUSALS = _METRICS.counter("serve.mac_refusals")
 
 
 class RequestMacError(RuntimeError):
@@ -42,16 +52,22 @@ def attested_session(arch_id: str, *, seed: int = 7
     return directory, key, server_m
 
 
-def seal_prompts(key, prompts: torch.Tensor, counter: int = 0
-                 ) -> SealedChunk:
+def seal_prompts(key, prompts: torch.Tensor, counter: int = 0, *,
+                 tracer=NULL_TRACER) -> SealedChunk:
     """The client side: (B, S) int32 prompt tokens -> one sealed chunk."""
-    return ingress("encrypted", key, counter, prompts)
+    with tracer.span("serve.seal"):
+        return ingress("encrypted", key, counter, prompts)
 
 
-def open_prompts(key, sealed: SealedChunk) -> torch.Tensor:
+def open_prompts(key, sealed: SealedChunk, *, tracer=NULL_TRACER
+                 ) -> torch.Tensor:
     """The server side: -> the (B, S) prompt tokens; raises
     :class:`RequestMacError` unless the MAC verifies (one host sync)."""
-    prompts, ok = egress("encrypted", key, sealed)
-    if not bool(ok):
-        raise RequestMacError("request MAC failure: sealed prompts refused")
+    with tracer.span("serve.open"):
+        prompts, ok = egress("encrypted", key, sealed)
+        if not bool(ok):
+            _MAC_REFUSALS.inc()
+            raise RequestMacError(
+                "request MAC failure: sealed prompts refused")
+    _PROMPT_TOKENS.inc(prompts.numel())
     return prompts

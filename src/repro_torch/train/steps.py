@@ -15,6 +15,11 @@ There is no ``MeshContext`` argument, as in :mod:`repro_torch.serve.
 engine`: the port trains on one card, and the reference's
 ``train_input_shardings`` (the batch's ``NamedSharding``s) has no
 counterpart there (ROADMAP, "Deliberately not ported").
+
+A step's forward, backward and optimizer update are a tracer's spans
+``train.fwd`` (one a microbatch), ``train.bwd`` and ``train.optimizer``;
+the port's ``REGISTRY`` counts the tokens of every step
+(``train.tokens``).
 """
 from __future__ import annotations
 
@@ -24,11 +29,15 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import api as model_api
+from repro_torch.obs.metrics import REGISTRY as _METRICS
+from repro_torch.obs.trace import NULL_TRACER, active
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import Optimizer, tree_leaves, tree_map
 
 Params = Any
 Batch = Dict[str, torch.Tensor]
+
+_TOKENS = _METRICS.counter("train.tokens")
 
 
 def _split_microbatches(batch: Batch, n: int):
@@ -42,10 +51,12 @@ def _split_microbatches(batch: Batch, n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def make_train_step(run: RunConfig, *, attn_impl: str = "flash"
-                    ) -> Tuple[Any, Optimizer]:
+def make_train_step(run: RunConfig, *, attn_impl: str = "flash",
+                    tracer=NULL_TRACER) -> Tuple[Any, Optimizer]:
     """-> (train_step, optimizer).  ``attn_impl`` is the attention of
-    every layer (:func:`repro_torch.models.api.forward`)."""
+    every layer (:func:`repro_torch.models.api.forward`); ``tracer``
+    takes the step's spans, and is active in the forward and backward
+    (the attention's spans)."""
     cfg = run.model
     opt = make_optimizer(run.optimizer)
     nmb = run.microbatches
@@ -53,10 +64,12 @@ def make_train_step(run: RunConfig, *, attn_impl: str = "flash"
     def loss_and_grads(params, batch):
         live = [p.detach().requires_grad_() for p in tree_leaves(params)]
         it = iter(live)
-        loss, metrics = model_api.loss_fn(
-            cfg, tree_map(lambda _: next(it), params), batch,
-            remat=run.remat, attn_impl=attn_impl)
-        grads = iter(torch.autograd.grad(loss, live))
+        with active(tracer), tracer.span("train.fwd"):
+            loss, metrics = model_api.loss_fn(
+                cfg, tree_map(lambda _: next(it), params), batch,
+                remat=run.remat, attn_impl=attn_impl)
+        with active(tracer), tracer.span("train.bwd"):
+            grads = iter(torch.autograd.grad(loss, live))
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_map(lambda _: next(grads), params))
 
@@ -77,7 +90,10 @@ def make_train_step(run: RunConfig, *, attn_impl: str = "flash"
             metrics = {"loss": loss}
         if run.optimizer.grad_compression == "fp16":
             grads = tree_map(lambda g: g.to(torch.float16).float(), grads)
-        new_params, new_state = opt.update(grads, opt_state, params, step)
+        with tracer.span("train.optimizer"):
+            new_params, new_state = opt.update(grads, opt_state, params,
+                                               step)
+        _TOKENS.inc(batch["tokens"].numel())
         metrics = dict(metrics)
         metrics["step"] = torch.tensor(step, dtype=torch.float32)
         return new_params, new_state, metrics
