@@ -174,8 +174,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    32 heads, S 2,048, D 64): kernel 7's out and its log-sum-exp (bf16
    and f32) against the plain version, the flash Function's dq/dk/dv
    against autograd through plain f32 attention; the kernel's time with
-   and without the lse; the Function's backward (plain torch) beside its
-   bound, the plain attention's backward and SDPA's.  (b) one train step
+   and without the lse; the Function's backward (kernel 8) beside its
+   bound, the plain block recompute it replaced, the plain attention's
+   backward and SDPA's, here and at musicgen-selfattn-2.4b's training
+   shape (B 3), with kernel 8's registers (no spills).  (b) one train step
    with kernel 7 ("flash") and one with the plain "chunked" attention
    from the same weights and batch: loss and global gradient norm within
    stated bf16 tolerances.  (c) ``Trainer.train()`` at full width cut
@@ -251,8 +253,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    DRYRUN_PEAK_BAND of the estimate; each step's loss finite and
    printed; s a step, tokens/s, MFU, busy share, kernel 7 launches a
    step; at 1 x S the gradients of a step with kernel 7 against the same
-   step with the plain attention (f32 and bf16, FAMILY_GRAD_*); the MoE
-   step run twice from one state, bit-equal.  (b) xlstm-125m's
+   step with the plain attention (f32 and bf16, FAMILY_GRAD_*; the MoE's
+   f32 pair with the top-k choices of one pass given to the other); the
+   MoE step (plain chunked attention) run twice from one state,
+   bit-equal.  (b) xlstm-125m's
    ``Trainer`` with sealed data and checkpoints, a failure and a restore,
    bit-equal to an uninterrupted run.  (e) musicgen-large served at full
    width and depth as 15b serves qwen2.5-14b, with sealed frames beside
@@ -343,6 +347,9 @@ CHACHA_OPS_PER_ROW = 10 * 8 * 12 + 16 + 16   # rounds, feed-forward, XOR
 ENCLAVE_OPS_PER_ROW = 2 * CHACHA_OPS_PER_ROW  # decrypt + re-encrypt
 CWMAC_OPS_PER_WORD = 16                       # 2 limbs x (add, mul, fold)
 
+#: kernel 8, the flash backward: its preprocess, main and convert launches
+KERNEL8 = ("ss_flash_attention_bwd_preprocess", "ss_flash_attention_bwd",
+           "ss_flash_attention_bwd_convert")
 #: the kernels each engine's path launches in each mode (plain mode
 #: seals nothing): the window engine the batched cipher pass (kernel 1's
 #: entry) and kernels 2-3, the per-chunk oracle engine the single-message
@@ -375,21 +382,24 @@ KERNELS = {
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_tags"),
     },
     # secure training (phase 13): one train step launches kernel 7 twice a
-    # layer under remat "full" ("flash") or nothing ("chunked"); the
-    # trainer's batches are sealed and opened with the scalar AEAD
-    # (kernels 4 and 5), its checkpoints with the batched one (1 and 2)
+    # layer under remat "full" and kernel 8's three launches once a layer
+    # ("flash"; in f32 kernel 7 alone: the backward is the plain one there)
+    # or nothing ("chunked"); the trainer's batches are sealed and opened
+    # with the scalar AEAD (kernels 4 and 5), its checkpoints with the
+    # batched one (1 and 2)
     "train_step": {
-        "flash": ("ss_flash_attention_fwd",),
+        "flash": ("ss_flash_attention_fwd",) + KERNEL8,
+        "flash_f32": ("ss_flash_attention_fwd",),
         "chunked": (),
         "attention_free": (),
     },
     "train_steps": {
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
-                      "ss_flash_attention_fwd"),
+                      "ss_flash_attention_fwd") + KERNEL8,
     },
     "train": {
         "encrypted": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
-                      "ss_cwmac_tags", "ss_flash_attention_fwd"),
+                      "ss_cwmac_tags", "ss_flash_attention_fwd") + KERNEL8,
         "attention_free": ("ss_chacha20_cipher_pass", "ss_cwmac_mac_tags",
                            "ss_cwmac_tags"),
     },
@@ -2387,7 +2397,12 @@ def flash_pace(torch, run, full_ms):
     import ctypes
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    src = (build.CSRC / "flash_attention.cu").read_text()
+    # one translation unit: the shared header (its wgmma and exp2 are the
+    # edits' targets too) in place of its #include
+    src = (build.CSRC / "flash_attention.cu").read_text().replace(
+        '#include "flash_tma.cuh"\n',
+        (build.CSRC / "flash_tma.cuh").read_text().replace("#pragma once\n",
+                                                         ""))
     out = build.BUILD_ROOT / f"flash-pace-{build._digest()}"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -3859,10 +3874,11 @@ def _rel_l2(got, want) -> float:
 
 def phase_train_attention(torch, dev):
     """Phase 13a: kernel 7's out and lse against the plain version, and
-    the flash Function's gradients against autograd through plain
-    attention, at llama3.2-1b's training shape; then the kernel's time
-    with and without the lse, and the Function's backward beside its
-    bound, the plain attention's backward and SDPA's.  -> numbers."""
+    the flash Function's gradients (kernels 7 and 8) against autograd
+    through plain attention, at llama3.2-1b's training shape; then kernel
+    7's time with and without the lse, and kernel 8 beside its bound, the
+    block recompute, the plain attention's backward and SDPA's, at that
+    shape and at musicgen's (B 3).  -> numbers."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
         BF16_ROW_RTOL, NEG_INF, attention_ref, bf16_mismatch)
@@ -3933,42 +3949,72 @@ def phase_train_attention(torch, dev):
     flops = flash_flops(B, H, S, S, D, True)
     fwd_bound, fwd_by = bound(4 * q.numel() * 2 + B * H * S * 4, flops,
                               PEAK_FLOPS)
-    # the backward: the Function's (plain torch), autograd through plain
-    # attention, SDPA's; each over one retained forward graph
+    # the backward: kernel 8 (the Function's, from the forward's out and
+    # lse), the plain block recompute it replaced, autograd through the
+    # materialized f32 attention and SDPA's; at this shape (row 8's) and at
+    # musicgen-selfattn-2.4b's (the training cells': B 3)
+    from repro_torch.kernels import build
+    from repro_torch.models.flash import flash_backward_plain
+
     def backward_ms(fn, inputs, grad, iters):
         x = [t.detach().clone().requires_grad_() for t in inputs]
         y = fn(*x)
         return eager_ms(torch, lambda: torch.autograd.grad(
             y, x, grad, retain_graph=True), iters)
-    bwd_ms = backward_ms(lambda a, b, c: flash_attention(a, b, c, True, 512,
-                                                         1024),
-                         (q, k, v), do, 5)
-    plain_bwd_ms = backward_ms(plain_attention, (q.float(), k.float(),
-                                                 v.float()), do.float(), 2)
+    k8 = [k for k in build.ptxas_kernels(build.ptxas_report())
+          if "flash_bwd" in k["name"]]
+    spills = sum(k["spill_stores"] + k["spill_loads"] for k in k8)
+    regs = "/".join(f"{k['name'].split('flash_bwd_')[1].split('E')[0]}:"
+                    f"{k['registers']}" for k in k8)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_bwd_ms = backward_ms(lambda a, b, c: sdpa(a, b, c, is_causal=True),
-                              (bhsd(q), bhsd(k), bhsd(v)), bhsd(do), 10)
-    # the backward's work: 5 products of 2 D flops an attended pair (the
-    # score recompute, dv, dp, dk, dq) = 2.5x the forward's; bytes: q, k,
-    # v, out, do read, dq, dk, dv written (bf16), lse read (f32)
-    bwd_bound, bwd_by = bound(8 * q.numel() * 2 + B * H * S * 4,
-                              2.5 * flops, PEAK_FLOPS)
+    out_numbers = {}
+    for tag, b in (("row8", B), ("musicgen", 3)):
+        qb, kb, vb, dob = (t[:b] for t in (q, k, v, do))
+        out, lse = flash_ops.flash_attention(qb, kb, vb, causal=True,
+                                             return_lse=True)
+        bwd_ms = eager_ms(torch, lambda: flash_ops.flash_attention_backward(
+            qb, kb, vb, out, lse, dob, causal=True), 20)
+        block_ms = eager_ms(torch, lambda: flash_backward_plain(
+            qb, kb, vb, out, lse, dob, True, 512, 1024), 3)
+        plain_bwd_ms = backward_ms(plain_attention, (
+            qb.float(), kb.float(), vb.float()), dob.float(), 2)
+        sdpa_bwd_ms = backward_ms(
+            lambda a, c, e: sdpa(a, c, e, is_causal=True),
+            (bhsd(qb), bhsd(kb), bhsd(vb)), bhsd(dob), 10)
+        # the backward's work: 5 products of 2 D flops an attended pair
+        # (the score recompute, dv, dp, dk, dq) = 2.5x the forward's;
+        # bytes: q, k, v, out, do read, dq, dk, dv written (bf16), lse
+        # read (f32)
+        bflops = flash_flops(b, H, S, S, D, True)
+        bwd_bound, bwd_by = bound(8 * qb.numel() * 2 + b * H * S * 4,
+                                  2.5 * bflops, PEAK_FLOPS)
+        phase("flash_backward", card=CARD,
+              shape=f"{b}x{S}x{H}x{D} bf16 causal",
+              route="CUDA (kernel 8: csrc/flash_attention_bwd.cu, "
+                    "ss_flash_attention_bwd and its preprocess and convert)",
+              ms=bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+              share_of_bound=bwd_bound / bwd_ms,
+              block_recompute_ms=block_ms, plain_ms=plain_bwd_ms,
+              library_ms=sdpa_bwd_ms,
+              library_call="scaled_dot_product_attention(is_causal=True) "
+                           "backward", vs_library=bwd_ms / sdpa_bwd_ms,
+              registers=regs, spill_bytes=spills)
+        out_numbers[tag] = dict(backward_ms=bwd_ms,
+                                backward_bound_ms=bwd_bound,
+                                backward_library_ms=sdpa_bwd_ms,
+                                backward_block_ms=block_ms,
+                                backward_plain_ms=plain_bwd_ms)
+        del out, lse
     phase("flash_lse_time", card=CARD, shape=f"{B}x{S}x{H}x{D} bf16 causal",
           ms_without_lse=no_lse_ms, ms_with_lse=lse_ms,
           lse_cost=lse_ms / no_lse_ms - 1, bound_ms=fwd_bound,
           bound_by=fwd_by, runs_ms="/".join(f"{x:.4f}" for x in t))
-    phase("flash_backward", card=CARD, shape=f"{B}x{S}x{H}x{D} bf16 causal",
-          route="plain torch (models/flash.py flash_backward_plain)",
-          ms=bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
-          f32_bound_ms=2.5 * flops / F32_FLOPS * 1e3,
-          plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
-          library_call="scaled_dot_product_attention(is_causal=True) "
-                       "backward", vs_library=bwd_ms / sdpa_bwd_ms,
-          share_of_bound=bwd_bound / bwd_ms)
+    if spills:
+        raise AssertionError(f"phase 13a: kernel 8 spills ({regs}: "
+                             f"{spills} bytes)")
     return dict(ms_with_lse=lse_ms, ms_without_lse=no_lse_ms,
-                backward_ms=bwd_ms, backward_bound_ms=bwd_bound,
-                backward_library_ms=sdpa_bwd_ms,
-                backward_plain_ms=plain_bwd_ms)
+                **out_numbers["row8"],
+                musicgen_backward_ms=out_numbers["musicgen"]["backward_ms"])
 
 
 class _Recorded:
@@ -3997,7 +4043,8 @@ class _Recorded:
 def _train_step_grads(torch, run, impl, params, batch, what):
     """One train step of ``run`` with ``attn_impl=impl``, counted: its
     loss, the gradients and their global norm (before clipping), its
-    wall time, peak memory and kernel 7 launches."""
+    wall time, peak memory and kernel 7 launches (and kernel 8's three,
+    in bf16 with ``"flash"``)."""
     from repro_torch.optim import optimizers
     from repro_torch.train.steps import make_train_step
     step, opt = make_train_step(run, attn_impl=impl)
@@ -4006,9 +4053,11 @@ def _train_step_grads(torch, run, impl, params, batch, what):
     torch.cuda.reset_peak_memory_stats()
     with _Recorded(optimizers, "_global_norm") as rec:
         t0 = time.perf_counter()
+        f32 = next(iter(optimizers.tree_leaves(params))).dtype \
+            == torch.float32
         (_, _, metrics), launches = counted_run(
-            torch, what, impl, lambda: step(params, state, batch, 0),
-            engine="train_step")
+            torch, what, f"{impl}_f32" if f32 and impl == "flash" else impl,
+            lambda: step(params, state, batch, 0), engine="train_step")
         secs = time.perf_counter() - t0
     grads, norm = rec.calls[0]
     return dict(loss=float(metrics["loss"]), norm=float(norm), grads=grads,
@@ -5329,7 +5378,8 @@ def phase_dryrun_training(torch, dev, train_numbers):
         counted_flops_remat_none=none.flops,
         flops_by_op="/".join(f"{k}:{v:.6e}" for k, v in
                              sorted(rec["flops_by_op"].items())),
-        plain_backward_flops_remat_none=none.flops_by_op.get("aten.bmm", 0.0),
+        kernel8_flops_remat_none=none.flops_by_op.get(
+            "repro_torch.flash_attention_bwd", 0.0),
         phase13_backward_as_2x_forward=2 * L * ff,
         phase13_model_flops=model13,
         counted_over_phase13=r["hlo_flops_per_chip"] / model13,
@@ -5707,15 +5757,86 @@ def _gap(a, b) -> float:
     return math.sqrt(num / max(den, 1e-60))
 
 
+class _FixedRouting:
+    """The MoE's top-k choices (``models.moe.route``) of the passes run in
+    its ``with``: a ``"record"`` pass keeps each routing call's choices, a
+    later ``"count"`` pass routes by its own and counts the tokens whose
+    set of experts differs from the recorded call's, a ``"replay"`` pass
+    counts them too and routes by the recorded choices (the weights of
+    those experts from its own probabilities).  Calls are matched by
+    their order, so the passes have to run the same model the same way
+    (remat's recompute routes a second time, and is counted)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.route = torch, moe, moe.route
+        self.choices, self.mode, self.calls, self.flips = [], None, 0, 0
+
+    def __enter__(self):
+        self.moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def run(self, mode, fn):
+        self.mode, self.calls, self.flips = mode, 0, 0
+        try:
+            return fn()
+        finally:
+            self.mode = None
+            if mode != "record" and self.calls != len(self.choices):
+                raise AssertionError(f"phase 16: {self.calls} routing "
+                                     f"calls, {len(self.choices)} recorded")
+
+    def _route(self, router, xf, top_k):
+        probs, topw, topi = self.route(router, xf, top_k)
+        if self.mode == "record":
+            self.choices.append(topi.detach())
+        elif self.mode is not None:
+            want = self.choices[self.calls]
+            self.calls += 1
+            self.flips += int((topi.sort(-1)[0] != want.sort(-1)[0])
+                              .any(-1).sum())
+            if self.mode == "replay":
+                topi = want
+        if self.mode in ("record", "replay"):
+            # the sorted probabilities route() takes its weights from,
+            # gathered at the choices: the same bits where they agree
+            topw = probs.gather(1, topi)
+            topw = topw / self.torch.clamp_min(topw.sum(-1, keepdim=True),
+                                               1e-9)
+        return probs, topw, topi
+
+
 def family_grads_both_ways(torch, dev, run, params, batch):
     """16: one step's gradients with kernel 7 and with the plain chunked
-    attention at 1 x S, in f32 and in bf16 (FAMILY_GRAD_*).  -> numbers;
-    raises when a gap misses its limit."""
+    attention at 1 x S, in f32 and in bf16 (FAMILY_GRAD_*).  In the MoE
+    the f32 pair is compared with the chunked pass's top-k choices given
+    to the flash pass (:class:`_FixedRouting`): where two experts'
+    probabilities lie closer than the two passes' f32 difference, a token
+    takes another expert in each and the gradients part by that expert's
+    share, not by the attention's error; the pair with each pass's own
+    choices is printed beside it, with the tokens that took another set of
+    experts.  -> numbers; raises when a gap misses its limit."""
     from repro_torch.optim.optimizers import tree_map
     one = {k: v[:1] for k, v in batch.items()}
     p32 = tree_map(lambda t: t.float(), params)
-    _, want = _loss_grads(torch, run, "chunked", p32, one)
-    f32_gap = _gap(_loss_grads(torch, run, "flash", p32, one)[1], want)
+    routing = {}
+    if run.model.family == "moe":
+        with _FixedRouting(torch) as fixed:
+            _, want = fixed.run("record", lambda: _loss_grads(
+                torch, run, "chunked", p32, one))
+            routing["grads_f32_flash_vs_chunked_own_routing"] = _gap(
+                fixed.run("count", lambda: _loss_grads(
+                    torch, run, "flash", p32, one))[1], want)
+            routing["route_calls"] = fixed.calls
+            routing["route_flips_own_routing"] = fixed.flips
+            f32_gap = _gap(fixed.run("replay", lambda: _loss_grads(
+                torch, run, "flash", p32, one))[1], want)
+    else:
+        _, want = _loss_grads(torch, run, "chunked", p32, one)
+        f32_gap = _gap(_loss_grads(torch, run, "flash", p32, one)[1], want)
     del p32
     gc.collect()
     loss_c, g = _loss_grads(torch, run, "chunked", params, one)
@@ -5728,7 +5849,7 @@ def family_grads_both_ways(torch, dev, run, params, batch):
     torch.cuda.empty_cache()
     nums = dict(
         grads_shape=f"1x{run.shape.seq_len}",
-        grads_f32_flash_vs_chunked=f32_gap,
+        grads_f32_flash_vs_chunked=f32_gap, **routing,
         grads_bf16_flash_vs_f32_chunked=bf16_flash,
         grads_bf16_chunked_vs_f32_chunked=bf16_chunked,
         loss_bf16_flash=loss_f, loss_bf16_chunked=loss_c,
@@ -5825,11 +5946,17 @@ def family_train(torch, dev, arch, plan):
     t1 = time.perf_counter()
     nums = {}
     if cfg.family == "moe":
-        # the same step twice from one state: bit-equal parameters
+        # the same step twice from one state: bit-equal parameters.  The
+        # step's attention is the plain chunked one, whose backward adds
+        # nothing by atomics (kernel 8 adds dQ's sums in any order; its
+        # deterministic mode is a card test of its own), so every op of
+        # the MoE runs as in training
+        chunked_fn, _ = make_train_step(run, attn_impl="chunked")
         batch = _on_card(torch, dev, data_fn(steps + 2))
-        first = _to_cpu(torch, step_fn(params, state, batch, steps + 2)[0])
+        first = _to_cpu(torch, chunked_fn(params, state, batch,
+                                          steps + 2)[0])
         gc.collect()
-        again = step_fn(params, state, batch, steps + 2)[0]
+        again = chunked_fn(params, state, batch, steps + 2)[0]
         same = all(torch.equal(a.cpu(), b) for a, b in zip(
             tree_leaves(again), tree_leaves(first)))
         del first, again

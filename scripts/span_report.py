@@ -20,11 +20,17 @@ cell's lengths), then:
    each event's device ms under the innermost program span open when
    the host op that launched it (its ``linked_correlation_id``) began,
    with the ops that launched the most under each, and each span's host
-   ms under the profiler.  The card's idle time is cut by the innermost
+   ms under the profiler (kernels 7 and 8 are launched through ``ctypes``
+   by ``FlashAttention`` and ``FlashAttentionBackward``, which begin
+   before ``attn.bwd`` opens: kernel 8's work lands under ``train.bwd``
+   here, and ``flash_kernels_ms`` gives the flash kernels' device ms by
+   name).  The card's idle time is cut by the innermost
    open host span, as the benchmark's ``idle_*_ms.train`` metrics cut
    it, here over the profile's device window.
 
-Also prints what the profiler bridge rests on: the torch build, whether
+Also prints each hand-written kernel's launches in one step or round
+(``launches``) and the attention backwards on the card that took the
+plain path (``plain_backwards``), and what the profiler bridge rests on: the torch build, whether
 a CUDA-only profile sets ``torch.autograd.profiler._is_profiler_enabled``,
 whether the profiler's events carry ``activity_type``, and the offset of
 a range's ``start_ns()`` from ``time.time_ns()`` read just before it.
@@ -32,6 +38,7 @@ Prints one JSON object (and writes it to ``--out``).  Needs a CUDA card.
 """
 import argparse
 import json
+import re
 import statistics
 import sys
 import time
@@ -231,8 +238,11 @@ def device_by_span(work, names):
     # launches precede their work: cut the host's time from its first op
     by_host = spans.innermost(host, PROGRAM_SPANS, (
         min([window[0], *op_start.values()]), window[1]))
-    launched, launch_ops = {}, {}
+    launched, launch_ops, flash = {}, {}, {}
     for corr, (name, s, t) in dev:
+        m = re.search(r"flash_\w+?_kernel", name)
+        if m:
+            flash[m.group(0)] = flash.get(m.group(0), 0) + (t - s)
         at = op_start.get(corr) if corr else None
         owner = "unlinked" if at is None else next(
             (n or "outside" for a, b, n in by_host if a <= at < b), "outside")
@@ -249,6 +259,7 @@ def device_by_span(work, names):
             "idle_ms_by_span": {k or "outside": v / 1e6
                                 for k, v in sorted(idle.items())},
             "top_launch_ops_ms": top(launch_ops),
+            "flash_kernels_ms": {k: v / 1e6 for k, v in sorted(flash.items())},
             "host_ms_by_span": {n: sum(t - s for m, s, t in host if m == n)
                                 / 1e6 for n in PROGRAM_SPANS}}
 
@@ -274,10 +285,18 @@ def main(argv=None) -> int:
             "prefill": (PrefillWork, PROGRAM_SPANS)}
     make, names = kind[tr["kind"]]
     work = make(entry["config"], cfg, tr["traffic"], args.seed)
+    from repro_torch.kernels import build
+    from repro_torch.models import flash
     from repro_torch.obs import NULL_TRACER
     for _ in range(2):
         timed(work.fn(NULL_TRACER))
-    out = {"cell": args.cell, "bridge": bridge(),
+    build.reset_launch_counts()
+    plain = flash.plain_backwards
+    timed(work.fn(NULL_TRACER))
+    launches = {k: n for k, n in build.launch_counts().items() if n}
+    out = {"cell": args.cell, "launches": launches,
+           "plain_backwards": flash.plain_backwards - plain,
+           "bridge": bridge(),
            "cost": cost(work, args.repeats),
            "device": device_by_span(work, names)}
     text = json.dumps(out)

@@ -85,11 +85,11 @@
 
 #include <cstdint>
 
+#include "flash_tma.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;   // the reference's NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace ss;   // flash_tma.cuh: mbarriers, TMA, wgmma descriptors
 
 struct Params {
   const void* q;
@@ -110,7 +110,6 @@ constexpr int kConsumers = 2;       // consumer warpgroups, 64 rows each
 constexpr int kBM = 64 * kConsumers;  // query rows per block
 constexpr int kBN = 128;            // keys per KV tile
 constexpr int kThreads = 128 * (1 + kConsumers);   // + the producer
-constexpr int kColBlock = 64;       // columns of a 128-byte swizzle row
 
 // the bf16 kernel's sizes at padded width Dp
 template <int Dp>
@@ -133,104 +132,6 @@ struct Dims {
       kQBytes + 2 * kStages * kTileBytes + 1024 + 128;
   static_assert(kSmemBytes <= 232448, "over the 227 KB a block may have");
 };
-
-// 4-D tensor map coordinates: the slot of each of (s, h, b) in dims 1..3
-struct Slots {
-  int s, h, b;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// mbarriers and tiles are addressed by their shared-space addresses
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed; a wait that
-// never completes traps (a launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box: columns col..col+63 of `rows` rows at (row, h, b)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int h, int b,
-                                         Slots sl, int col) {
-  int c[4];
-#pragma unroll
-  for (int i = 1; i < 4; ++i)        // selects, no runtime-indexed array
-    c[i] = sl.s == i ? row : (sl.h == i ? h : b);
-  c[0] = col;
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c[0]),
-      "r"(c[1]), "r"(c[2]), "r"(c[3])
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; tiles 1024-B aligned.
-// `lbo`: an MN-major operand's stride from one 64-column block to the next
-// (read only when N spans more than one block)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
-                                               uint32_t lbo = 0) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) |        // 8 rows of 128 B
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving definitions or uses of r across a wgmma
-// fence, commit or wait (a definition inside the pipeline stage would make
-// ptxas serialise the wgmmas)
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 // S (m64n128, f32) = or += A (m64k16 from smem) B (k16n128 from smem)
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int acc) {
@@ -265,76 +166,6 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(acc));
-}
-
-// O (m64n64, f32) += P (m64k16 bf16 in registers) V (k16n64, MN-major)
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O (m64n128, f32) += P (m64k16 bf16 in registers) V (k16n128, MN-major,
-// two 64-column blocks `lbo` bytes apart)
-__device__ __forceinline__ void wgmma_pv128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // the block's shared memory: Q, the K and V rings, then the mbarriers,
@@ -473,9 +304,9 @@ __device__ __forceinline__ void issue_pv(float (&o)[Dp / 2],
     const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                            p[4 * kk + 3]};
     if constexpr (Dp == 64)
-      wgmma_pv(o, a, sw128_desc(v_addr + kk * 16 * 128));
+      wgmma_rs64(o, a, sw128_desc(v_addr + kk * 16 * 128));
     else
-      wgmma_pv128(o, a, sw128_desc(v_addr + kk * 16 * 128, kBN * 128));
+      wgmma_rs128(o, a, sw128_desc(v_addr + kk * 16 * 128, kBN * 128));
   }
   wgmma_commit();
   fence_regs(o);
@@ -876,62 +707,6 @@ flash_fwd_wide_kernel(Params p) {
 }
 
 // ------------------------------------------------------------------ host
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// a bf16 (D, s, h, b) tensor as a 4-D tensor map, its outer dims ordered
-// by stride; boxes of 64 columns x `rows` x 1 x 1, 128-byte swizzle; rows
-// past the end and columns past D read as zeros.  -> 0 or a CUDA error
-int make_map(EncodeTiled fn, CUtensorMap* map, Slots* slots, const void* base,
-             int D, int rows, long long S, long long H, long long B,
-             long long ss, long long sh, long long sb) {
-  struct Dim {
-    long long size, stride;
-    cuuint32_t box;
-    int which;                      // 0 s, 1 h, 2 b
-  } d[3] = {{S, ss, (cuuint32_t)rows, 0}, {H, sh, 1, 1}, {B, sb, 1, 2}};
-  for (int i = 1; i < 3; ++i)       // insertion sort by stride
-    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
-      const Dim t = d[j];
-      d[j] = d[j - 1];
-      d[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)d[0].size,
-                        (cuuint64_t)d[1].size, (cuuint64_t)d[2].size};
-  cuuint64_t strides[3] = {(cuuint64_t)d[0].stride * 2,
-                           (cuuint64_t)d[1].stride * 2,
-                           (cuuint64_t)d[2].stride * 2};
-  cuuint32_t box[4] = {(cuuint32_t)kColBlock, d[0].box, d[1].box,
-                       d[2].box};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  int* slot[3] = {&slots->s, &slots->h, &slots->b};
-  for (int i = 0; i < 3; ++i) *slot[d[i].which] = i + 1;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 template <int Dp>
 int launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {

@@ -1,5 +1,6 @@
 """Public ops: causal flash attention in the model's (B, S, H, D) layout
-(:func:`flash_attention`) and head-major (:func:`flash_attention_bhsd`).
+(:func:`flash_attention`) and head-major (:func:`flash_attention_bhsd`),
+and its backward (:func:`flash_attention_backward`, kernel 8).
 
 Replaces the reference's ``repro/kernels/flash_attention/ops.py`` and the
 Pallas ``_flash_kernel`` behind it.  A CPU tensor runs the plain torch
@@ -38,6 +39,20 @@ implementation makes outputs of the right shapes and launches nothing, and
 its FLOP formula (:func:`flops`, registered with ``torch.utils.
 flop_counter``) counts the kernel's work as ``chip_smoke.py``'s bounds do.
 A CPU or CUDA tensor takes the same paths as before the operator existed.
+
+The backward, :func:`flash_attention_backward` (the training path's,
+:mod:`repro_torch.models.flash`), has no TPU kernel to replace (the
+reference computes it in jnp).  On the card it launches kernel 8
+(``csrc/flash_attention_bwd.cu``: a preprocess, the TMA + ``wgmma``
+main kernel, a dQ convert; three :class:`build.Kernel` counts) for bf16
+at D <= :data:`TMA_HEAD_DIM` (:func:`backward_takes`), on the tensors
+as they are where TMA reads them and on padded copies otherwise, as the
+forward; anything else raises: no fallback.  Its caller keeps the plain
+backward for f32 and D > 128 (the two inputs the kernel does not take).
+A CPU tensor is refused (the Function's backward there is the plain
+block recompute, :func:`repro_torch.models.flash.flash_backward_plain`);
+a meta tensor goes through ``torch.ops.repro_torch.flash_attention_bwd``,
+whose FLOP formula is :func:`backward_flops` (10·D a pair).
 """
 from __future__ import annotations
 
@@ -265,3 +280,180 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     log-sum-exp (head-major, the layout the backward reads)."""
     _check(q, k, v, seq=1, head=2)
     return _run(q, k, v, causal, return_lse, seq=1, head=2)
+
+
+# ------------------------------------------------- the backward (kernel 8)
+
+BWD_PREPROCESS = build.Kernel("ss_flash_attention_bwd_preprocess", [
+    build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP,
+    build.VOIDP, build.INT, build.INT, build.INT, build.INT, build.VOIDP,
+    build.VOIDP])
+BWD_KERNEL = build.Kernel("ss_flash_attention_bwd", [
+    build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP,
+    build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP,
+    build.INT, build.INT, build.INT, build.INT, build.INT, build.INT,
+    ctypes.c_float, build.INT, build.VOIDP, build.VOIDP])
+BWD_CONVERT = build.Kernel("ss_flash_attention_bwd_convert", [
+    build.VOIDP, build.VOIDP, build.INT, build.INT, build.INT, build.INT,
+    build.INT, build.INT, ctypes.c_float, build.INT, build.VOIDP,
+    build.VOIDP])
+
+
+def backward_flops(B: int, H: int, Sq: int, Skv: int, D: int,
+                   causal: bool) -> int:
+    """FLOPs the backward needs: five products of 2*D an attended pair
+    (the scores recomputed, dV, dP, dK, dQ), 2.5x :func:`flops`."""
+    return 10 * D * attended_pairs(B, H, Sq, Skv, causal)
+
+
+def backward_takes(q: torch.Tensor) -> bool:
+    """Whether kernel 8 computes this attention's backward on the card:
+    bf16 (a ``wgmma`` on f32 is TF32, a lower precision than the f32
+    plain backward's) at D <= :data:`TMA_HEAD_DIM`."""
+    return q.dtype == torch.bfloat16 and q.shape[3] <= TMA_HEAD_DIM
+
+
+def _check_backward(q, k, v, out, lse, do) -> None:
+    _check(q, k, v, seq=1, head=2)
+    for name, t in (("out", out), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash attention backward: {name} is "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"q is {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}")
+    B, Sq, H, _ = q.shape
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash attention backward: lse must be a "
+                         f"contiguous (B, H, Sq) = {(B, H, Sq)} f32 array "
+                         f"(the forward's), got {lse.dtype} "
+                         f"{tuple(lse.shape)} strides {lse.stride()} on "
+                         f"{lse.device}")
+
+
+def _kernel_backward(q, k, v, out, lse, do, causal: bool, scale: float):
+    """Kernel 8's three launches on tensors TMA reads as they are (D a
+    multiple of 8) -> (dq, dk, dv), contiguous (B, S, H, D) bf16.
+
+    dQ's sums over the blocks of keys are added into one f32 accumulator
+    in an order that varies from run to run.  Under
+    ``torch.use_deterministic_algorithms(True)`` each 64 keys' sums go to
+    an accumulator of their own and the convert adds them in order: the
+    same bits every run, at ``ss_flash_attention_bwd_slots(Skv)`` times
+    the accumulator's memory."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    lib = build.library()
+    rows, width = lib.ss_flash_attention_bwd_rows(Sq), \
+        lib.ss_flash_attention_bwd_width(D)
+    slots = lib.ss_flash_attention_bwd_slots(Skv) \
+        if torch.are_deterministic_algorithms_enabled() else 0
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, rows), **f32)
+    lse2 = torch.empty((B, H, rows), **f32)
+    dq_acc = torch.empty((max(slots, 1), B, H, rows, width), **f32)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    stream = build.stream_of(q)
+
+    def strides(*ts):
+        return (ctypes.c_longlong * (3 * len(ts)))(*[
+            t.stride(i) for t in ts for i in (0, 1, 2)])
+    st = strides(out, do)
+    BWD_PREPROCESS(out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), lse2.data_ptr(), dq_acc.data_ptr(),
+                   B, H, Sq, D, ctypes.addressof(st), stream)
+    st = strides(q, k, v, do, dk, dv)
+    BWD_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse2.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), B, H, Sq, Skv, D, int(causal),
+               scale, slots, ctypes.addressof(st), stream)
+    st = strides(dq)
+    BWD_CONVERT(dq_acc.data_ptr(), dq.data_ptr(), B, H, Sq, Skv, D,
+                int(causal), scale, slots, ctypes.addressof(st), stream)
+    return dq, dk, dv
+
+
+def _padded_backward(q, k, v, out, lse, do, causal: bool, width: int):
+    """:func:`_kernel_backward` on contiguous copies of q, k, v, out and
+    do zero-padded to ``width`` columns, at the real D's scale; the
+    gradients' padded columns sliced off (zero columns add nothing to any
+    score or to delta)."""
+    D = q.shape[3]
+
+    def copy(t):
+        buf = t.new_zeros((*t.shape[:3], width))
+        buf[..., :D] = t
+        return buf
+    grads = _kernel_backward(*(copy(t) for t in (q, k, v, out)), lse,
+                             copy(do), causal, scale=1.0 / math.sqrt(D))
+    return tuple(t[..., :D].contiguous() for t in grads)
+
+
+def _backward(q, k, v, out, lse, do, causal: bool):
+    """-> (dq, dk, dv) by kernel 8: on the tensors as they are where TMA
+    reads them, on contiguous copies where only their strides or base stop
+    it, and on zero-padded copies (:func:`_padded_backward`) at a D that
+    is not a multiple of 8 (:func:`padded_width`'s rule)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention backward kernel: takes CUDA "
+                         f"tensors (the CPU's backward is models.flash."
+                         f"flash_backward_plain), got {q.device}")
+    if not backward_takes(q):
+        raise ValueError(
+            f"flash attention backward kernel: takes bf16 at D <= "
+            f"{TMA_HEAD_DIM}, got {q.dtype} at D = {q.shape[3]} (the "
+            f"caller runs the plain backward there)")
+    D = q.shape[3]
+    if D % 8:
+        return _padded_backward(q, k, v, out, lse, do, causal,
+                                -(-D // 8) * 8)
+    q, k, v, out, do = (
+        t if _tma_readable(t)
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (q, k, v, out, do))
+    return _kernel_backward(q, k, v, out, lse, do, causal,
+                            scale=1.0 / math.sqrt(D))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd",
+                         mutates_args=())
+def _bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+         causal: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as one operator, for a trace on meta tensors (its fake
+    below); on a real tensor it is :func:`_backward`."""
+    return _backward(q, k, v, out, lse, do, causal)
+
+
+@_bwd.register_fake
+def _bwd_fake(q, k, v, out, lse, do, causal):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+               causal, *args, out_shape=None, **kwargs) -> int:
+    return backward_flops(q_shape[0], q_shape[2], q_shape[1], k_shape[1],
+                          q_shape[3], causal)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True):
+    """The gradients of :func:`flash_attention` -> (dq, dk, dv) in the
+    inputs' type and (B, S, H, D) shapes.  q, out, do: (B, Sq, H, D); k,
+    v: (B, Skv, H, D), KV repeated to H heads (dk and dv are per query
+    head); lse: the forward's contiguous (B, H, Sq) f32 log-sum-exp.  On
+    the card, bf16 at D <= :data:`TMA_HEAD_DIM` (:func:`backward_takes`)
+    launches kernel 8, anything else raises (a CPU tensor too: its
+    backward is ``models.flash.flash_backward_plain``); a meta tensor goes
+    through the operator
+    ``repro_torch::flash_attention_bwd`` (its fake, its FLOP formula
+    :func:`backward_flops`)."""
+    _check_backward(q, k, v, out, lse, do)
+    bwd = torch.ops.repro_torch.flash_attention_bwd \
+        if q.device.type == "meta" else _backward
+    return bwd(q, k, v, out, lse, do, causal)

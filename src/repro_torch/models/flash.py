@@ -11,12 +11,23 @@ in the backward.  Here that is a :class:`torch.autograd.Function`:
   chunked forward of the reference's ``_flash_fwd_impl`` (the same online
   softmax over (q_chunk, kv_chunk) blocks, p rounded to the value type
   before P V).  No fallback: a CUDA tensor launches the kernel or raises.
-* **backward**: the reference's ``_flash_bwd`` block recompute in plain
-  torch (the reference computes it in jnp, outside any Pallas kernel):
-  ``delta = sum(do * out)``, ``p = exp(s - lse)``, then dv, dp, ds, dk and
-  dq in f32 over (q_chunk, kv_chunk) blocks, cast back to the input
-  types.  Blocks wholly above the causal diagonal are skipped: there p is
-  exactly 0, so they add exactly nothing.
+* **backward**: chosen by :func:`backward_path` from what the input is,
+  never from a model or a knob.  On a CUDA tensor in bf16 at D <= 128
+  kernel 8 (``ss_flash_attention_bwd`` and its preprocess and convert
+  launches, :func:`repro_torch.kernels.flash_attention.ops.
+  flash_attention_backward`: the scores recomputed on chip, bf16
+  products, f32 sums); a CUDA tensor in f32 or at D > 128 keeps the plain
+  backward, counted in :data:`plain_backwards` (no trained config attends
+  there); no other fallback: a CUDA tensor the kernel should take
+  launches it or raises.  On a CPU tensor the plain backward, the
+  reference's ``_flash_bwd`` block recompute in torch
+  (:func:`flash_backward_plain`; the reference computes it in jnp,
+  outside any Pallas kernel): ``delta = sum(do * out)``, ``p = exp(s -
+  lse)``, then dv, dp, ds, dk and dq in f32 over (q_chunk, kv_chunk)
+  blocks, cast back to the input types.  Blocks wholly above the causal
+  diagonal are skipped (kernel 8 skips tiles the same way): there p is
+  exactly 0, so they add exactly nothing.  On a meta tensor (the dry run)
+  the kernel's path is the operator ``repro_torch::flash_attention_bwd``.
 
 The chunk contract is the reference's: each chunk is clamped to the
 sequence, and the sequence must be a multiple of it (``ValueError``
@@ -36,6 +47,10 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.obs import trace
 
 NEG_INF = -1e30
+
+#: backward calls on a CUDA tensor that took the plain path (f32, or a head
+#: dim above the kernel's 128); 0 on every bf16 training path
+plain_backwards = 0
 
 
 def _chunks(Sq: int, Skv: int, q_chunk: int, kv_chunk: int
@@ -152,6 +167,15 @@ def flash_forward(q, k, v, causal: bool, q_chunk: int, kv_chunk: int
     return flash_ops.flash_attention(q, k, v, causal=causal, return_lse=True)
 
 
+def backward_path(q: torch.Tensor) -> str:
+    """``"kernel"`` (kernel 8, or its operator on a meta tensor) or
+    ``"plain"`` (:func:`flash_backward_plain`): plain on the CPU, and on
+    the card where the kernel does not take the input (f32, D > 128)."""
+    if q.device.type == "cpu" or not flash_ops.backward_takes(q):
+        return "plain"
+    return "kernel"
+
+
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with the reference's custom VJP.  The backward
     is the active tracer's span ``attn.bwd`` (:func:`repro_torch.obs.
@@ -166,10 +190,17 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        global plain_backwards
         q, k, v, out, lse = ctx.saved_tensors
         with trace.span("attn.bwd"):
-            dq, dk, dv = flash_backward_plain(q, k, v, out, lse, do,
-                                              *ctx.args)
+            if backward_path(q) == "kernel":
+                dq, dk, dv = flash_ops.flash_attention_backward(
+                    q, k, v, out, lse, do, causal=ctx.args[0])
+            else:
+                if q.device.type == "cuda":
+                    plain_backwards += 1
+                dq, dk, dv = flash_backward_plain(q, k, v, out, lse, do,
+                                                  *ctx.args)
         return dq, dk, dv, None, None, None
 
 

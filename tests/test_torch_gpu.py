@@ -579,7 +579,7 @@ def test_flash_kernel_lse_equals_plain(cuda, B, H, Sq, Skv, dtype, causal):
 @pytest.mark.parametrize("S,qc,kc", [(2048, 512, 1024), (384, 128, 128)])
 def test_flash_function_gradients_equal_plain_autograd(cuda, S, qc, kc):
     """The training attention on the card: kernel 7 (with its lse) in the
-    forward, the block recompute in the backward, against autograd
+    forward, kernel 8 (its three launches) in the backward, against autograd
     through plain f32 attention of the same bf16 inputs: each gradient
     within 1e-2 relative L2 (bf16 output and gradients, 2^-9 each)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -587,10 +587,13 @@ def test_flash_function_gradients_equal_plain_autograd(cuda, S, qc, kc):
     g = torch.Generator(device=cuda).manual_seed(S)
     q, k, v, do = (torch.randn((2, S, 8, 64), generator=g, device=cuda)
                    .to(torch.bfloat16) for _ in range(4))
-    before = flash_ops.KERNEL.launches
+    before = build.launch_counts()
     x = [t.clone().requires_grad_() for t in (q, k, v)]
     got = torch.autograd.grad(flash_attention(*x, True, qc, kc), x, do)
-    assert flash_ops.KERNEL.launches == before + 1
+    ran = {n: c - before[n] for n, c in build.launch_counts().items()}
+    assert ran["ss_flash_attention_fwd"] == 1
+    for name in BWD_KERNELS:
+        assert ran[name] == 1, (name, ran)
     y = [t.float().requires_grad_() for t in (q, k, v)]
     s = torch.einsum("bqhd,bkhd->bhqk", y[0], y[1]) / 8.0
     s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
@@ -601,6 +604,169 @@ def test_flash_function_gradients_equal_plain_autograd(cuda, S, qc, kc):
         assert a.dtype == torch.bfloat16
         rel = ((a.float() - b).norm() / b.norm()).item()
         assert rel <= 1e-2, rel
+
+
+#: kernel 8's launches, one each a backward
+BWD_KERNELS = ("ss_flash_attention_bwd_preprocess", "ss_flash_attention_bwd",
+               "ss_flash_attention_bwd_convert")
+#: kernel 8's gradients against the plain backward's and autograd's through
+#: plain f32 attention, relative L2: its outputs are bf16 (2^-9 each), its
+#: p and ds are rounded to bf16 before their products (as kernel 7's p
+#: before P V), and dQ's f32 atomic adds run in an order that changes from
+#: run to run
+BWD_RTOL = 1e-2
+
+
+def _autograd_attention(q, k, v, do, causal):
+    """Autograd through plain f32 attention of (B, S, H, D) inputs (the
+    bf16 values, upcast) -> (dq, dk, dv) in f32."""
+    y = [t.float().requires_grad_() for t in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", y[0], y[1]) / q.shape[3] ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                                     device=q.device).triu(1), float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), y[2])
+    return torch.autograd.grad(out, y, do.float())
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _kernel8(q, k, v, do, causal):
+    """Kernel 7's forward (out, lse), then kernel 8 -> (grads, out, lse),
+    each of kernel 8's launches counted once."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    out, lse = flash_ops.flash_attention(q, k, v, causal=causal,
+                                         return_lse=True)
+    before = build.launch_counts()
+    grads = flash_ops.flash_attention_backward(q, k, v, out, lse, do,
+                                               causal=causal)
+    after = build.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in BWD_KERNELS)
+    for g, t in zip(grads, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+    return grads, out, lse
+
+
+@pytest.mark.parametrize("B,S,H,D,causal", [
+    (3, 2048, 32, 64, True),      # musicgen-selfattn-2.4b.sealed-train's
+    (12, 512, 32, 64, True),      # its s512 cell's
+    (2, 384, 8, 64, False),
+    (2, 1000, 4, 64, True),       # ragged: the last Q and KV tiles part-full
+    (1, 1000, 4, 128, False),
+    (2, 384, 4, 16, True),        # padded widths: 16 and 112 at Dp 64, 128
+    (2, 1000, 4, 112, True),
+    (2, 384, 4, 128, True),
+    (1, 333, 3, 20, True),        # D = 20: rows TMA cannot read, padded to 24
+])
+def test_flash_backward_kernel_equals_plain(cuda, B, S, H, D, causal):
+    """Kernel 8 against ``flash_backward_plain`` (the f32 block
+    recompute, from the same out and lse) and against autograd through
+    plain f32 attention of the same bf16 inputs: each gradient within
+    BWD_RTOL relative L2."""
+    from repro_torch.models.flash import flash_backward_plain
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    got, out, lse = _kernel8(q, k, v, do, causal)
+    chunks = (512, 1024) if S % 512 == 0 else (S, S)
+    plain = flash_backward_plain(q, k, v, out, lse, do, causal, *chunks)
+    want = _autograd_attention(q, k, v, do, causal)
+    for name, a, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        assert _rel(a, p) <= BWD_RTOL, (name, _rel(a, p))
+        assert _rel(a, w) <= BWD_RTOL, (name, _rel(a, w))
+
+
+@pytest.mark.parametrize("S,causal", [(2048, True), (1000, False)])
+def test_flash_backward_kernel_is_deterministic_when_asked(cuda, S, causal):
+    """Under ``torch.use_deterministic_algorithms(True)`` kernel 8 stores
+    each 64 keys' dQ sums apart and adds them in order: two backwards give
+    the same bits, within BWD_RTOL of the default path (whose f32 adds run
+    in any order) and of autograd's."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v, do = (torch.randn((2, S, 8, 64), generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    fast, _, _ = _kernel8(q, k, v, do, causal)
+    torch.use_deterministic_algorithms(True)
+    try:
+        once, _, _ = _kernel8(q, k, v, do, causal)
+        again, _, _ = _kernel8(q, k, v, do, causal)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = _autograd_attention(q, k, v, do, causal)
+    for name, a, b, f, w in zip(("dq", "dk", "dv"), once, again, fast, want):
+        assert torch.equal(a, b), name
+        assert _rel(a, f) <= BWD_RTOL and _rel(a, w) <= BWD_RTOL, name
+
+
+@pytest.mark.parametrize("kv_heads", [4, 1])
+def test_flash_backward_kernel_takes_grouped_kv_heads(cuda, kv_heads):
+    """K and V repeated from 4 KV heads to 32 (``layers.repeat_kv``, a
+    copy) and from one (a stride-0 view, read as it is): dK and dV per
+    query head, summed over each group by autograd, against autograd
+    through plain f32 attention of the grouped inputs."""
+    from repro_torch.models.flash import flash_attention
+    from repro_torch.models.layers import repeat_kv
+    B, S, H, D = 2, 640, 32, 64
+    g = torch.Generator(device=cuda).manual_seed(kv_heads)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, kv_heads, D), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    groups = H // kv_heads
+    kk, vv = (repeat_kv(t, groups) if kv_heads > 1
+              else t.expand(B, S, H, D) for t in x[1:])
+    before = build.launch_counts()["ss_flash_attention_bwd"]
+    got = torch.autograd.grad(flash_attention(x[0], kk, vv, True, 128, 128),
+                              x, do)
+    assert build.launch_counts()["ss_flash_attention_bwd"] == before + 1
+    y = [t.float().requires_grad_() for t in (q, k, v)]
+    ks, vs = (t.repeat_interleave(groups, dim=2) for t in y[1:])
+    s = torch.einsum("bqhd,bkhd->bhqk", y[0], ks) / D ** 0.5
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                 device=cuda).triu(1), float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vs)
+    want = torch.autograd.grad(out, y, do.float())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and _rel(a, w) <= BWD_RTOL, (name,
+                                                               _rel(a, w))
+
+
+def test_flash_backward_kernel_refuses_and_the_plain_path_is_counted(cuda):
+    """The wrapper raises, launching nothing, for f32 and D > 128 (the
+    inputs its caller keeps on the plain backward) and for an lse of the
+    wrong layout; through the Function, an f32 backward takes the plain
+    path and counts it in ``plain_backwards``, a bf16 one launches
+    kernel 8 and counts nothing."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import flash
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, 256, 2, 64), generator=g, device=cuda) \
+        .to(torch.bfloat16)
+    out, lse = flash_ops.flash_attention(q, q, q, return_lse=True)
+    wide = torch.zeros((1, 256, 2, 160), dtype=torch.bfloat16, device=cuda)
+    wide_lse = torch.zeros((1, 2, 256), device=cuda)
+    before = build.launch_counts()
+    bad_cases = [
+        (q.float(), q.float(), q.float(), out.float(), lse, q.float()),
+        (wide, wide, wide, wide, wide_lse, wide),
+        (q, q, q, out, lse.transpose(1, 2).contiguous().transpose(1, 2), q),
+        (q, q, q, out, lse[:, :1], q)]
+    for args in bad_cases:
+        with pytest.raises(ValueError):
+            flash_ops.flash_attention_backward(*args)
+    assert build.launch_counts() == before
+    for dtype, plain in ((torch.float32, 1), (torch.bfloat16, 0)):
+        x = q.to(dtype).requires_grad_()
+        counted = flash.plain_backwards
+        flash.flash_attention(x, x, x, True, 128, 128).float().sum() \
+            .backward()
+        assert flash.plain_backwards == counted + plain
+        assert torch.isfinite(x.grad.float()).all()
+    ran = {n: c - before[n] for n, c in build.launch_counts().items()}
+    assert all(ran[n] == 1 for n in BWD_KERNELS), ran
 
 
 def test_pallas_flash_has_no_backward_on_the_card(cuda):
