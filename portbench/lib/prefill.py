@@ -10,8 +10,9 @@ batches until ``seconds`` have passed and closes when the batch in
 flight has its tokens.
 
 With ``control="fp8"`` the check reads the control in the program's
-place: the reference computed in fp8 (:func:`dense.last_logits`), its
-logits and its own first tokens for the same sampled requests.
+place: the reference computed in fp8 (the family module's
+``last_logits``), its logits and its own first tokens for the same
+sampled requests.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import torch
 from portbench.lib import check, port, spec
 from portbench.lib.trace import record
 
+#: the end-to-end metrics a prefill cell reports, beside ``setup_s``
+END_TO_END = ("ttft_p95_ms", "prompt_tokens_per_s")
 #: the controls a prefill cell reads in the program's place
 CONTROLS = ("fp8",)
 #: the counters of the batches drawn outside the window (warm-up, trace)
@@ -157,14 +160,14 @@ def sample_of(T: int, lengths: List[int], seed: int):
 def reference_logits(m, T, seed, weights, sample, device, fp8=False):
     """The reference's last logits of each sampled request, in order; the
     requests of one length in one call."""
-    from portbench.reference import dense
+    last_logits = spec.family(m).last_logits
     out = [None] * len(sample)
     for S in sorted({s for _, _, s in sample}, reverse=True):
         idx = [j for j, (_, _, s) in enumerate(sample) if s == S]
         toks = torch.cat([spec.prompts(m, seed, sample[j][0], T // S, S,
                                        device)[sample[j][1]][None]
                           for j in idx])
-        logits = dense.last_logits(m, weights, toks, fp8=fp8)
+        logits = last_logits(m, weights, toks, fp8=fp8)
         for k, j in enumerate(idx):
             out[j] = logits[k]
     return torch.stack(out)

@@ -1,14 +1,14 @@
 """One run of one cell: its files found by name, its driver run, its
 metrics read, its result line built.
 
-The cell's traffic file names its driver (``kind``); its configuration
-file gives the sizes; each per-layer metric is read by
-``portbench/metrics/<metric>.py``, whose ``read(r)`` returns a number or
-None where it finds nothing to read.
+The cell's traffic file names its driver (``kind``: the module
+``portbench/lib/<kind>.py``, whose ``drive`` runs it); its configuration
+file gives the sizes and the family module; each per-layer metric is
+read by ``portbench/metrics/<metric>.py``, whose ``read(r)`` returns a
+number or None where it finds nothing to read.
 """
 from __future__ import annotations
 
-import importlib.util
 import sys
 from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional
@@ -36,23 +36,22 @@ def cell_metrics(bench: dict, cell: str, e2e: Dict[str, float]
 
 
 def load_metric(name: str) -> Callable:
-    path = spec.BENCH / "metrics" / f"{name}.py"
-    mod_name = "portbench_metric_" + "".join(
-        c if c.isalnum() else "_" for c in name)
-    loaded = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(loaded)
-    loaded.loader.exec_module(mod)
-    return mod.read
+    return spec.load("metrics", name).read
+
+
+def kinds() -> List[str]:
+    """The traffic kinds a driver runs: the modules of ``lib/`` that
+    define ``drive``."""
+    return sorted(p.stem for p in (spec.BENCH / "lib").glob("*.py")
+                  if hasattr(spec.load("lib", p.stem), "drive"))
 
 
 def driver(kind: str):
-    if kind == "prefill":
-        from portbench.lib import prefill
-        return prefill.drive
-    if kind == "train":
-        from portbench.lib import train
-        return train.drive
-    raise ValueError(f"no driver for traffic of kind {kind!r}")
+    """The driver of traffic of kind ``kind``: ``lib/<kind>.py``."""
+    if kind not in kinds():
+        raise ValueError(f"no driver for traffic of kind {kind!r}; the "
+                         f"kinds are {kinds()}")
+    return spec.load("lib", kind)
 
 
 def run_cell(bench: dict, cell: str, *, seed: int, seconds: float,
@@ -70,7 +69,8 @@ def run_cell(bench: dict, cell: str, *, seed: int, seconds: float,
     m = spec.model(cfg)
     kw = dict(seed=seed, seconds=seconds, trace=trace, device=device,
               control=control)
-    out = driver(tr["kind"])(entry["config"], cfg, tr["traffic"], **kw)
+    out = driver(tr["kind"]).drive(entry["config"], cfg, tr["traffic"],
+                                   **kw)
     e2e = dict(out["e2e"], setup_s=out["t0"] - t_start)
     ends, layers = cell_metrics(bench, cell, e2e)
     r = SimpleNamespace(model=m, traffic=tr["traffic"], peaks=peaks,

@@ -1,15 +1,18 @@
 """What a cell is made of, read from its files: the configuration's sizes,
-the cell's traffic, the weights and inputs drawn from the seed.
+its family module, the cell's traffic, the weights and inputs drawn from
+the seed.
 
 Nothing here imports the program: the reference and the drivers share
 these inputs, so both sides see the same tensors.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
-import math
+import sys
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -18,12 +21,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "portbench"
 
-#: the keys of a configuration file that size the model; the rest of the
-#: file (source, cuts, assumptions) is for the reader
-MODEL_KEYS = ("family", "num_layers", "d_model", "num_heads", "num_kv_heads",
-              "head_dim", "d_ff", "vocab_size", "mlp_type", "rope_theta",
-              "rms_eps", "tie_embeddings", "qkv_bias", "frontend",
-              "frontend_dim")
+#: the family module of a configuration file without ``"reference"``
+DEFAULT_REFERENCE = "dense"
 
 
 def load_json(path: Path) -> dict:
@@ -59,9 +58,52 @@ def load_traffic(name: str) -> dict:
     return load_json(BENCH / "workloads" / f"{name}.json")
 
 
-def model(cfg: dict) -> dict:
-    """The sizes the model is run with."""
-    return {k: cfg["model"][k] for k in MODEL_KEYS}
+class Model(dict):
+    """A configuration's ``model`` group, whole (the port's ``ModelConfig``
+    fields, sub-configurations as nested objects), and in ``reference``
+    the name of its family module."""
+
+    def __init__(self, sizes: dict, reference: str = DEFAULT_REFERENCE):
+        super().__init__(sizes)
+        self.reference = reference
+
+
+def model(cfg: dict) -> Model:
+    """The sizes the model is run with; the rest of the file (source,
+    cuts, assumptions) is for the reader."""
+    return Model(cfg["model"], cfg.get("reference", DEFAULT_REFERENCE))
+
+
+_modules: Dict[Path, ModuleType] = {}
+
+
+def load(subdir: str, name: str) -> ModuleType:
+    """The module ``portbench/<subdir>/<name>.py``, loaded by its path
+    under ``BENCH`` once: a family module (``reference``), a driver
+    (``lib``), a metric's reader (``metrics``)."""
+    path = BENCH / subdir / f"{name}.py"
+    if path not in _modules:
+        if not path.is_file():
+            raise FileNotFoundError(f"no module {path}")
+        loaded = importlib.util.spec_from_file_location(
+            "portbench_" + "".join(c if c.isalnum() else "_"
+                                   for c in f"{subdir}_{name}"), path)
+        mod = importlib.util.module_from_spec(loaded)
+        # a module's dataclasses look it up in sys.modules
+        sys.modules[loaded.name] = mod
+        loaded.loader.exec_module(mod)
+        _modules[path] = mod
+    return _modules[path]
+
+
+def family(m: Model) -> ModuleType:
+    """The family module of the sizes ``m``: its layout, its FLOP and
+    byte counts and its plain reference.  ``m`` has to come from
+    ``model``, which carries the module's name."""
+    if not isinstance(m, Model):
+        raise TypeError(f"sizes of type {type(m).__name__}: the family "
+                        f"module is named only on spec.model()'s Model")
+    return load("reference", m.reference)
 
 
 def sub_seed(seed: int, *tags: int) -> int:
@@ -96,50 +138,26 @@ class Leaf:
     shape: Tuple[int, ...]
     init: str               # normal | ones
     std: float = 0.0
+    dtype: torch.dtype = torch.bfloat16
 
 
-def layout(m: dict) -> List[Leaf]:
-    """Every weight of a dense decoder (the dense, audio and vision
-    families: attention + MLP a layer) as the port lays it out: stacked
-    ``(L, ...)`` layers, ``x @ W`` matrices of (fan_in, fan_out), norms as
-    gains, a separate LM head unless tied.  A matrix is drawn N(0,
-    1/fan_in), the embedding N(0, 0.02^2), a gain is 1."""
-    d, L, V = m["d_model"], m["num_layers"], m["vocab_size"]
-    hd = m["num_heads"] * m["head_dim"]
-    kd = m["num_kv_heads"] * m["head_dim"]
-    F = m["d_ff"]
-    mats = {("attn", "wq"): (d, hd), ("attn", "wk"): (d, kd),
-            ("attn", "wv"): (d, kd), ("attn", "wo"): (hd, d),
-            ("mlp", "wu"): (d, F), ("mlp", "wd"): (F, d)}
-    if m["mlp_type"] == "swiglu":
-        mats[("mlp", "wg")] = (d, F)
-    leaves = [Leaf(("embed",), (V, d), "normal", 0.02),
-              Leaf(("final_norm",), (d,), "ones")]
-    if not m["tie_embeddings"]:
-        leaves.append(Leaf(("lm_head",), (d, V), "normal", d ** -0.5))
-    if m["frontend"] != "none":
-        leaves.append(Leaf(("frontend_proj",), (m["frontend_dim"], d),
-                           "normal", m["frontend_dim"] ** -0.5))
-    leaves += [Leaf(("layers", "ln1"), (L, d), "ones"),
-               Leaf(("layers", "ln2"), (L, d), "ones")]
-    for (group, name), (fi, fo) in sorted(mats.items()):
-        leaves.append(Leaf(("layers", group, name), (L, fi, fo), "normal",
-                           fi ** -0.5))
-    if m["qkv_bias"]:
-        raise ValueError("the harness draws no attention biases")
-    return sorted(leaves, key=lambda s: s.path)
+def layout(m: Model) -> List[Leaf]:
+    """Every weight of the model as the port lays it out, in draw order:
+    the family module's ``layout``."""
+    return [Leaf(*leaf) for leaf in family(m).layout(m)]
 
 
-def make_weights(m: dict, seed: int, device) -> dict:
-    """The weights drawn from ``seed`` on ``device`` in bf16, one draw a
-    stacked leaf, as a nested dict.  The same seed gives the same bits."""
+def make_weights(m: Model, seed: int, device) -> dict:
+    """The weights drawn from ``seed`` on ``device``, each leaf in its
+    type, one draw a stacked leaf, as a nested dict.  The same seed gives
+    the same bits."""
     g = generator(device, seed, WEIGHTS)
     tree: dict = {}
     for leaf in layout(m):
         if leaf.init == "ones":
-            t = torch.ones(leaf.shape, dtype=torch.bfloat16, device=device)
+            t = torch.ones(leaf.shape, dtype=leaf.dtype, device=device)
         else:
-            t = torch.randn(leaf.shape, generator=g, dtype=torch.bfloat16,
+            t = torch.randn(leaf.shape, generator=g, dtype=leaf.dtype,
                             device=device).mul_(leaf.std)
         node = tree
         for k in leaf.path[:-1]:
@@ -156,38 +174,29 @@ def leaves(tree: dict, prefix: Tuple[str, ...] = ()
     return [x for k in sorted(tree) for x in leaves(tree[k], prefix + (k,))]
 
 
-def matmul_weights(m: dict) -> Dict[str, int]:
-    """Weight elements that multiply every token in a product, by part:
-    the layers' projections and MLP, the LM head, the front end's
-    projector.  The embedding is gathered, not multiplied."""
-    d = m["d_model"]
-    per_layer = sum(math.prod(l.shape[1:]) for l in layout(m)
-                    if l.path[0] == "layers" and len(l.shape) == 3)
-    return {"layers": per_layer * m["num_layers"],
-            "lm_head": d * m["vocab_size"],
-            "frontend": m["frontend_dim"] * d if m["frontend"] != "none"
-            else 0}
+# The family module's counts, under the names the metrics and tests call
+# (see ``reference/dense.py``).
+
+
+def matmul_weights(m: Model) -> Dict[str, int]:
+    """Weight elements that multiply each token in a product, by part
+    (``layers``, ``lm_head``, ``frontend``): of an MoE, the active ones."""
+    return family(m).matmul_weights(m)
+
+
+def attention_flops(m: Model, B: int, S: int) -> int:
+    """One causal attention forward of every attention layer."""
+    return family(m).attention_flops(m, B, S)
+
+
+def attention_bytes(m: Model, B: int, S: int, lse: bool) -> int:
+    """One attention layer's forward, each byte read or written once."""
+    return family(m).attention_bytes(m, B, S, lse)
 
 
 def attended_pairs(B: int, H: int, S: int) -> int:
     """(query, key) pairs of causal attention over S positions."""
-    return B * H * S * (S + 1) // 2
-
-
-def attention_flops(m: dict, B: int, S: int) -> int:
-    """One causal attention forward of every layer: 2·D for q·k and 2·D
-    for p·v a pair, at the real head dim."""
-    return m["num_layers"] * 4 * m["head_dim"] * attended_pairs(
-        B, m["num_heads"], S)
-
-
-def attention_bytes(m: dict, B: int, S: int, lse: bool) -> int:
-    """One layer's attention forward, each byte read or written once:
-    bf16 queries and outputs of every head, keys and values of the
-    key/value heads, and with ``lse`` its (B, H, S) f32 log-sum-exp."""
-    H, K, D = m["num_heads"], m["num_kv_heads"], m["head_dim"]
-    n = 2 * B * S * D * (2 * H + 2 * K)
-    return n + (4 * B * H * S if lse else 0)
+    return load("reference", DEFAULT_REFERENCE).attended_pairs(B, H, S)
 
 
 # ---------------------------------------------------------------------------
@@ -226,11 +235,12 @@ def train_batch(m: dict, seed: int, step: int, B: int, S: int, device
                          dtype=torch.int32, device=device)
     out = {"tokens": toks[:, :-1].contiguous(),
            "labels": toks[:, 1:].contiguous()}
-    if m["frontend"] == "audio_frames":
+    frontend = m.get("frontend", "none")
+    if frontend == "audio_frames":
         out["frames"] = torch.randn((B, S, m["frontend_dim"]), generator=g,
                                     dtype=torch.bfloat16, device=device)
-    elif m["frontend"] != "none":
-        raise ValueError(f"no traffic for the front end {m['frontend']!r}")
+    elif frontend != "none":
+        raise ValueError(f"no traffic for the front end {frontend!r}")
     return out
 
 

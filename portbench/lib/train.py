@@ -27,6 +27,8 @@ import torch
 from portbench.lib import check, port, spec
 from portbench.lib.trace import record
 
+#: the end-to-end metrics a training cell reports, beside ``setup_s``
+END_TO_END = ("train_tokens_per_s",)
 #: the steps the reference follows
 CHECKED_STEPS = 3
 #: the steps a traced run traces after its window (in each of its passes)
@@ -214,13 +216,13 @@ def drive(name: str, cfg: dict, traffic: dict, *, seed: int, seconds: float,
 def reference(m, opt, traffic, seed, device, *, fp8=False,
               batch_fn=lambda b: b, first_grad=None) -> dict:
     """The reference over the checked steps, from the same weights and
-    batches (each through ``batch_fn``: a fault planted in the input)."""
-    from portbench.reference import dense
+    batches (each through ``batch_fn``: a fault planted in the input):
+    the family module's ``train``."""
     B, S = traffic["batch"], traffic["seq_len"]
     batches = [batch_fn(spec.train_batch(m, seed, k, B, S, device))
                for k in range(CHECKED_STEPS)]
-    return dense.train(m, opt, spec.make_weights(m, seed, device), batches,
-                       fp8=fp8, first_grad=first_grad)
+    return spec.family(m).train(m, opt, spec.make_weights(m, seed, device),
+                                batches, fp8=fp8, first_grad=first_grad)
 
 
 def judge(m, opt, traffic, seed, device, checked: Checked,

@@ -2,9 +2,10 @@
 forwards over the device time of the kernels whose names match
 :data:`PATTERN`, in %.
 
-Least time of one layer's forward: the larger of its FLOPs (4·D a causal
-(query, key) pair) over the bf16 peak and its bytes (queries, keys,
-values and outputs, each once) over the memory rate.  None where the
+Least time of one layer's forward: the larger of its FLOPs (of the dense
+family 4·D a causal (query, key) pair) over the bf16 peak and its bytes
+(queries, keys, values and outputs, each once) over the memory rate,
+both as the configuration's family module counts them.  None where the
 trace shows no such kernel.
 """
 from portbench.lib import peaks, spec
@@ -14,9 +15,10 @@ PATTERN = r"flash|fmha|attention"
 
 
 def least_seconds(m: dict, B: int, S: int) -> float:
-    layer = spec.attention_flops(m, B, S) / m["num_layers"]
-    return m["num_layers"] * peaks.least_seconds(
-        layer, spec.attention_bytes(m, B, S, lse=False))
+    fam = spec.family(m)
+    n = fam.attention_layers(m)
+    return n * peaks.least_seconds(fam.attention_flops(m, B, S) / n,
+                                   fam.attention_bytes(m, B, S, lse=False))
 
 
 def read(r):

@@ -10,8 +10,10 @@ and the f32 log-sum-exp the backward reads, each once) over the memory
 rate.  Backward kernels (names with :data:`BACKWARD`) run once a layer;
 the least time of one: 10·D a pair (the scores recomputed, dV, dP, dQ,
 dK) and, each once, the forward's bytes, the outputs' gradient read and
-the queries', keys' and values' gradients written.  A part the trace
-does not show adds nothing; None where it shows neither.
+the queries', keys' and values' gradients written.  The FLOPs and bytes
+are the configuration's family module's (those above: the dense one's).
+A part the trace does not show adds nothing; None where it shows
+neither.
 """
 from portbench.lib import peaks, spec
 
@@ -25,18 +27,22 @@ BACKWARD_ONLY = rf"^(?=.*({BACKWARD})).*({PATTERN})"
 
 def least_seconds(m: dict, B: int, S: int) -> float:
     """One step's attention forwards, once a layer."""
-    layer = spec.attention_flops(m, B, S) / m["num_layers"]
-    return m["num_layers"] * peaks.least_seconds(
-        layer, spec.attention_bytes(m, B, S, lse=True))
+    fam = spec.family(m)
+    n = fam.attention_layers(m)
+    return n * peaks.least_seconds(fam.attention_flops(m, B, S) / n,
+                                   fam.attention_bytes(m, B, S, lse=True))
 
 
 def least_backward_seconds(m: dict, B: int, S: int) -> float:
-    """One step's attention backwards, once a layer."""
-    layer = 2.5 * spec.attention_flops(m, B, S) / m["num_layers"]
-    grads = 2 * B * S * m["head_dim"] * (2 * m["num_heads"]
-                                         + 2 * m["num_kv_heads"])
-    return m["num_layers"] * peaks.least_seconds(
-        layer, spec.attention_bytes(m, B, S, lse=True) + grads)
+    """One step's attention backwards, once a layer; the gradients of the
+    queries, keys, values and outputs have the bytes of the forward's
+    inputs and output."""
+    fam = spec.family(m)
+    n = fam.attention_layers(m)
+    grads = fam.attention_bytes(m, B, S, lse=False)
+    return n * peaks.least_seconds(
+        fam.attention_backward_flops(m, B, S) / n,
+        fam.attention_bytes(m, B, S, lse=True) + grads)
 
 
 def read(r):

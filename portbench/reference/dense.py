@@ -1,4 +1,7 @@
-"""The plain reference of the dense decoder the cells run, in float32.
+"""The dense family (``dense``, ``audio``, ``vlm``: attention + MLP a
+layer) as the harness sees it: its weight layout, its FLOP and byte
+counts, and its plain reference in float32.  A configuration names its
+family module with ``"reference"``; this is the one taken without it.
 
 One layer: ``x + attn(rms_norm(x))``, then ``x + mlp(rms_norm(x))``;
 attention is causal softmax attention over rotary positions (the
@@ -28,6 +31,94 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 E4M3_MAX = 448.0
+
+
+# ---------------------------------------------------------------------------
+# The weights' layout and the work's counts
+# ---------------------------------------------------------------------------
+
+
+def layout(m: dict) -> List[tuple]:
+    """Every weight as the port lays it out, in draw order: (path, shape,
+    init, std), bf16 (a fifth item would give another type).  Stacked
+    ``(L, ...)`` layers, ``x @ W`` matrices of (fan_in, fan_out), norms as
+    gains, a separate LM head unless tied.  A matrix is drawn N(0,
+    1/fan_in), the embedding N(0, 0.02^2), a gain is 1."""
+    d, L, V = m["d_model"], m["num_layers"], m["vocab_size"]
+    hd = m["num_heads"] * m["head_dim"]
+    kd = m["num_kv_heads"] * m["head_dim"]
+    F = m["d_ff"]
+    mats = {("attn", "wq"): (d, hd), ("attn", "wk"): (d, kd),
+            ("attn", "wv"): (d, kd), ("attn", "wo"): (hd, d),
+            ("mlp", "wu"): (d, F), ("mlp", "wd"): (F, d)}
+    if m["mlp_type"] == "swiglu":
+        mats[("mlp", "wg")] = (d, F)
+    leaves = [(("embed",), (V, d), "normal", 0.02),
+              (("final_norm",), (d,), "ones", 0.0)]
+    if not m["tie_embeddings"]:
+        leaves.append((("lm_head",), (d, V), "normal", d ** -0.5))
+    if m["frontend"] != "none":
+        leaves.append((("frontend_proj",), (m["frontend_dim"], d),
+                       "normal", m["frontend_dim"] ** -0.5))
+    leaves += [(("layers", "ln1"), (L, d), "ones", 0.0),
+               (("layers", "ln2"), (L, d), "ones", 0.0)]
+    for (group, name), (fi, fo) in sorted(mats.items()):
+        leaves.append((("layers", group, name), (L, fi, fo), "normal",
+                       fi ** -0.5))
+    if m["qkv_bias"]:
+        raise ValueError("the harness draws no attention biases")
+    return sorted(leaves, key=lambda s: s[0])
+
+
+def matmul_weights(m: dict) -> Dict[str, int]:
+    """Weight elements that multiply each token in a product, by part:
+    the layers' projections and MLP, the LM head, the front end's
+    projector.  The embedding is gathered, not multiplied."""
+    d = m["d_model"]
+    per_layer = sum(math.prod(shape[1:]) for path, shape, *_ in layout(m)
+                    if path[0] == "layers" and len(shape) == 3)
+    return {"layers": per_layer * m["num_layers"],
+            "lm_head": d * m["vocab_size"],
+            "frontend": m["frontend_dim"] * d if m["frontend"] != "none"
+            else 0}
+
+
+def attended_pairs(B: int, H: int, S: int) -> int:
+    """(query, key) pairs of causal attention over S positions."""
+    return B * H * S * (S + 1) // 2
+
+
+def attention_layers(m: dict) -> int:
+    """The layers that run attention: every one."""
+    return m["num_layers"]
+
+
+def attention_flops(m: dict, B: int, S: int) -> int:
+    """One causal attention forward of every layer: 2·D for q·k and 2·D
+    for p·v a pair, at the real head dim."""
+    return m["num_layers"] * 4 * m["head_dim"] * attended_pairs(
+        B, m["num_heads"], S)
+
+
+def attention_backward_flops(m: dict, B: int, S: int) -> int:
+    """One causal attention backward of every layer: 10·D a pair (the
+    scores recomputed, dV, dP, dQ, dK)."""
+    return m["num_layers"] * 10 * m["head_dim"] * attended_pairs(
+        B, m["num_heads"], S)
+
+
+def attention_bytes(m: dict, B: int, S: int, lse: bool) -> int:
+    """One layer's attention forward, each byte read or written once:
+    bf16 queries and outputs of every head, keys and values of the
+    key/value heads, and with ``lse`` its (B, H, S) f32 log-sum-exp."""
+    H, K, D = m["num_heads"], m["num_kv_heads"], m["head_dim"]
+    n = 2 * B * S * D * (2 * H + 2 * K)
+    return n + (4 * B * H * S if lse else 0)
+
+
+# ---------------------------------------------------------------------------
+# The reference's forward
+# ---------------------------------------------------------------------------
 
 
 def exact_f32() -> None:

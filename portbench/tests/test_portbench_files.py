@@ -41,7 +41,7 @@ def test_cell_files_parse(cell):
     entry = spec.cell_entry(BENCH, cell)
     assert entry["chips"] == 1 and len(entry["why"]) <= 200
     tr = spec.load_traffic(cell)
-    assert tr["kind"] in ("prefill", "train")
+    assert tr["kind"] in runner.kinds()
     cfg = spec.load_config(BENCH, entry["config"])
     m = spec.model(cfg)
     assert m["num_heads"] % m["num_kv_heads"] == 0
@@ -56,8 +56,7 @@ def test_cell_files_parse(cell):
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_every_metric_of_a_cell_names_an_end_to_end_metric_it_reports(cell):
     tr = spec.load_traffic(cell)
-    e2e = {"prefill": ("ttft_p95_ms", "prompt_tokens_per_s"),
-           "train": ("train_tokens_per_s",)}[tr["kind"]]
+    e2e = runner.driver(tr["kind"]).END_TO_END
     ends, layers = runner.cell_metrics(BENCH, cell,
                                        dict.fromkeys(e2e + ("setup_s",)))
     reported = {e["name"] for e in ends}
