@@ -2346,11 +2346,11 @@ def flash_pairs(B, H, Sq, Skv, causal):
     return flash_ops.attended_pairs(B, H, Sq, Skv, causal)
 
 
-def flash_flops(B, H, Sq, Skv, D, causal):
-    """FLOPs kernel 7 needs: 2*D for q.k and 2*D for p*v per attended
+def flash_flops(B, H, Sq, Skv, D, causal, Dv=None):
+    """FLOPs kernel 7 needs: 2*D for q.k and 2*Dv for p*v per attended
     (query, key) pair (``ops.flops``: the dry run's count of it)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    return flash_ops.flops(B, H, Sq, Skv, D, causal)
+    return flash_ops.flops(B, H, Sq, Skv, D, causal, Dv)
 
 
 def _plain_bshd(torch, keep=None):
@@ -4360,8 +4360,11 @@ FAMILY_FLASH_CHECKS = ((2, 4, 1000, 1000), (1, 3, 130, 700), (2, 4, 128, 128))
 #: that take each head dim (granite-34b's with its one KV head expanded
 #: to its 48 query heads, as ``repeat_kv`` gives it; and every config's
 #: reduce_for_smoke form), and D = 32 and 96, which no config has
-#: (computed at the padded widths 64 and 128), at moonshot's B, H and S
+#: (computed at the padded widths 64 and 128), at moonshot's B, H and S.
+#: A (Dqk, Dv) pair is latent attention's: moonlight-16b-a3b's 16 heads at
+#: its cell's longest prompts, 4 x 8,192
 FAMILY_FLASH_TIMED = {
+    "moonlight-16b-a3b": (4, 16, 8192, (192, 128)),
     "moonshot-v1-16b-a3b": (4, 16, 2048, 128),
     "qwen2.5-14b": (4, 40, 2048, 128),
     "granite-34b": (4, 48, 2048, 128),
@@ -4379,8 +4382,17 @@ FAMILY_FLASH_TIMED = {
 #: the head dims phase 14a checks against the plain version (phase 9
 #: checks 64): the configs' others, two that no config has, two whose
 #: rows are not 16-byte multiples in bf16 (zero-padded to 24 and 104 by
-#: the wrapper) and two above 128 (the wide kernel)
-FAMILY_FLASH_DIMS = (16, 32, 96, 112, 128, 20, 100, 192, 256)
+#: the wrapper), two above 128 (the wide kernel), and (Dqk, Dv) pairs:
+#: latent attention's (192, 128) instantiation, at a Dqk it zero-fills
+#: (160) and one whose rows it pads (190, 120 to 192, 128), and a pair the
+#: (128, 128) instantiation takes (96, 64)
+FAMILY_FLASH_DIMS = (16, 32, 96, 112, 128, 20, 100, 192, 256, (192, 128),
+                     (160, 128), (190, 120), (96, 64))
+
+
+def _qk_v(D):
+    """(Dqk, Dv) of a FAMILY_FLASH_DIMS / FAMILY_FLASH_TIMED entry."""
+    return D if isinstance(D, tuple) else (D, D)
 #: kernel 7 at D = 64 at phase 9's shape (8 x 32 x 4096): the most it may
 #: take, ms.  Before the head-dim template it read 1.446 ms, and the
 #: template's D = 64 read 1.4498-1.4699 ms in the runs of this script that
@@ -4561,13 +4573,14 @@ def phase_flash_head_dims(torch, dev):
         phase("flash_instance", card=CARD, dtype=dt, padded_width=D,
               registers=k["registers"], spill_stores=k["spill_stores"],
               spill_loads=k["spill_loads"],
-              smem_bytes=flash_ops.smem_bytes(D) if dt != "f32"
+              smem_bytes=flash_ops.smem_bytes(D, min(D, 128)) if dt != "f32"
               else "static")
     g = torch.Generator(device=dev).manual_seed(14)
 
     def qkv(B, H, Sq, Skv, D, dtype):
-        return [torch.randn((B, H, s, D), generator=g, device=dev).to(dtype)
-                for s in (Sq, Skv, Skv)]
+        Dqk, Dv = _qk_v(D)
+        return [torch.randn((B, H, s, d), generator=g, device=dev).to(dtype)
+                for s, d in ((Sq, Dqk), (Skv, Dqk), (Skv, Dv))]
 
     def run(q, k, v, causal, layout, lse):
         if layout == "bhsd":
@@ -4607,7 +4620,8 @@ def phase_flash_head_dims(torch, dev):
                         failed.append((D, B, H, Sq, Skv, causal, str(dtype),
                                        layout))
                 del q, k, v, want, want_lse
-                phase("flash_head_dim_check", card=CARD, head_dim=D,
+                phase("flash_head_dim_check", card=CARD, head_dim=_qk_v(D)[0],
+                  v_head_dim=_qk_v(D)[1],
                       dtype=str(dtype).removeprefix("torch."),
                       shape=f"{B}x{H}x{Sq}x{Skv}", causal=causal,
                       **{f"{lay}_max_abs_err": e[0] for lay, e in
@@ -4638,8 +4652,9 @@ def phase_flash_head_dims(torch, dev):
         f32_ms = eager_ms(torch, lambda: flash_ops.flash_attention_bhsd(
             qf, kf, vf), 2)
         del qf, kf, vf
-        flops = flash_flops(B, H, S, S, D, True)
-        b, by = bound(4 * q.numel() * q.element_size(), flops,
+        Dqk, Dv = _qk_v(D)
+        flops = flash_flops(B, H, S, S, Dqk, True, Dv)
+        b, by = bound(2 * (q.numel() + v.numel()) * q.element_size(), flops,
                       PEAK_FLOPS)
         exp2 = flash_pairs(B, H, S, S, True)
         row = dict(shape=f"B={B} H={H} S={S} D={D} bf16 causal", ms=ms,
@@ -4648,7 +4663,7 @@ def phase_flash_head_dims(torch, dev):
                    tflops=flops / ms / 1e9, share_of_bound=b / ms,
                    vs_library=ms / library_ms, exp2=exp2,
                    exp2_sfu_ms=exp2 / SFU_EXP2_PER_S * 1e3, f32_ms=f32_ms)
-        numbers[f"D{D} {arch}"] = row
+        numbers[f"D{D if Dqk == Dv else f'{Dqk}/{Dv}'} {arch}"] = row
         phase("flash_head_dim_time", card=CARD, arch=arch, **row)
         del q, k, v
     B, H, S, _ = FLASH_SHAPES[0]

@@ -11,6 +11,7 @@ import importlib
 from typing import Dict, List, Tuple
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    MLAConfig,
     ModelConfig,
     MoEConfig,
     OptimizerConfig,
@@ -19,6 +20,7 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
     ShapeConfig,
     ShardingConfig,
     SHAPES,
+    SigmoidMoEConfig,
     SSMConfig,
     XLSTMConfig,
     reduce_for_smoke,
@@ -39,11 +41,19 @@ _ARCH_MODULES: Dict[str, str] = {
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
+#: the port's configs of models the reference does not have: not in
+#: ``ARCH_IDS`` (the reference's grid), but found by ``get_model_config``
+PORT_MODULES: Dict[str, str] = {
+    "moonlight-16b-a3b": "repro_torch.configs.moonlight_16b_a3b",
+}
+
 
 def _module(arch_id: str):
-    if arch_id not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    return importlib.import_module(_ARCH_MODULES[arch_id])
+    name = _ARCH_MODULES.get(arch_id) or PORT_MODULES.get(arch_id)
+    if name is None:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{ARCH_IDS + list(PORT_MODULES)}")
+    return importlib.import_module(name)
 
 
 def get_model_config(arch_id: str) -> ModelConfig:

@@ -9,6 +9,15 @@ logical-axis sharding rules by :class:`ShardingConfig` (read by
 reference's field names; every model family's sub-config
 (:class:`MoEConfig`, :class:`SSMConfig`, :class:`XLSTMConfig`) is the
 reference's, field for field.
+
+The port adds fields of its own for models the reference does not run
+(DeepSeek-V3's block, as Moonlight-16B-A3B has it): latent attention
+(:class:`MLAConfig`, ``ModelConfig.mla``), leading dense layers ahead of
+an MoE stack (``ModelConfig.first_dense_layers``), and the MoE's sigmoid
+router with its correction bias, routed scale, shared experts and
+dropless dispatch (:class:`SigmoidMoEConfig`, ``ModelConfig.sigmoid_moe``).
+Each default is the reference's model, so the ten configs it has stay as
+they are.
 """
 from __future__ import annotations
 
@@ -36,6 +45,41 @@ class MoEConfig:
     router_jitter: float = 0.0
     # Load-balancing auxiliary loss weight (Switch-style).
     aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class SigmoidMoEConfig:
+    """DeepSeek-V3's MoE over :class:`MoEConfig`'s experts (the port's own;
+    the reference has none): each expert scored by a sigmoid, a token's
+    ``top_k`` chosen by score plus a per-expert f32 bias
+    (``e_score_correction_bias``, ``topk_method`` noaux_tc), weighted by
+    the chosen unbiased scores, renormalised (``norm_topk_prob``) and
+    times ``routed_scale`` (``routed_scaling_factor``); every assignment
+    computed (no capacity: ``capacity_factor`` is unread); and
+    ``num_shared_experts`` experts that every token passes through, run as
+    one SwiGLU of ``num_shared_experts * d_expert``."""
+
+    routed_scale: float
+    num_shared_experts: int
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3), without a query
+    latent: keys and values come up from a normed latent of
+    ``kv_lora_rank`` values a token; each head's query and key have
+    ``qk_nope_head_dim`` dims without position and ``qk_rope_head_dim``
+    rotary dims (the rotary key is one for all heads), its value
+    ``v_head_dim``."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclass(frozen=True)
@@ -98,6 +142,17 @@ class ModelConfig:
     # Whether attention is full quadratic (drives the long_500k skip rule).
     attention_free: bool = False
 
+    # ---- the port's own fields; the defaults are the reference's models
+    # latent attention in place of the q/k/v projections (head_dim is then
+    # its q/k head dim)
+    mla: Optional[MLAConfig] = None
+    # moe: this many dense layers (an MLP of d_ff) ahead of the MoE layers,
+    # counted in num_layers (first_k_dense_replace)
+    first_dense_layers: int = 0
+    # moe: DeepSeek-V3's routing of moe's experts in place of the
+    # reference's softmax over capacity-bound ones
+    sigmoid_moe: Optional[SigmoidMoEConfig] = None
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim",
@@ -122,8 +177,8 @@ class ModelConfig:
         if self.moe is None:
             return full
         expert_p = 3 * self.d_model * self.moe.d_expert
-        dead = self.num_layers * (self.moe.num_experts - self.moe.top_k) \
-            * expert_p
+        dead = (self.num_layers - self.first_dense_layers) \
+            * (self.moe.num_experts - self.moe.top_k) * expert_p
         return full - dead
 
 
@@ -237,17 +292,22 @@ class RunConfig:
 def reduce_for_smoke(m: ModelConfig) -> ModelConfig:
     """Shrink a full config to a CPU-runnable config of the same family
     (the reference's dims: 2 layers (7 for a hybrid), d_model 64, 4 heads
-    of 16, d_ff 128, vocab 256, and each family's small sub-config)."""
+    of 16, d_ff 128, vocab 256, and each family's small sub-config).  The
+    port's own fields: at most one leading dense layer ahead of the 2;
+    latent attention at a latent of 32, 16 + 8 q/k dims and 16 v dims; at
+    most 1 shared expert; the router's kind carried."""
+    dense = min(m.first_dense_layers, 1)
     kw: Dict[str, Any] = dict(
         arch_id=m.arch_id + "-smoke",
         family=m.family,
-        num_layers=min(m.num_layers, 2 if m.family != "hybrid" else 7),
+        num_layers=dense + min(m.num_layers - m.first_dense_layers,
+                               2 if m.family != "hybrid" else 7),
         d_model=64,
         num_heads=4,
         num_kv_heads=min(m.num_kv_heads, 4) if m.num_kv_heads > 1 else 1,
         d_ff=128 if m.d_ff else 0,
         vocab_size=256,
-        head_dim=16,
+        head_dim=16 if m.mla is None else 24,
         qkv_bias=m.qkv_bias,
         mlp_type=m.mlp_type,
         tie_embeddings=m.tie_embeddings,
@@ -256,10 +316,18 @@ def reduce_for_smoke(m: ModelConfig) -> ModelConfig:
         frontend=m.frontend,
         frontend_dim=32 if m.frontend != "none" else 0,
         attention_free=m.attention_free,
+        first_dense_layers=dense,
     )
+    if m.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
+                              qk_rope_head_dim=8, v_head_dim=16)
     if m.moe is not None:
         kw["moe"] = MoEConfig(num_experts=8, top_k=2, d_expert=32,
                               capacity_factor=m.moe.capacity_factor)
+    if m.sigmoid_moe is not None:
+        kw["sigmoid_moe"] = dataclasses.replace(
+            m.sigmoid_moe,
+            num_shared_experts=min(m.sigmoid_moe.num_shared_experts, 1))
     if m.ssm is not None:
         kw["ssm"] = SSMConfig(state_dim=16, conv_width=4, expand=2, headdim=16,
                               chunk_size=16)

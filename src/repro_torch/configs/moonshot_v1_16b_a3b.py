@@ -1,6 +1,10 @@
-"""Moonshot/Moonlight 16B-A3B MoE (hf:moonshotai/Moonlight-16B-A3B).
-
-48L d_model=2048 16H (GQA kv=16) d_ff=1408/expert vocab=163840, MoE 64e top-6.
+"""The JAX package's ``moonshot-v1-16b-a3b`` MoE, which cites
+hf:moonshotai/Moonlight-16B-A3B but is not that model as published:
+48L d_model=2048 16H (GQA kv=16) d_ff=1408/expert vocab=163840, MoE 64e
+top-6 with a softmax router and capacity 1.25, plain MHA at D 128, no
+shared experts, no dense first layer.  Moonlight as published (27
+layers, latent attention, a sigmoid router, 2 shared experts, dropless)
+is :mod:`repro_torch.configs.moonlight_16b_a3b`.
 
 Copied from the reference's
 ``repro/configs/moonshot_v1_16b_a3b.py`` (its ``SHARDING``

@@ -75,6 +75,15 @@
 // the ring holds 2 stages (Q 32 KB + 4 x 32 KB), and the consumers' O
 // accumulator doubles to 64 registers (m64n128 P V): the register split is
 // 24 / 240.  D = 64 is the design above, tile for tile.
+// Q/K and V widths.  The template takes the padded width of Q and K (DQK)
+// and that of V and O (DV) apart: (64, 64), (128, 128), and (192, 128) for
+// latent attention (MLA: 128 + 64 rotary dims of q and k, 128 of v), where
+// S = Q K^T runs 12 k-steps of 16 over three 64-column blocks and the O
+// accumulator stays at 128 columns, so the registers are those of (128,
+// 128).  Its shared memory: Q 48 KB and 2 stages of K (48 KB) and V (32
+// KB), 208 KB.  Any Dqk <= 128 with Dv <= 128 runs at (Dp, Dp) with the
+// narrower of the two zero-filled by TMA; 128 < Dqk <= 192 with Dv <= 128
+// at (192, 128); wider pairs run the wide kernel.
 // The f32 kernel (one thread per query row, scalar FMAs) is the algorithm's
 // check at full precision; no path serves f32.  It is a template over a
 // padded width too, Dp = 16, 32, 64 or 128, with columns past D read as
@@ -98,8 +107,9 @@ struct Params {
   void* o;
   float* lse;                       // (B, H, Sq) f32, or null: not written
   int Sq, Skv, causal;
-  int D;                            // the real head dim, <= the padded Dp
-  float scale;                      // 1 / sqrt(the unpadded head dim)
+  int D;                            // the real q/k head dim, <= the padded
+  int Dv;                           // the real v (and out) head dim
+  float scale;                      // 1 / sqrt(the unpadded q/k head dim)
   // element strides of batch, sequence and head for q, k, v, o
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
 };
@@ -111,25 +121,29 @@ constexpr int kBM = 64 * kConsumers;  // query rows per block
 constexpr int kBN = 128;            // keys per KV tile
 constexpr int kThreads = 128 * (1 + kConsumers);   // + the producer
 
-// the bf16 kernel's sizes at padded width Dp
-template <int Dp>
+// the bf16 kernel's sizes at padded widths DQK (Q, K) and DV (V, O)
+template <int DQK, int DV>
 struct Dims {
-  static_assert(Dp == 64 || Dp == 128, "whole 64-column blocks, at most 2");
-  static constexpr int kDp = Dp;
-  static constexpr int kCols = kDp / kColBlock;     // 64-column blocks
-  static constexpr int kStages = kDp == 64 ? 4 : 2;  // K/V ring depth
+  static_assert((DQK == 64 && DV == 64) || (DQK == 128 && DV == 128) ||
+                    (DQK == 192 && DV == 128),
+                "whole 64-column blocks: (64, 64), (128, 128), (192, 128)");
+  static constexpr int kDqk = DQK, kDv = DV;
+  static constexpr int kQkCols = kDqk / kColBlock;  // 64-column blocks
+  static constexpr int kVCols = kDv / kColBlock;
+  static constexpr int kStages = kDqk == 64 ? 4 : 2;  // K/V ring depth
   // registers a thread: 168 at launch (384 threads, one block an SM);
   // after setmaxnreg the producer keeps 40 (24) and the consumers may take
-  // 232 (240) at Dp = 64 (128)
-  static constexpr int kProducerRegs = kDp == 64 ? 40 : 24;
-  static constexpr int kConsumerRegs = kDp == 64 ? 232 : 240;
+  // 232 (240) at Dp = 64 (128 or 192)
+  static constexpr int kProducerRegs = kDqk == 64 ? 40 : 24;
+  static constexpr int kConsumerRegs = kDqk == 64 ? 232 : 240;
   static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
                     168 * kThreads,
                 "setmaxnreg asks for more registers than the block holds");
-  static constexpr int kQBytes = kBM * kDp * 2;
-  static constexpr int kTileBytes = kBN * kDp * 2;   // 16 KB or 32 KB
+  static constexpr int kQBytes = kBM * kDqk * 2;
+  static constexpr int kKTileBytes = kBN * kDqk * 2;  // 16, 32 or 48 KB
+  static constexpr int kVTileBytes = kBN * kDv * 2;   // 16 or 32 KB
   static constexpr int kSmemBytes =
-      kQBytes + 2 * kStages * kTileBytes + 1024 + 128;
+      kQBytes + kStages * (kKTileBytes + kVTileBytes) + 1024 + 128;
   static_assert(kSmemBytes <= 232448, "over the 227 KB a block may have");
 };
 
@@ -170,21 +184,23 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
 
 // the block's shared memory: Q, the K and V rings, then the mbarriers,
 // from a 1024-byte aligned base (128-byte swizzle needs it).  A tile of R
-// rows is kCols blocks of R x 128 bytes, one a 64-column block
-template <int Dp>
+// rows is one block of R x 128 bytes a 64-column block
+template <int DQK, int DV>
 struct Smem {
-  using Dm = Dims<Dp>;
+  using Dm = Dims<DQK, DV>;
   static constexpr int kStages = Dm::kStages;
   uint32_t base;
   __device__ uint32_t q() const { return base; }
   __device__ uint32_t k(int st) const {
-    return base + Dm::kQBytes + st * Dm::kTileBytes;
+    return base + Dm::kQBytes + st * Dm::kKTileBytes;
   }
   __device__ uint32_t v(int st) const {
-    return base + Dm::kQBytes + (kStages + st) * Dm::kTileBytes;
+    return base + Dm::kQBytes + kStages * Dm::kKTileBytes +
+           st * Dm::kVTileBytes;
   }
   __device__ uint32_t bar(int i) const {
-    return base + Dm::kQBytes + 2 * kStages * Dm::kTileBytes + 8 * i;
+    return base + Dm::kQBytes +
+           kStages * (Dm::kKTileBytes + Dm::kVTileBytes) + 8 * i;
   }
   __device__ uint32_t full_q() const { return bar(0); }
   __device__ uint32_t full_k(int st) const { return bar(1 + st); }
@@ -195,18 +211,18 @@ struct Smem {
 };
 
 // one consumer warpgroup's state for its 64 query rows
-template <int Dp>
+template <int Dv>
 struct Rows {
-  float o[Dp / 2];                  // O accumulator, m64n(Dp) layout
+  float o[Dv / 2];                  // O accumulator, m64n(Dv) layout
   float m_a, m_b, l_a, l_b;         // rows g and g + 8 of this thread
 };
 
 // softmax of one S tile in place: scores masked where needed, the row
 // max and sum carried in `st`, p = exp2 of the scaled scores left in s
 // (f32).  -> the factors (rows g, g + 8) that rescale O to the new max
-template <int Dp>
+template <int Dv>
 __device__ __forceinline__ float2 softmax_tile(float (&s)[kBN / 2],
-                                               Rows<Dp>& st,
+                                               Rows<Dv>& st,
                                                bool masked, int k0, int row_a,
                                                int Skv, bool causal,
                                                float scale2, int lane) {
@@ -312,11 +328,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[Dp / 2],
   fence_regs(o);
 }
 
-template <int Dp>
+template <int DQK, int DV>
 struct Consumer {
-  static constexpr int kDp = Dp;
-  static constexpr int kStages = Dims<Dp>::kStages;
-  const Smem<Dp>& sm;
+  static constexpr int kDqk = DQK, kDv = DV;
+  static constexpr int kStages = Dims<DQK, DV>::kStages;
+  const Smem<DQK, DV>& sm;
   const Params& p;
   uint32_t q_addr;
   int hi, q0w, row_a, lane;
@@ -324,7 +340,7 @@ struct Consumer {
   bool lane0;
 
   __device__ float2 softmax(int j, float (&s)[kBN / 2],
-                           Rows<kDp>& st) const {
+                           Rows<kDv>& st) const {
     const int k0 = j * kBN;
     const bool masked =
         k0 + kBN > p.Skv || (p.causal && k0 + kBN - 1 > q0w);
@@ -334,12 +350,12 @@ struct Consumer {
   __device__ void qk(int j, float (&s)[kBN / 2]) const {
     const int st = j % kStages;
     mbar_wait(sm.full_k(st), (j / kStages) & 1);
-    issue_qk<kDp>(s, q_addr, sm.k(st));
+    issue_qk<kDqk>(s, q_addr, sm.k(st));
   }
-  __device__ void pv(int j, Rows<kDp>& st, uint32_t (&pf)[kBN / 4]) const {
+  __device__ void pv(int j, Rows<kDv>& st, uint32_t (&pf)[kBN / 4]) const {
     const int s0 = j % kStages;
     mbar_wait(sm.full_v(s0), (j / kStages) & 1);
-    issue_pv<kDp>(st.o, pf, sm.v(s0));
+    issue_pv<kDv>(st.o, pf, sm.v(s0));
   }
   __device__ void release(int j) const {
     if (lane0) mbar_arrive(sm.empty(j % kStages));
@@ -347,7 +363,7 @@ struct Consumer {
 
   // softmax(j), then P(j) V(j) and S(j+1) issued together: the other
   // consumer warpgroup's softmax runs under these products
-  __device__ void run(Rows<kDp>& st) const {
+  __device__ void run(Rows<kDv>& st) const {
     float s[kBN / 2];
     uint32_t pf[kBN / 4];
     qk(0, s);
@@ -367,16 +383,16 @@ struct Consumer {
   }
 };
 
-template <int Dp>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, Params p,
                       Slots sq, Slots skv) {
-  using Dm = Dims<Dp>;
-  constexpr int kStages = Dm::kStages, kDp = Dm::kDp;
+  using Dm = Dims<DQK, DV>;
+  constexpr int kStages = Dm::kStages, kDv = Dm::kDv;
   extern __shared__ uint8_t smem_raw[];
-  const Smem<Dp> sm{(smem_u32(smem_raw) + 1023) & ~1023u};
+  const Smem<DQK, DV> sm{(smem_u32(smem_raw) + 1023) & ~1023u};
   const int tid = threadIdx.x, lane = tid % 32;
   // the warpgroup, provably uniform across each warp (setmaxnreg needs it)
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
@@ -403,18 +419,18 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     if (tid == 0) {
       // one box a 64-column block; the barrier counts the whole tile
       mbar_expect_tx(sm.full_q(), Dm::kQBytes);
-      for (int cb = 0; cb < Dm::kCols; ++cb)
+      for (int cb = 0; cb < Dm::kQkCols; ++cb)
         tma_load(sm.q() + cb * kBM * 128, &map_q, sm.full_q(), q0, h, b, sq,
                  cb * kColBlock);
       for (int j = 0; j < hi; ++j) {
         const int st = j % kStages;
         if (j >= kStages) mbar_wait(sm.empty(st), (j / kStages - 1) & 1);
-        mbar_expect_tx(sm.full_k(st), Dm::kTileBytes);
-        for (int cb = 0; cb < Dm::kCols; ++cb)
+        mbar_expect_tx(sm.full_k(st), Dm::kKTileBytes);
+        for (int cb = 0; cb < Dm::kQkCols; ++cb)
           tma_load(sm.k(st) + cb * kBN * 128, &map_k, sm.full_k(st), j * kBN,
                    h, b, skv, cb * kColBlock);
-        mbar_expect_tx(sm.full_v(st), Dm::kTileBytes);
-        for (int cb = 0; cb < Dm::kCols; ++cb)
+        mbar_expect_tx(sm.full_v(st), Dm::kVTileBytes);
+        for (int cb = 0; cb < Dm::kVCols; ++cb)
           tma_load(sm.v(st) + cb * kBN * 128, &map_v, sm.full_v(st), j * kBN,
                    h, b, skv, cb * kColBlock);
       }
@@ -428,15 +444,15 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row_a = q0w + warp * 16 + (lane >> 2);
     const float scale2 = p.scale * kLog2e;
     const uint32_t q_addr = sm.q() + c * 64 * 128;
-    Rows<kDp> st;
+    Rows<kDv> st;
 #pragma unroll
-    for (int i = 0; i < kDp / 2; ++i) st.o[i] = 0.f;
+    for (int i = 0; i < kDv / 2; ++i) st.o[i] = 0.f;
     fence_regs(st.o);               // zeroed before the first wgmma is issued
     st.m_a = st.m_b = kNegInf;
     st.l_a = st.l_b = 0.f;
     mbar_wait(sm.full_q(), 0);
-    const Consumer<Dp> con{sm, p, q_addr, hi, q0w, row_a, lane, scale2,
-                           lane == 0};
+    const Consumer<DQK, DV> con{sm, p, q_addr, hi, q0w, row_a, lane, scale2,
+                                lane == 0};
     con.run(st);
 
 #pragma unroll
@@ -455,12 +471,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       if (row_a < p.Sq) lp[row_a] = fmaf(st.m_a, kLn2, logf(den_a));
       if (row_b < p.Sq) lp[row_b] = fmaf(st.m_b, kLn2, logf(den_b));
     }
-    // the D real columns (columns D..Dp-1 of O are zeros, not stored; D is
-    // a multiple of 8, so a column pair lies wholly on one side)
+    // the Dv real columns (columns Dv..DV-1 of O are zeros, not stored; Dv
+    // is a multiple of 8, so a column pair lies wholly on one side)
 #pragma unroll
-    for (int dt = 0; dt < kDp / 8; ++dt) {
+    for (int dt = 0; dt < kDv / 8; ++dt) {
       const int col = dt * 8 + col2;
-      if (col >= p.D) break;
+      if (col >= p.Dv) break;
       if (row_a < p.Sq)
         *reinterpret_cast<uint32_t*>(op + row_a * p.os + col) =
             pack_bf16(st.o[4 * dt] / den_a, st.o[4 * dt + 1] / den_a);
@@ -489,7 +505,8 @@ __device__ __forceinline__ int kv_tiles32(const Params& p, int q0) {
 }
 
 // q and acc of Dp floats a thread live in registers; at Dp = 128 they
-// spill.  Columns D..Dp-1 are zeros in q, K and V
+// spill.  Dp covers both head dims: columns D..Dp-1 are zeros in q and K,
+// Dv..Dp-1 in V
 template <int Dp>
 __global__ void __launch_bounds__(kBM32)
 flash_fwd_f32_kernel(Params p) {
@@ -520,9 +537,9 @@ flash_fwd_f32_kernel(Params p) {
     __syncthreads();                  // the previous tile is consumed
     for (int i = tid; i < kBN32 * kD; i += kBM32) {
       const int r = i / kD, d = i % kD;
-      const bool ok = k0 + r < p.Skv && d < p.D;
-      sK[r][d] = ok ? kp[(long long)(k0 + r) * p.ks + d] : 0.f;
-      sV[r][d] = ok ? vp[(long long)(k0 + r) * p.vs + d] : 0.f;
+      const bool ok = k0 + r < p.Skv;
+      sK[r][d] = ok && d < p.D ? kp[(long long)(k0 + r) * p.ks + d] : 0.f;
+      sV[r][d] = ok && d < p.Dv ? vp[(long long)(k0 + r) * p.vs + d] : 0.f;
     }
     __syncthreads();
     int n = min(kBN32, p.Skv - k0);
@@ -546,7 +563,7 @@ flash_fwd_f32_kernel(Params p) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < kD; ++d)
-      if (d < p.D) orow[d] = acc[d] / den;
+      if (d < p.Dv) orow[d] = acc[d] / den;
     if (p.lse != nullptr)
       p.lse[((long long)b * gridDim.y + h) * p.Sq + row] = m + logf(den);
   }
@@ -554,8 +571,10 @@ flash_fwd_f32_kernel(Params p) {
 
 // ------------------------------------------------------------- wide path
 
-// Head dims 128 < D <= 256, bf16 or f32: no config attends there, but the
-// TPU kernel takes any D, so this kernel is written to be right and simple
+// Head dims 128 < D <= 256 (of q and k, or of v), bf16 or f32, but for the
+// bf16 (192, 128) pairs of latent attention, which the wgmma template runs:
+// no config attends there, but the TPU kernel takes any D, so this kernel is
+// written to be right and simple
 // (the wgmma template above would need m64n256 P V accumulators, 128
 // registers a thread beside S and P, and spill).  One block of 256 threads
 // owns a (b, h, 32-row query tile) and walks 32-key tiles up to the
@@ -631,11 +650,12 @@ flash_fwd_wide_kernel(Params p) {
     __syncthreads();                              // the last tile is used
     for (int i = tid; i < kWideBN * kWideDp; i += kWideThreads) {
       const int kr = i / kWideDp, d = i % kWideDp;
-      const bool ok = k0 + kr < p.Skv && d < p.D;
+      const bool ok = k0 + kr < p.Skv;
       sK[kr * kWidePitch + d] =
-          ok ? load_f32(kp + (long long)(k0 + kr) * p.ks + d) : 0.f;
+          ok && d < p.D ? load_f32(kp + (long long)(k0 + kr) * p.ks + d) : 0.f;
       sV[kr * kWideDp + d] =
-          ok ? load_f32(vp + (long long)(k0 + kr) * p.vs + d) : 0.f;
+          ok && d < p.Dv ? load_f32(vp + (long long)(k0 + kr) * p.vs + d)
+                         : 0.f;
     }
     __syncthreads();
     {                                             // S = Q K^T, scaled
@@ -699,7 +719,7 @@ flash_fwd_wide_kernel(Params p) {
               (long long)row * p.os;
 #pragma unroll
     for (int i = 0; i < kWideDp / 8; ++i)
-      if (c0 + 8 * i < p.D) store_from_f32(orow + c0 + 8 * i, acc[i] / den);
+      if (c0 + 8 * i < p.Dv) store_from_f32(orow + c0 + 8 * i, acc[i] / den);
     if (p.lse != nullptr && c0 == 0)
       p.lse[((long long)b * gridDim.y + h) * p.Sq + row] =
           sM[r] + logf(den);
@@ -708,9 +728,9 @@ flash_fwd_wide_kernel(Params p) {
 
 // ------------------------------------------------------------------ host
 
-template <int Dp>
+template <int DQK, int DV>
 int launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {
-  constexpr int kSmemBytes = Dims<Dp>::kSmemBytes;
+  constexpr int kSmemBytes = Dims<DQK, DV>::kSmemBytes;
   const int D = p.D;
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
@@ -721,17 +741,18 @@ int launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {
   if (!err)
     err = make_map(fn, &mk, &sk, p.k, D, kBN, p.Skv, H, B, p.ks, p.kh, p.kb);
   if (!err)
-    err = make_map(fn, &mv, &sv, p.v, D, kBN, p.Skv, H, B, p.vs, p.vh, p.vb);
+    err = make_map(fn, &mv, &sv, p.v, p.Dv, kBN, p.Skv, H, B, p.vs, p.vh,
+                   p.vb);
   if (err) return err;
   if (sk.s != sv.s || sk.h != sv.h || sk.b != sv.b)
     return (int)cudaErrorInvalidValue;        // k and v strides order alike
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<Dp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_fwd_bf16_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((p.Sq + kBM - 1) / kBM), (unsigned)H,
                   (unsigned)B);
-  flash_fwd_bf16_kernel<Dp><<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_fwd_bf16_kernel<DQK, DV><<<grid, kThreads, kSmemBytes, stream>>>(
       mq, mk, mv, p, sq, sk);
   return (int)cudaGetLastError();
 }
@@ -758,47 +779,61 @@ int launch_wide(const Params& p, int B, int H, cudaStream_t stream) {
 
 constexpr int kTmaHeadDim = 128;    // the wgmma kernel's widest tile
 constexpr int kMaxHeadDim = kWideDp;
+constexpr int kLatentQkDim = 192;   // (192, 128): latent attention's pair
+
+// whether a bf16 (D, Dv) pair runs the (192, 128) instantiation
+bool latent_pair(int D, int Dv) {
+  return D > kTmaHeadDim && D <= kLatentQkDim && Dv <= kTmaHeadDim;
+}
 
 }  // namespace
 
 // dtype: 0 bf16, 1 f32.  strides: 12 element strides, (batch, sequence,
-// head) of q, k, v and out in that order; the D stride is 1.  D <= 128 runs
-// the TMA kernels (16-byte strides), 128 < D <= 256 the wide kernel (any
-// strides).  scale: the softmax scale, 1 / sqrt of the real head dim (a
-// caller that zero-pads D to reach TMA's strides passes the unpadded one).  lse: a
-// contiguous (B, H, Sq) f32 array for each row's log-sum-exp, or null.
+// head) of q, k, v and out in that order; the D stride is 1.  D is q's and
+// k's head dim, Dv v's and out's.  Both <= 128 run the TMA kernels (16-byte
+// strides), as does a bf16 pair with 128 < D <= 192 and Dv <= 128; wider
+// pairs, up to 256, the wide kernel (any strides).  scale: the softmax
+// scale, 1 / sqrt of the real q/k head dim (a caller that zero-pads D to
+// reach TMA's strides passes the unpadded one).  lse: a contiguous (B, H,
+// Sq) f32 array for each row's log-sum-exp, or null.
 extern "C" int ss_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int dtype,
                                       int B, int H, int Sq, int Skv, int D,
-                                      int causal, float scale,
+                                      int Dv, int causal, float scale,
                                       const long long* strides,
                                       void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (Skv <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (D < 1 || D > kMaxHeadDim) return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, out, lse, Sq, Skv, causal ? 1 : 0, D, scale,
+  if (D < 1 || D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim)
+    return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, out, lse, Sq, Skv, causal ? 1 : 0, D, Dv, scale,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11]};
   const cudaStream_t st = (cudaStream_t)stream;
-  if (D > kTmaHeadDim)
+  const int Dm = D > Dv ? D : Dv;   // the wider of the two
+  if (dtype == 0 && latent_pair(D, Dv))
+    return launch_bf16<kLatentQkDim, kTmaHeadDim>(p, B, H, st);
+  if (Dm > kTmaHeadDim)
     return dtype == 0 ? launch_wide<__nv_bfloat16>(p, B, H, st)
                       : launch_wide<float>(p, B, H, st);
   if (dtype == 0)
-    return D <= 64 ? launch_bf16<64>(p, B, H, st)
-                   : launch_bf16<128>(p, B, H, st);
-  if (D <= 16) return launch_f32<16>(p, B, H, st);
-  if (D <= 32) return launch_f32<32>(p, B, H, st);
-  if (D <= 64) return launch_f32<64>(p, B, H, st);
+    return Dm <= 64 ? launch_bf16<64, 64>(p, B, H, st)
+                    : launch_bf16<128, 128>(p, B, H, st);
+  if (Dm <= 16) return launch_f32<16>(p, B, H, st);
+  if (Dm <= 32) return launch_f32<32>(p, B, H, st);
+  if (Dm <= 64) return launch_f32<64>(p, B, H, st);
   return launch_f32<128>(p, B, H, st);
 }
 
-// dynamic shared memory of one bf16 block at head dim D, bytes (reported
-// by chip_smoke.py); -1 for a head dim the kernel does not take
-extern "C" int ss_flash_attention_smem_bytes(int D) {
-  if (D < 1 || D > kMaxHeadDim) return -1;
-  if (D > kTmaHeadDim) return kWideSmemBytes;
-  return D <= 64 ? Dims<64>::kSmemBytes : Dims<128>::kSmemBytes;
+// dynamic shared memory of one bf16 block at head dims (D, Dv), bytes
+// (reported by chip_smoke.py); -1 for head dims the kernel does not take
+extern "C" int ss_flash_attention_smem_bytes(int D, int Dv) {
+  if (D < 1 || D > kMaxHeadDim || Dv < 1 || Dv > kMaxHeadDim) return -1;
+  if (latent_pair(D, Dv)) return Dims<kLatentQkDim, kTmaHeadDim>::kSmemBytes;
+  const int Dm = D > Dv ? D : Dv;
+  if (Dm > kTmaHeadDim) return kWideSmemBytes;
+  return Dm <= 64 ? Dims<64, 64>::kSmemBytes : Dims<128, 128>::kSmemBytes;
 }

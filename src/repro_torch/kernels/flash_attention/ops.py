@@ -26,6 +26,14 @@ is any of 1..:data:`MAX_HEAD_DIM`, as the reference's kernel takes any D:
   any (b, s, h) strides; tensors with a D stride other than 1 are copied
   to contiguous ones first).
 
+V's head dim Dv may differ from that of q and k (latent attention, MLA:
+q and k at 128 + 64 rotary dims, v at 128); the output has Dv columns
+and the softmax scale stays 1/sqrt(Dqk).  Any Dqk, Dv <= 128 runs the
+TMA kernel at the wider of the two, TMA zero-filling the other's columns;
+a bf16 pair with 128 < Dqk <= :data:`LATENT_QK_DIM` and Dv <= 128 runs
+its (192, 128) instantiation (:func:`latent_pair`); any other pair with a
+dim above 128 the wide kernel.
+
 The plain version, which on the CPU takes any D, is never run for a CUDA
 tensor.  ``return_lse=True`` also returns each query row's
 log-sum-exp of its scaled scores (natural log, f32, (B, H, Sq)): the
@@ -58,7 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -70,7 +78,7 @@ KERNEL = build.Kernel("ss_flash_attention_fwd", [
     build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP, build.VOIDP,
     build.INT,
     build.INT, build.INT, build.INT, build.INT, build.INT, build.INT,
-    ctypes.c_float, build.VOIDP, build.VOIDP])
+    build.INT, ctypes.c_float, build.VOIDP, build.VOIDP])
 #: the element types the kernel takes (0 and 1 in its dtype argument)
 DTYPES = (torch.bfloat16, torch.float32)
 #: the largest head dim ``csrc/flash_attention.cu`` takes (any D from 1)
@@ -78,13 +86,33 @@ MAX_HEAD_DIM = 256
 #: the largest head dim of its TMA + wgmma kernel, which computes a tile at
 #: a padded width of 64 or 128 columns; above it the wide kernel runs
 TMA_HEAD_DIM = 128
+#: the widest q/k head dim of the TMA kernel's (192, 128) instantiation,
+#: which takes bf16 q and k above :data:`TMA_HEAD_DIM` with v at most that
+LATENT_QK_DIM = 192
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one bf16 block of the kernel at
-    ``head_dim``, bytes."""
+def smem_bytes(head_dim: int, v_head_dim: Optional[int] = None) -> int:
+    """Dynamic shared memory of one bf16 block of the kernel at q/k head
+    dim ``head_dim`` and v head dim ``v_head_dim`` (the same unless
+    given), bytes."""
+    v_head_dim = head_dim if v_head_dim is None else v_head_dim
     _check_head_dim(head_dim)
-    return int(build.library().ss_flash_attention_smem_bytes(head_dim))
+    _check_head_dim(v_head_dim)
+    return int(build.library().ss_flash_attention_smem_bytes(head_dim,
+                                                              v_head_dim))
+
+
+def latent_pair(dtype: torch.dtype, D: int, Dv: int) -> bool:
+    """Whether (D, Dv) runs the TMA kernel's (192, 128) instantiation:
+    bf16 with 128 < D <= :data:`LATENT_QK_DIM` and Dv <= 128."""
+    return dtype == torch.bfloat16 and TMA_HEAD_DIM < D <= LATENT_QK_DIM \
+        and Dv <= TMA_HEAD_DIM
+
+
+def takes_tma(dtype: torch.dtype, D: int, Dv: int) -> bool:
+    """Whether (D, Dv) runs a TMA kernel (which needs TMA-readable
+    tensors): both <= :data:`TMA_HEAD_DIM`, or :func:`latent_pair`."""
+    return max(D, Dv) <= TMA_HEAD_DIM or latent_pair(dtype, D, Dv)
 
 
 def _check_head_dim(D: int) -> None:
@@ -104,10 +132,13 @@ def attended_pairs(B: int, H: int, Sq: int, Skv: int, causal: bool) -> int:
     return B * H * pairs
 
 
-def flops(B: int, H: int, Sq: int, Skv: int, D: int, causal: bool) -> int:
-    """FLOPs the kernel needs: 2*D for q.k and 2*D for p*v per attended
-    (query, key) pair, at the real D (not the padded width)."""
-    return 4 * D * attended_pairs(B, H, Sq, Skv, causal)
+def flops(B: int, H: int, Sq: int, Skv: int, D: int, causal: bool,
+          Dv: Optional[int] = None) -> int:
+    """FLOPs the kernel needs: 2*D for q.k and 2*Dv for p*v per attended
+    (query, key) pair, at the real head dims (not the padded widths); Dv
+    is D unless given."""
+    Dv = D if Dv is None else Dv
+    return 2 * (D + Dv) * attended_pairs(B, H, Sq, Skv, causal)
 
 
 def _check(q, k, v, seq: int, head: int) -> None:
@@ -122,8 +153,9 @@ def _check(q, k, v, seq: int, head: int) -> None:
             raise ValueError(f"flash attention: {name} is {t.dtype} on "
                              f"{t.device}, q is {q.dtype} on {q.device}")
     B, H, D = q.shape[0], q.shape[head], q.shape[3]
-    if k.shape != v.shape or (k.shape[0], k.shape[head], k.shape[3]) != (
-            B, H, D) or k.shape[seq] == 0:
+    if (k.shape[0], k.shape[head], k.shape[3]) != (B, H, D) \
+            or (v.shape[0], v.shape[head], v.shape[seq]) != (
+                B, H, k.shape[seq]) or k.shape[seq] == 0:
         raise ValueError(f"flash attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
 
@@ -140,20 +172,23 @@ def _tma_readable(t: torch.Tensor) -> bool:
 def _launch(q, k, v, out, lse, causal: bool, seq: int, head: int,
             scale: float) -> None:
     build.require_cuda(q)
-    D = q.shape[3]
+    D, Dv = q.shape[3], v.shape[3]
     _check_head_dim(D)
+    _check_head_dim(Dv)
+    tma = takes_tma(q.dtype, D, Dv)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.stride(3) != 1 or (D <= TMA_HEAD_DIM and not _tma_readable(t)):
+        if t.stride(3) != 1 or (tma and not _tma_readable(t)):
             raise ValueError(
                 f"flash attention kernel: {name} needs a unit D stride and, "
-                f"at D <= {TMA_HEAD_DIM}, a 16-byte aligned base and (batch, "
+                f"on the TMA kernel, a 16-byte aligned base and (batch, "
                 f"sequence, head) strides that are multiples of 16 bytes "
-                f"(TMA's rule), got strides {t.stride()} at D = {D}")
+                f"(TMA's rule), got strides {t.stride()} at (D, Dv) = "
+                f"({D}, {Dv})")
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in (0, seq, head)])
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            None if lse is None else lse.data_ptr(), DTYPES.index(q.dtype),
-           q.shape[0], q.shape[head], q.shape[seq], k.shape[seq], D,
+           q.shape[0], q.shape[head], q.shape[seq], k.shape[seq], D, Dv,
            int(causal), scale, ctypes.addressof(strides), build.stream_of(q))
 
 
@@ -162,33 +197,35 @@ def _lse_shape(q, seq: int, head: int, return_lse: bool):
 
 
 def padded_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """The head dim of the zero-padded copies the card's kernel is handed
-    where D <= :data:`TMA_HEAD_DIM` and TMA cannot read the tensors (or an
-    output of their shape) as they are: D rounded up to a multiple of 16
-    bytes' elements.  None where it reads them as they are."""
-    D = q.shape[3]
+    """The head dims (of q and k, of v) of the zero-padded copies the
+    card's kernel is handed where a TMA kernel runs (:func:`takes_tma`)
+    and TMA cannot read the tensors (or an output of their shape) as they
+    are: each rounded up to a multiple of 16 bytes' elements.  None where
+    it reads them as they are."""
+    D, Dv = q.shape[3], v.shape[3]
     align = 16 // q.element_size()
-    if D > TMA_HEAD_DIM or (D % align == 0 and all(
-            _tma_readable(t) for t in (q, k, v))):
+    if not takes_tma(q.dtype, D, Dv) or (
+            D % align == 0 and Dv % align == 0
+            and all(_tma_readable(t) for t in (q, k, v))):
         return None
-    return -(-D // align) * align
+    return -(-D // align) * align, -(-Dv // align) * align
 
 
 def _padded(fn, q, k, v, causal: bool, seq: int, head: int,
-            return_lse: bool, width: int):
+            return_lse: bool, width: Tuple[int, int]):
     """``fn`` (the kernel's or the plain forward, with a ``scale``) on
-    contiguous copies of q, k and v zero-padded to ``width`` columns, at
-    the real D's scale; the output's padded columns sliced off.  -> (out,
-    lse)"""
-    D = q.shape[3]
+    contiguous copies of q and k zero-padded to ``width[0]`` columns and of
+    v to ``width[1]``, at the real D's scale; the output's padded columns
+    sliced off.  -> (out, lse)"""
+    D, Dv = q.shape[3], v.shape[3]
 
-    def copy(t):
-        buf = t.new_zeros((*t.shape[:3], width))
-        buf[..., :D] = t
+    def copy(t, w):
+        buf = t.new_zeros((*t.shape[:3], w))
+        buf[..., :t.shape[3]] = t
         return buf
-    out, lse = fn(copy(q), copy(k), copy(v), causal, seq, head, return_lse,
-                  scale=1.0 / math.sqrt(D))
-    return out[..., :D].contiguous(), lse
+    out, lse = fn(copy(q, width[0]), copy(k, width[0]), copy(v, width[1]),
+                  causal, seq, head, return_lse, scale=1.0 / math.sqrt(D))
+    return out[..., :Dv].contiguous(), lse
 
 
 def _plain(q, k, v, causal: bool, seq: int, head: int, return_lse: bool,
@@ -203,10 +240,12 @@ def _plain(q, k, v, causal: bool, seq: int, head: int, return_lse: bool,
 
 def _kernel(q, k, v, causal: bool, seq: int, head: int, return_lse: bool,
             scale: float):
-    if q.shape[3] > TMA_HEAD_DIM:           # the wide kernel: a unit D stride
+    if not takes_tma(q.dtype, q.shape[3], v.shape[3]):
+        # the wide kernel: a unit D stride
         q, k, v = (t if t.stride(3) == 1 else t.contiguous()
                    for t in (q, k, v))
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((*q.shape[:3], v.shape[3]), dtype=q.dtype,
+                      device=q.device)
     lse = torch.empty(_lse_shape(q, seq, head, return_lse),
                       dtype=torch.float32, device=q.device)
     _launch(q, k, v, out, lse if return_lse else None, causal, seq=seq,
@@ -223,6 +262,7 @@ def _forward(q, k, v, causal: bool, seq: int, head: int, return_lse: bool):
     build.require_cuda(q)
     D = q.shape[3]
     _check_head_dim(D)
+    _check_head_dim(v.shape[3])
     width = padded_width(q, k, v)
     if width is not None:
         return _padded(_kernel, q, k, v, causal, seq, head, return_lse, width)
@@ -241,7 +281,7 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 @_fwd.register_fake
 def _fwd_fake(q, k, v, causal, seq, head, return_lse):
-    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+    return (q.new_empty((*q.shape[:3], v.shape[3])),
             q.new_empty(_lse_shape(q, seq, head, return_lse),
                         dtype=torch.float32))
 
@@ -250,7 +290,7 @@ def _fwd_fake(q, k, v, causal, seq, head, return_lse):
 def _fwd_flops(q_shape, k_shape, v_shape, causal, seq, head, return_lse,
                *args, out_shape=None, **kwargs) -> int:
     return flops(q_shape[0], q_shape[head], q_shape[seq], k_shape[seq],
-                 q_shape[3], causal)
+                 q_shape[3], causal, v_shape[3])
 
 
 def _run(q, k, v, causal: bool, return_lse: bool, seq: int, head: int):
@@ -265,8 +305,9 @@ def _run(q, k, v, causal: bool, return_lse: bool, seq: int, head: int):
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, return_lse: bool = False):
-    """q: (B, H, Sq, D); k, v: (B, H, Skv, D) -> (B, H, Sq, D) in q's
-    type (bf16 or f32), and with ``return_lse`` the (B, H, Sq) f32
+    """q: (B, H, Sq, D); k: (B, H, Skv, D), v: (B, H, Skv, Dv) -> (B,
+    H, Sq, Dv) in q's type (bf16 or f32), and with ``return_lse`` the (B,
+    H, Sq) f32
     log-sum-exp.  Causal masking is top-left aligned (row i sees keys
     0..i), as the TPU kernel's."""
     _check(q, k, v, seq=2, head=1)
@@ -275,8 +316,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, return_lse: bool = False):
-    """q: (B, Sq, H, D); k, v: (B, Skv, H, D) with KV already repeated to
-    H heads -> (B, Sq, H, D), and with ``return_lse`` the (B, H, Sq) f32
+    """q: (B, Sq, H, D); k: (B, Skv, H, D), v: (B, Skv, H, Dv) with KV
+    already repeated to H heads -> (B, Sq, H, Dv), and with ``return_lse``
+    the (B, H, Sq) f32
     log-sum-exp (head-major, the layout the backward reads)."""
     _check(q, k, v, seq=1, head=2)
     return _run(q, k, v, causal, return_lse, seq=1, head=2)
@@ -315,6 +357,9 @@ def backward_takes(q: torch.Tensor) -> bool:
 
 def _check_backward(q, k, v, out, lse, do) -> None:
     _check(q, k, v, seq=1, head=2)
+    if v.shape != k.shape:
+        raise ValueError(f"flash attention backward: takes v of k's shape "
+                         f"{tuple(k.shape)}, got {tuple(v.shape)}")
     for name, t in (("out", out), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash attention backward: {name} is "

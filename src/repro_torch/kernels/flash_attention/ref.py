@@ -21,11 +21,11 @@ NEG_INF = -1e30
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, return_lse: bool = False,
                   scale=None):
-    """q: (B, H, Sq, D); k, v: (B, H, Skv, D) -> (B, H, Sq, D) in q's type,
-    and with ``return_lse`` the (B, H, Sq) f32 log-sum-exp of each row's
-    scaled (and masked) scores, natural log.  ``scale``: the scores'
-    factor, 1 / sqrt(D) unless given (a zero-padded copy passes its real
-    D's).
+    """q: (B, H, Sq, D); k: (B, H, Skv, D), v: (B, H, Skv, Dv) -> (B, H,
+    Sq, Dv) in q's type, and with ``return_lse`` the (B, H, Sq) f32
+    log-sum-exp of each row's scaled (and masked) scores, natural log.
+    ``scale``: the scores' factor, 1 / sqrt(D) unless given (a zero-padded
+    copy passes its real D's).
 
     Scores, softmax and the product with V are f32.  The (H, Sq, Skv)
     scores are materialised one batch element at a time: at the serving
@@ -33,7 +33,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     one element 2.1 GB."""
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
-    out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, Sq, v.shape[3]), dtype=q.dtype,
+                      device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     keep = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device).tril()

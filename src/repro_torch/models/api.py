@@ -36,6 +36,18 @@ attention call of the hybrid, none in xLSTM).  Both are exact causal
 attention and agree within the bf16 tolerance (``tests/test_torch_lm.py``
 holds the port against both).
 
+**The port's own block: DeepSeek-V3's** (``moonlight-16b-a3b``).  An
+``moe`` config with ``first_dense_layers`` keeps those layers (attention
++ the MLP of ``d_ff``) in ``params["dense_layers"]`` ahead of the MoE
+stack in ``params["layers"]``; with ``mla`` every layer's attention is
+latent (:func:`repro_torch.models.layers.mla`, kernel 7 at (Dqk, Dv) =
+(192, 128)) and its cache the latent one (``cache["attn"]["ckv"]`` and
+``["kpe"]``, stacked over all layers); with ``sigmoid_moe`` the MoE is
+:func:`repro_torch.models.moe.moe_dropless`.  It serves only:
+:func:`forward` and :func:`loss_fn` refuse latent attention (kernel 8
+takes Dqk = Dv alone, and the router's bias update is a training
+matter).
+
 **Logits in f32 from bf16 operands.**  The reference's LM head is an
 einsum with ``preferred_element_type=f32``: exact bf16 products summed
 and returned in f32.  A bf16 ``torch.matmul`` would round the logits to
@@ -49,7 +61,7 @@ compute the same function.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -142,8 +154,12 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
         t["layers"] = L.stack_template(_dense_layer_template(cfg),
                                        cfg.num_layers)
     elif fam == "moe":
+        n_dense = cfg.first_dense_layers
+        if n_dense:
+            t["dense_layers"] = L.stack_template(_dense_layer_template(cfg),
+                                                 n_dense)
         t["layers"] = L.stack_template(_moe_layer_template(cfg),
-                                       cfg.num_layers)
+                                       cfg.num_layers - n_dense)
     elif fam == "ssm":  # xLSTM
         assert cfg.num_layers % 2 == 0
         t["layers"] = L.stack_template(_xlstm_pair_template(cfg),
@@ -307,6 +323,15 @@ def num_shared_attn(cfg: ModelConfig) -> int:
     return sum(1 for _, _, a in _hybrid_groups(cfg) if a)
 
 
+def _refuse_training(cfg: ModelConfig) -> None:
+    if cfg.mla is not None or cfg.first_dense_layers:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the port serves latent attention and leading "
+            f"dense layers but does not train them (kernel 8, the "
+            f"attention backward, takes Dqk = Dv only, and the MoE "
+            f"router's correction-bias update is a training matter)")
+
+
 def _stack_depth(cfg: ModelConfig) -> int:
     """Entries of ``params["layers"]``: xLSTM stacks (mLSTM, sLSTM) pairs."""
     return cfg.num_layers // 2 if cfg.family == "ssm" else cfg.num_layers
@@ -320,7 +345,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
 
     ``attn_impl`` is the attention schedule of every layer: the
     reference's ``"flash"`` (kernel 7 forward, block-recompute backward)
-    or ``"chunked"`` (plain torch, autograd through it)."""
+    or ``"chunked"`` (plain torch, autograd through it).  A config with
+    latent attention or leading dense layers raises: it serves only."""
+    _refuse_training(cfg)
     x = _embed(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -361,6 +388,7 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Batch, *,
     remat policy.  -> (loss + aux_weight * aux, {"loss", "aux",
     "tokens"}); aux is the MoE layers' load-balance loss (0 for the
     other families)."""
+    _refuse_training(cfg)
     hidden, aux = forward(cfg, params, batch, remat=remat,
                           attn_impl=attn_impl)
     B, S, E = hidden.shape
@@ -447,6 +475,18 @@ def _ffn_residual(p, x, cfg):
     return x + out, aux
 
 
+def _attn_layers(cfg: ModelConfig, params: Params) -> Iterator[Params]:
+    """Every layer of an attention family in order, as views made as the
+    walk reaches each (the host makes a layer's views while the card runs
+    the last one): the leading dense layers (``params["dense_layers"]``),
+    then ``params["layers"]``."""
+    n_dense = cfg.first_dense_layers
+    for i in range(n_dense):
+        yield L.layer(params["dense_layers"], i)
+    for i in range(cfg.num_layers - n_dense):
+        yield L.layer(params["layers"], i)
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: Batch, *,
             max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Run the full prompt: -> (f32 logits of the last position (B, V),
@@ -468,15 +508,20 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch, *,
 
     def attn_prefill(p, xx, i):
         h = L.rms_norm(xx, p["ln1"], cfg.rms_eps)
-        out, (k, v) = L.mha(p["attn"], h, cfg, positions=positions,
-                            attn_impl="pallas_flash", return_kv=True)
-        cache["attn"]["k"][i, :, :S] = k
-        cache["attn"]["v"][i, :, :S] = v
+        if cfg.mla is not None:
+            out, (c, k_rope) = L.mla(p["attn"], h, cfg, positions=positions)
+            cache["attn"]["ckv"][i, :, :S] = c
+            cache["attn"]["kpe"][i, :, :S] = k_rope
+        else:
+            out, (k, v) = L.mha(p["attn"], h, cfg, positions=positions,
+                                attn_impl="pallas_flash", return_kv=True)
+            cache["attn"]["k"][i, :, :S] = k
+            cache["attn"]["v"][i, :, :S] = v
         return _ffn_residual(p, xx + out, cfg)[0]
 
     if fam in ATTN_FAMILIES:
-        for i in range(cfg.num_layers):
-            x = attn_prefill(L.layer(params["layers"], i), x, i)
+        for i, p in enumerate(_attn_layers(cfg, params)):
+            x = attn_prefill(p, x, i)
     elif fam == "ssm":
         for i in range(cfg.num_layers // 2):
             p = L.layer(params["layers"], i)
@@ -515,13 +560,13 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     def attn_decode(p, xx, cache_l):
         h = L.rms_norm(xx, p["ln1"], cfg.rms_eps)
-        out, _ = L.mha_decode(p["attn"], h, cache_l, cfg, pos=pos)
+        decode = L.mla_decode if cfg.mla is not None else L.mha_decode
+        out, _ = decode(p["attn"], h, cache_l, cfg, pos=pos)
         return _ffn_residual(p, xx + out, cfg)[0]
 
     if fam in ATTN_FAMILIES:
-        for i in range(cfg.num_layers):
-            x = attn_decode(L.layer(params["layers"], i), x,
-                            L.layer(cache["attn"], i))
+        for i, p in enumerate(_attn_layers(cfg, params)):
+            x = attn_decode(p, x, L.layer(cache["attn"], i))
     elif fam == "ssm":
         for i in range(cfg.num_layers // 2):
             p = L.layer(params["layers"], i)

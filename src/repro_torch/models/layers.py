@@ -210,6 +210,8 @@ NEG_INF = -1e30
 
 
 def attention_template(cfg) -> Dict[str, ParamSpec]:
+    if cfg.mla is not None:
+        return mla_template(cfg)
     d, h, k, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     t: Dict[str, ParamSpec] = {
         "wq": ParamSpec((d, h * dh), ("embed", "heads")),
@@ -345,8 +347,127 @@ def mha_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 def attention_cache_template(cfg, batch: int, max_seq: int,
                              dtype: str = "bfloat16") -> Dict[str, ParamSpec]:
+    if cfg.mla is not None:
+        return mla_cache_template(cfg, batch, max_seq, dtype)
     k, dh = cfg.num_kv_heads, cfg.head_dim
     spec = ParamSpec((batch, max_seq, k, dh),
                      ("batch", "kv_seq", "kv_heads", None),
                      init="zeros", dtype=dtype)
     return {"k": spec, "v": spec}
+
+
+# ---------------------------------------------------------------------------
+# Latent attention (MLA: DeepSeek-V2/V3, without a query latent)
+# ---------------------------------------------------------------------------
+#
+# With h the normed input of a layer, per head:
+#     q = h W_q = [q_nope (dn), q_rope (dr)],   q_rope rotated at its position
+#     [c (r), k_rope (dr)] = h W_kv_a,          k_rope rotated, one for all heads
+#     [k_nope (dn), v (dv)] = rms_norm(c) W_kv_b
+#     o = softmax([q_nope, q_rope] . [k_nope, k_rope] / sqrt(dn + dr)) v
+# and o W_o.  The cache holds the normed latent c and the rotated k_rope,
+# r + dr values a token (576 at Moonlight's widths, against 2 H D = 4,096
+# for the keys and values of 16 heads of 128).  The rotary dims use the
+# rotate-half form of :func:`apply_rope` (DeepSeek's checkpoints rotate
+# interleaved pairs, a fixed permutation of W_q's and W_kv_a's rotary
+# columns).
+
+
+def mla_template(cfg) -> Dict[str, ParamSpec]:
+    d, h, a = cfg.d_model, cfg.num_heads, cfg.mla
+    return {
+        "wq": ParamSpec((d, h * a.qk_head_dim), ("embed", "heads")),
+        "wkv_a": ParamSpec((d, a.kv_lora_rank + a.qk_rope_head_dim),
+                           ("embed", None)),
+        "kv_norm": ParamSpec((a.kv_lora_rank,), (None,), init="ones"),
+        "wkv_b": ParamSpec((a.kv_lora_rank,
+                            h * (a.qk_nope_head_dim + a.v_head_dim)),
+                           (None, "heads")),
+        "wo": ParamSpec((h * a.v_head_dim, d), ("heads", "embed")),
+    }
+
+
+def mla_cache_template(cfg, batch: int, max_seq: int,
+                       dtype: str = "bfloat16") -> Dict[str, ParamSpec]:
+    """The latent cache: the normed latent ``ckv`` and the rotated key
+    ``kpe`` of every position."""
+    a = cfg.mla
+    return {
+        "ckv": ParamSpec((batch, max_seq, a.kv_lora_rank),
+                         ("batch", "kv_seq", None), init="zeros",
+                         dtype=dtype),
+        "kpe": ParamSpec((batch, max_seq, a.qk_rope_head_dim),
+                         ("batch", "kv_seq", None), init="zeros",
+                         dtype=dtype),
+    }
+
+
+def _mla_query_latent(p: Params, x: torch.Tensor, cfg,
+                      positions: torch.Tensor):
+    """-> ((B, S, H, dn) q_nope, (B, S, H, dr) rotated q_rope, (B, S, r)
+    latent before its norm, (B, S, dr) rotated k_rope)."""
+    B, S, _ = x.shape
+    a, h = cfg.mla, cfg.num_heads
+    dn, r = a.qk_nope_head_dim, a.kv_lora_rank
+    q = (x @ p["wq"]).view(B, S, h, a.qk_head_dim)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"]
+    k_rope = apply_rope(kv_a[..., None, r:], positions, cfg.rope_theta)
+    return q[..., :dn], q_rope, kv_a[..., :r], k_rope[:, :, 0]
+
+
+def mla(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor):
+    """Latent attention over the full prompt (serving's prefill): the
+    per-head keys and values come up from the normed latent, the rotary
+    key is broadcast to every head (the active tracer's span
+    ``attn.mla_up``), and kernel 7 runs (Dqk, Dv) = (dn + dr, dv) with
+    the scale 1/sqrt(dn + dr).  Forward only, as ``"pallas_flash"``.
+    -> (y, (normed latent (B, S, r), rotated k_rope (B, S, dr))): the
+    output and what the cache holds."""
+    B, S, _ = x.shape
+    a, h = cfg.mla, cfg.num_heads
+    dn = a.qk_nope_head_dim
+    q_nope, q_rope, c, k_rope = _mla_query_latent(p, x, cfg, positions)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    with trace.span("attn.mla_up"):
+        c = rms_norm(c, p["kv_norm"], cfg.rms_eps)
+        kv = (c @ p["wkv_b"]).view(B, S, h, dn + a.v_head_dim)
+        k = torch.cat([kv[..., :dn], k_rope[:, :, None].expand(
+            B, S, h, a.qk_rope_head_dim)], dim=-1)
+        v = kv[..., dn:]
+    out = _NoBackward.apply(q, k, v)
+    y = out.reshape(B, S, h * a.v_head_dim).to(x.dtype) @ p["wo"]
+    return y, (c, k_rope)
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cfg, *, pos: int
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode through the latent cache, in the absorbed form:
+    W_kv_b's key half is folded into the query (scores against the latent
+    itself) and its value half applied after the weighted latent sum, so
+    no position's keys or values are rebuilt.  The cache ({"ckv", "kpe"},
+    (B, Smax, .)) is written in place at ``pos`` (a Python int); scores,
+    softmax and sums in f32, as :func:`mha_decode`."""
+    B, S1, _ = x.shape
+    if S1 != 1:
+        raise ValueError(f"mla_decode takes one token, got {S1}")
+    a, h = cfg.mla, cfg.num_heads
+    dn, r = a.qk_nope_head_dim, a.kv_lora_rank
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c, k_rope = _mla_query_latent(p, x, cfg, positions)
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    ckv[:, pos] = rms_norm(c, p["kv_norm"], cfg.rms_eps)[:, 0].to(ckv.dtype)
+    kpe[:, pos] = k_rope[:, 0].to(kpe.dtype)
+    w = p["wkv_b"].view(r, h, dn + a.v_head_dim).float()
+    q_lat = torch.einsum("BHd,rHd->BHr", q_nope[:, 0].float(), w[..., :dn])
+    s = (torch.einsum("BHr,BSr->BHS", q_lat, ckv.float())
+         + torch.einsum("BHd,BSd->BHS", q_rope[:, 0].float(), kpe.float())) \
+        / math.sqrt(a.qk_head_dim)
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    s = s.masked_fill(~valid, NEG_INF)
+    o_lat = torch.einsum("BHS,BSr->BHr", torch.softmax(s, dim=-1),
+                         ckv.float())
+    o = torch.einsum("BHr,rHd->BHd", o_lat, w[..., dn:])
+    y = o.reshape(B, 1, h * a.v_head_dim).to(x.dtype) @ p["wo"]
+    return y, cache

@@ -8,6 +8,16 @@ reference's combine ends in a ``psum`` over ``model`` in bf16; over one
 shard that is the identity, but its bf16 rounding is not, so the combine
 here rounds to bf16 too.  Plain torch: the reference's MoE runs no Pallas
 kernel.
+
+The port's own MoE (``ModelConfig.sigmoid_moe``: DeepSeek-V3's, as
+Moonlight has it) has no counterpart in the reference: :func:`route_sigmoid`
+chooses each token's top-k experts by sigmoid score plus a correction
+bias and weighs them by the unbiased scores, renormalised and scaled;
+:func:`moe_dropless` computes every assignment (no capacity) as grouped
+products over each expert's contiguous segment of the sorted
+assignments, its per-expert offsets left on the card (no host sync),
+and adds the shared experts.  Spans ``moe.route``, ``moe.experts``,
+``moe.shared``; the counter ``moe.routed_assignments`` (T·k a layer).
 """
 from __future__ import annotations
 
@@ -17,18 +27,33 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamSpec, Params
+from repro_torch.models.layers import ParamSpec, Params, swiglu
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import REGISTRY as _METRICS
+
+#: routed (token, expert) assignments computed, T·k a dropless MoE layer
+_ASSIGNMENTS = _METRICS.counter("moe.routed_assignments")
 
 
 def moe_template(cfg) -> Dict[str, ParamSpec]:
     assert cfg.moe is not None
     d, X, Fe = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_expert
-    return {
+    sm = cfg.sigmoid_moe
+    t = {
         "router": ParamSpec((d, X), ("embed", None), dtype="float32"),
         "wg": ParamSpec((X, d, Fe), ("experts", "embed", "moe_ff")),
         "wu": ParamSpec((X, d, Fe), ("experts", "embed", "moe_ff")),
         "wd": ParamSpec((X, Fe, d), ("experts", "moe_ff", "embed")),
     }
+    if sm is not None:
+        t["bias"] = ParamSpec((X,), (None,), init="zeros", dtype="float32")
+        Fs = sm.num_shared_experts * Fe
+        t["shared"] = {
+            "wg": ParamSpec((d, Fs), ("embed", "mlp")),
+            "wu": ParamSpec((d, Fs), ("embed", "mlp")),
+            "wd": ParamSpec((Fs, d), ("mlp", "embed")),
+        }
+    return t
 
 
 def _capacity(tokens: int, top_k: int, num_experts: int, cf: float) -> int:
@@ -72,10 +97,89 @@ def dispatch(topi: torch.Tensor, X: int, C: int):
     return order, keep, dest
 
 
+def route_sigmoid(router: torch.Tensor, bias: torch.Tensor,
+                  xf: torch.Tensor, top_k: int, sm):
+    """DeepSeek-V3's router in f32 (``scoring_func`` sigmoid, ``topk_method``
+    noaux_tc over one group): (T, E) tokens -> (top-k weights (T, k) f32,
+    top-k expert ids (T, k)).  The experts are chosen by score + ``bias``
+    (ties to the lower id, as :func:`route`); the weights are the chosen
+    unbiased scores, renormalised (``norm_topk_prob``, the denominator
+    plus 1e-20 as DeepSeek's) and times ``routed_scale``."""
+    scores = torch.sigmoid(xf.float() @ router)
+    _, topi = torch.sort(scores + bias, dim=-1, descending=True, stable=True)
+    topi = topi[:, :top_k]
+    topw = scores.gather(1, topi)
+    topw = topw / (topw.sum(-1, keepdim=True) + 1e-20)
+    return topw * sm.routed_scale, topi
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+               ) -> torch.Tensor:
+    """(N, K) rows sorted by group, (G, K, M) weights and the (G,) int32
+    end of each group's rows -> (N, M): each group's rows times its
+    weight.  On the card one ``torch._grouped_mm`` reads the ends there;
+    the plain version (the CPU's) a product per group."""
+    if a.device.type != "cpu":
+        return torch._grouped_mm(a, w, offs=ends)
+    out = a.new_empty((a.shape[0], w.shape[2]))
+    start = 0
+    for g, end in enumerate(ends.tolist()):
+        out[start:end] = a[start:end] @ w[g]
+        start = end
+    return out
+
+
+def moe_dropless(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """DeepSeek-V3's MoE FFN: x (B, S, E) -> (B, S, E) in x's type.
+
+    The T·k assignments are sorted by expert (stably: within an expert in
+    token order) and every one is computed: each expert's SwiGLU runs on
+    its contiguous segment of the sorted rows (:func:`grouped_mm`, whose
+    offsets are found on the card by a search of the sorted ids, so the
+    layer never waits on the host).  The routing weight (f32) scales the
+    expert's hidden activations in place before its down product, as
+    ``silu(g) * u`` is formed in x's type (each product rounded once, as
+    :func:`swiglu` rounds); each token's k outputs are gathered back in
+    slot order and summed in f32, the shared experts' SwiGLU added, and
+    the sum rounded once."""
+    moe = cfg.moe
+    Bl, S, E = x.shape
+    T, X, k = Bl * S, moe.num_experts, moe.top_k
+    xf = x.reshape(T, E)
+    with trace.span("moe.route"):
+        topw, topi = route_sigmoid(p["router"], p["bias"], xf, k,
+                                   cfg.sigmoid_moe)
+        flat = topi.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        ends = torch.searchsorted(flat[order], torch.arange(
+            1, X + 1, dtype=flat.dtype, device=x.device)).to(torch.int32)
+        rows = xf.index_select(0, order // k)
+        s_w = topw.reshape(-1)[order]
+    _ASSIGNMENTS.inc(T * k)
+    with trace.span("moe.experts"):
+        g = grouped_mm(rows, p["wg"], ends)
+        u = grouped_mm(rows, p["wu"], ends)
+        h = F.silu(g).mul_(u).mul_(s_w[:, None])
+        del g, u
+        o = grouped_mm(h, p["wd"], ends)
+        back = torch.empty_like(order).scatter_(
+            0, order, torch.arange(T * k, device=x.device))
+        y = o[back].view(T, k, E).sum(dim=1, dtype=torch.float32)
+    with trace.span("moe.shared"):
+        sh = p["shared"]
+        y = y + swiglu(xf, sh["wg"], sh["wu"], sh["wd"]).float()
+    return y.to(x.dtype).reshape(Bl, S, E)
+
+
 def moe_ffn(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
-    """x: (B, S, E) -> (out (B, S, E) in x's type, aux loss (0-d f32))."""
+    """x: (B, S, E) -> (out (B, S, E) in x's type, aux loss (0-d f32)).
+    A dropless MoE (:func:`moe_dropless`) has no auxiliary loss here (its
+    load balance is the correction bias, a training matter): 0."""
     moe = cfg.moe
+    if cfg.sigmoid_moe is not None:
+        return moe_dropless(p, x, cfg), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
     Bl, S, E = x.shape
     T = Bl * S
     X, k = moe.num_experts, moe.top_k

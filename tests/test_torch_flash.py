@@ -201,12 +201,12 @@ def test_padded_head_dim_equals_the_plain_version(dtype, D, width):
     g = torch.Generator().manual_seed(D)
     q, k, v = (torch.randn((2, 3, 70, D), generator=g).to(dtype)
                for _ in range(3))
-    assert ops.padded_width(q, k, v) == width
+    assert ops.padded_width(q, k, v) == (width, width)
     assert ops.padded_width(*(t.new_zeros((1, 1, 8, width))
                               for t in (q, k, v))) is None
     for causal in (True, False):
         got, lse = ops._padded(ops._plain, q, k, v, causal, 2, 1, True,
-                               width)
+                               (width, width))
         want, want_lse = ops._plain(q, k, v, causal, 2, 1, True)
         assert got.shape == q.shape and got.is_contiguous()
         assert (lse - want_lse).abs().max().item() <= 1e-6

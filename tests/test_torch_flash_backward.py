@@ -76,7 +76,8 @@ def test_padded_backward_equals_the_plain_version(D, width, monkeypatch):
     monkeypatch.setattr(ops, "_kernel_backward", kernel)
     q, k, v, do = _bshd((2, 50, 3, D), (2, 50, 3, D), seed=D)
     out, lse = ops.flash_attention(q, k, v, return_lse=True)
-    assert ops.padded_width(*(t.bfloat16() for t in (q, k, v))) == width
+    assert ops.padded_width(*(t.bfloat16() for t in (q, k, v))) == (width,
+                                                                    width)
     got = ops._padded_backward(q, k, v, out, lse, do, True, width)
     want = _autograd(q, k, v, do, True)
     for a, b in zip(got, want):

@@ -1121,3 +1121,63 @@ def test_secure_exchange_and_keyed_route_at_8_workers_equal_the_cpu(cuda,
         assert torch.equal(a, b)
     assert bool(out["cpu"][1].all()) and bool(out["cpu"][4].all())
     assert int(out["cpu"][3].sum()) == W * 4096
+
+
+@pytest.mark.parametrize("Dqk,Dv,B,H,Sq,Skv,causal", [
+    (192, 128, 2, 16, 2048, 2048, True),      # latent attention's pair
+    (192, 128, 1, 4, 130, 700, True),         # ragged, Sq < Skv
+    (192, 128, 2, 4, 1000, 1000, False),
+    (190, 120, 1, 4, 200, 200, True),         # padded to (192, 128)
+    (96, 64, 1, 4, 200, 200, True),           # the (128, 128) one
+])
+def test_flash_kernel_takes_v_of_another_width(cuda, Dqk, Dv, B, H, Sq,
+                                               Skv, causal):
+    """Kernel 7 at (Dqk, Dv) pairs, latent attention's (192, 128) on the
+    TMA + wgmma instantiation, against the plain version, in both
+    layouts, its lse too."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda).manual_seed(Dqk + Sq)
+    q, k = (torch.randn((B, H, s, Dqk), generator=g, device=cuda)
+            .bfloat16() for s in (Sq, Skv))
+    v = torch.randn((B, H, Skv, Dv), generator=g, device=cuda).bfloat16()
+    got, lse = flash_ops.flash_attention_bhsd(q, k, v, causal=causal,
+                                              return_lse=True)
+    want, want_lse = attention_ref(q, k, v, causal=causal, return_lse=True)
+    assert got.shape == (B, H, Sq, Dv)
+    _assert_flash_close(got, want, q, k, v, causal)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    bshd = flash_ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                     causal=causal)
+    assert torch.equal(bshd.transpose(1, 2), got)
+
+
+def test_dropless_moe_makes_no_host_sync(cuda):
+    """Moonlight's MoE layer (smoke widths) on the card: no host sync
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one), the
+    grouped products equal to a product per expert."""
+    from repro_torch.configs import get_model_config, reduce_for_smoke
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import init_from_template
+    cfg = reduce_for_smoke(get_model_config("moonlight-16b-a3b"))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    p = init_from_template(MOE.moe_template(cfg), g, cuda)
+    x = torch.randn((2, 64, cfg.d_model), generator=g,
+                    device=cuda).bfloat16()
+    want = MOE.moe_dropless(p, x, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = MOE.moe_dropless(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    rows = x.reshape(-1, cfg.d_model)[:40]
+    ends = torch.tensor([5, 5, 17, 17, 30, 30, 31, 40], dtype=torch.int32,
+                        device=cuda)
+    grouped = MOE.grouped_mm(rows, p["wg"], ends)
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        torch.testing.assert_close(grouped[start:end],
+                                   rows[start:end] @ p["wg"][e])
+        start = end

@@ -267,6 +267,12 @@ def test_llama_template_equals_reference_without_allocating():
     cfg = configs.get_model_config("llama3.2-1b")
     jcfg = j_get_model_config("llama3.2-1b")
     port = dataclasses.asdict(cfg)
+    # the port's own fields (for models the reference lacks) at their
+    # defaults; every other field the reference's
+    own = {f.name: f.default for f in dataclasses.fields(cfg)
+           if not hasattr(jcfg, f.name)}
+    assert set(own) == {"mla", "first_dense_layers", "sigmoid_moe"}
+    assert {f: port.pop(f) for f in own} == own
     assert port == {f: getattr(jcfg, f) for f in port}
     # the reference's fields the port leaves out are unused by llama3.2-1b
     assert (jcfg.moe, jcfg.ssm, jcfg.xlstm, jcfg.frontend, jcfg.attn_every) \
